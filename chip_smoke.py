@@ -5,22 +5,44 @@
 
 Phases (any failed check raises and the run exits non-zero):
 1. the card's name and power limit; TF32 off, so fp32 means fp32;
-2. build the CUDA kernel of the serving path from `f_lite_tpu_torch/csrc`;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, in bf16 and fp32, timed beside the
+2. build the CUDA kernels (`f_lite_tpu_torch/csrc/*.cu`, one nvcc each, in
+   parallel) and print ptxas' register and spill lines;
+3. the forward kernel against its plain PyTorch version on the card, at
+   the shapes the serving path gives it, in bf16 and fp32, timed beside the
    plain version, one PyTorch library call of the same function
    (`scaled_dot_product_attention`, a yardstick the port never calls) and
    the card's bound for the work; the largest abs error allowed is 1e-5 in
    fp32 and 5% of the plain fp32 result's rms in bf16
    (`flash_attention.tolerance`), printed with each shape;
-4. the committed trained fixture (`artifacts/fixture_run/pipeline`): 4
-   requests of the 24 shape captions, 64x64 px, 30 steps, g=6; the images
-   must be classified right (both_acc >= 0.95) and the attention kernel
-   must have been launched exactly 4 * 30 * 12 times;
-5. one 7B-width request (DiT f_lite_7b + Flux VAE decoder, seeded random
-   weights on the card): 1024x1024, 30 steps, g=6, 128 text tokens of which
-   77 are real; finite output, exactly 30 * 56 kernel launches;
-6. a `{"kernels": [...]}` line, then the card line, then the last line
+4. the dq and dkv kernels against `flash_attention_bwd_plain` at the
+   training path's shapes, in bf16 and fp32 (`grad_tolerance`: 5% of the
+   plain gradient's rms in bf16, with P and dS rounded to bf16 where the
+   kernels round them, 1e-5 of its largest magnitude in fp32),
+   with exact zeros at masked keys and kv_len 0 rows, timed beside the
+   plain version, SDPA forward + backward minus forward, and the bound;
+5. one 7B-width DiT block with cross-attention and residual_v (bf16
+   compute, fp32 weights, 512 px, batch 4): every parameter and input
+   gradient through the kernels within 2e-2 (relative norm) of the same
+   block through the plain attention;
+6. serving, the committed trained fixture (`artifacts/fixture_run/
+   pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
+   g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
+7. serving, one 7B-width request (DiT f_lite_7b + Flux VAE decoder, seeded
+   random weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77
+   are real; finite output, exactly 30 * 56 forward launches;
+8. training, the fixture's recipe from scratch through the port's trainer
+   (`f_lite_tpu_torch.train`): a precomputed cache of 24 classes x 128
+   shapes images (64 px, pixel space) written here, 300 steps at batch 32,
+   bf16; the mean logged loss over steps 260-300 must be <= 0.15 (the JAX
+   run's `artifacts/fixture_run/train.log` reads 0.073); exactly 12
+   launches of each kernel per step; the exported pipeline reloads with
+   the same DiT output;
+9. training, `f_lite_7b_width_d20_train512`: the 7B's widths at depth 20,
+   512 px latents (1040 tokens), batch 4, bf16 with fp32 master weights,
+   checkpointing from block 8, 10 steps; finite loss and grad norm,
+   exactly 46 forward, 31 dq and 31 dkv launches per step, peak memory
+   under 80 GB, and a profile of one step;
+10. a `{"kernels": [...]}` line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, where `torch.cuda.is_available()` is
@@ -29,10 +51,14 @@ false or the package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,6 +111,20 @@ def log(*args):
     print(*args, flush=True)
 
 
+def reset_counts():
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES):
+        counter.reset()
+
+
+def read_counts() -> dict:
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    return dict(fwd=fa.LAUNCHES.count, dq=fa.DQ_LAUNCHES.count,
+                dkv=fa.DKV_LAUNCHES.count)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -127,6 +167,8 @@ ATTN_SHAPES = [
     ("7b_cross", 2, 10, 4112, 128, 256, [77, 128]),
     ("odd_d64", 3, 2, 333, 77, 64, [77, 0, 41]),
     ("odd_d256", 2, 3, 130, 93, 256, [0, 93]),
+    ("train_7b_self", 4, 10, 1040, 1040, 256, None),
+    ("train_7b_cross", 4, 10, 1040, 128, 256, [77, 128, 77, 128]),
 ]
 
 
@@ -187,14 +229,509 @@ def check_attention() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the trained fixture
+# phase 4: the backward kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# (label, B, H, Lq, Lk, D, kv_lens or None): the training path's calls
+BWD_SHAPES = [
+    ("fixture_self", 32, 4, 1040, 1040, 64, None),
+    ("fixture_cross", 32, 4, 1040, 32, 64, [32] * 32),
+    ("7b_self", 4, 10, 1040, 1040, 256, None),
+    ("7b_cross", 4, 10, 1040, 128, 256, [77, 128, 77, 128]),
+    ("odd_d64", 3, 2, 333, 77, 64, [77, 0, 41]),
+    ("odd_d256", 2, 3, 130, 93, 256, [0, 93]),
+]
+
+
+def backward_bound_ms(b, h, lq, lk, d, kv_lens, dtype_name, which) -> tuple:
+    """The least time of the work on an H100 SXM: products over the real
+    keys (dq: 3 -> 6*H*Lq*D*keys flops, dkv: 4 -> 8*..., the pair: 14, a
+    fused design's least: 5 -> 10*...), against the bytes read and written
+    once (k, v over the real keys; lse and D fp32)."""
+    keys = sum(kv_lens) if kv_lens is not None else b * lk
+    item = 2 if dtype_name == "bfloat16" else 4
+    q_rows = b * h * lq * d * item      # q, dO, O or dq
+    kv_real = h * keys * d * item      # k or v, real keys only
+    kv_all = b * h * lk * d * item     # dk or dv, every key written
+    stats = b * h * lq * 4             # lse or D
+    products, nbytes = {
+        "dq": (3, 2 * q_rows + 2 * kv_real + 2 * stats + q_rows),
+        "dkv": (4, 2 * q_rows + 2 * kv_real + 2 * stats + 2 * kv_all),
+        "pair": (7, 3 * q_rows + 2 * kv_real + 2 * stats + q_rows + 2 * kv_all),
+        "fused": (5, 3 * q_rows + 2 * kv_real + 2 * stats + q_rows + 2 * kv_all),
+    }[which]
+    t_ops = 2.0 * products * h * lq * d * keys / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_backward_ms(q, k, v, dout, mask):
+    """SDPA forward + backward minus forward (a yardstick the port never
+    calls); None where no SDPA backend takes the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask).backward(dout)
+
+    try:
+        return time_ms(fwd_bwd) - time_ms(fwd)
+    except RuntimeError as err:  # no backend for this shape and dtype
+        log(f"  sdpa backward: none ({str(err).splitlines()[0][:120]})")
+        return None
+
+
+def check_backward() -> list[dict]:
+    import torch
+
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, b, h, lq, lk, d, kv in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            q, k, v, dout = (
+                torch.randn((b, h, n, d), generator=gen, device="cuda",
+                            dtype=dtype)
+                for n in (lq, lk, lk, lq)
+            )
+            lens = None if kv is None else torch.tensor(
+                kv, dtype=torch.int32, device="cuda")
+            qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+            lse = fa.flash_attention_lse_plain(qf, kf, lens)
+            delta = fa.attention_delta(fa.flash_attention_plain(qf, kf, vf, lens), dof)
+            got = fa.flash_attention_bwd(q, k, v, dout, lse, delta, lens)
+            torch.cuda.synchronize()
+            # the plain version rounds P and dS to bf16 where the kernels do
+            want = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, lens,
+                                                out_dtype=torch.float32)
+            errs, tols = {}, {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[gname] = float((g.float() - w).abs().max())
+                tols[gname] = fa.grad_tolerance(w, dtype)
+                if not math.isfinite(errs[gname]) or errs[gname] > tols[gname]:
+                    raise AssertionError(
+                        f"backward {label} {name} {gname}: max abs err "
+                        f"{errs[gname]} > {tols[gname]}")
+            if kv is not None:
+                if got[0][lens == 0].any():
+                    raise AssertionError(f"backward {label} {name}: dq != 0 at kv_len 0")
+                masked = torch.arange(lk, device="cuda")[None, :] >= lens[:, None]
+                if any(g.transpose(1, 2)[masked].any() for g in got[1:]):
+                    raise AssertionError(f"backward {label} {name}: dk/dv != 0 at masked keys")
+            del got, want
+            args = (q, k, v, dout, lse, delta, lens)
+            dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(*args))
+            dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+            plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(*args))
+            mask = None if lens is None else (
+                torch.arange(lk, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+            lib_ms = sdpa_backward_ms(q, k, v, dout, mask)
+            bounds = {w: backward_bound_ms(b, h, lq, lk, d, kv, name, w)
+                      for w in ("dq", "dkv", "pair", "fused")}
+            row = dict(shape=label, dtype=name, q=[b, h, lq, d],
+                       kv=[b, h, lk, d], kv_lens=kv, max_abs_err=errs,
+                       tolerance=tols, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                       pair_ms=dq_ms + dkv_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms,
+                       bound_ms={w: bd[0] for w, bd in bounds.items()},
+                       bound_by={w: bd[1] for w, bd in bounds.items()})
+            log("backward", json.dumps(row))
+            rows.append(row)
+            del q, k, v, dout, qf, kf, vf, dof, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: one 7B-width block's gradients, kernels against plain attention
+# ---------------------------------------------------------------------------
+
+def check_block_grads(batch=4, size=512, text_len=128) -> dict:
+    """Block 1 of f_lite_7b (self-attention mixing block 0's V through
+    lambda_v, cross-attention), fp32 weights computing in bf16 at 512 px
+    (64x64 latents, 1040 tokens): every parameter and input gradient through
+    the kernels within 2e-2 (relative norm) of the plain attention's.
+
+    The loss is sum(w * out), w a random tensor plus, at the same norm, the
+    output's response to lambda_v (out at lambda_v + 0.1 minus out at
+    lambda_v - 0.1). lambda_v's gradient is one number summing 10.6M
+    products; with a random w alone it sums to near zero and its relative
+    error is a ratio of two near-zero sums."""
+    import numpy as np
+    import torch
+
+    import f_lite_tpu_torch.ops.attention as attn_mod
+    from f_lite_tpu_torch.models.dit import DiTBlock, DiTConfig
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.ops.rope import rope_2d_freqs
+    from f_lite_tpu_torch.utils.random_weights import randomize_
+
+    cfg = DiTConfig.f_lite_7b(dtype=torch.bfloat16)
+    with torch.device("cuda"):
+        block = randomize_(DiTBlock(cfg, 1), seed=5)
+    assert block.do_cross_attn and hasattr(block.self_attn, "lambda_v")
+    g = torch.Generator("cuda").manual_seed(6)
+    tokens = cfg.n_register_tokens + (size // 8 // cfg.patch_size) ** 2
+    d, h, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    inputs = dict(x=rand(batch, tokens, d), context=rand(batch, text_len, d),
+                  modulation=rand(batch, 9, d, scale=0.1),
+                  v_first=rand(batch, h, tokens, hd))
+    mask = torch.from_numpy(
+        np.arange(text_len)[None, :] < np.asarray([77, 128, 77, 128])[:batch, None]
+    ).cuda()
+    rope = rope_2d_freqs(hd, size // 16, size // 16, base=cfg.rope_base,
+                         n_register_tokens=cfg.n_register_tokens, device="cuda")
+    weight = torch.randn((batch, tokens, d), generator=g, device="cuda")
+    with torch.no_grad():
+        lam = block.self_attn.lambda_v
+        saved = lam.clone()
+        outs = []
+        for shift in (0.1, -0.1):
+            lam.copy_(saved + shift)
+            outs.append(block(inputs["x"], inputs["context"], mask,
+                              inputs["modulation"], rope, inputs["v_first"])[0].float())
+        lam.copy_(saved)
+        response = outs[0] - outs[1]
+        weight += response * (weight.norm() / response.norm())
+
+    def grads(attention_fn):
+        attn_mod.flash_attention = attention_fn
+        try:
+            block.zero_grad(set_to_none=True)
+            leaves = {n: t.detach().clone().requires_grad_() for n, t in inputs.items()}
+            out, _ = block(leaves["x"], leaves["context"], mask,
+                           leaves["modulation"], rope, leaves["v_first"])
+            (out.float() * weight).sum().backward()
+            res = {f"param:{n}": p.grad.float().clone() for n, p in block.named_parameters()}
+            res.update({f"input:{n}": t.grad.float() for n, t in leaves.items()})
+            return res
+        finally:
+            attn_mod.flash_attention = fa.flash_attention
+
+    reset_counts()
+    kernel = grads(fa.flash_attention)
+    counts = read_counts()
+    plain = grads(fa.flash_attention_plain)
+    if counts != dict(fwd=2, dq=2, dkv=2):
+        raise AssertionError(f"block gradients: launches {counts}, expected 2 of each")
+    rel = {n: float((kernel[n] - plain[n]).norm() / plain[n].norm()) for n in plain}
+    res = dict(config="f_lite_7b block 1", batch=batch, tokens=tokens,
+               text_len=text_len, launches=counts, max_rel=max(rel.values()),
+               rel=rel)
+    log("block_grads", json.dumps(res))
+    bad = {n: r for n, r in rel.items() if not r <= 2e-2}
+    if bad:
+        raise AssertionError(f"block gradients off by more than 2e-2: {bad}")
+    del block, kernel, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the fixture's training recipe through the port's trainer
+# ---------------------------------------------------------------------------
+
+def draw_shape(size, rgb, shape, rng):
+    """(size, size, 3) uint8: one shape on the gray background, drawn like
+    tools/make_shapes_dataset.py (radius 30-45% of the image, jittered
+    centre) with a pixel-centre rasteriser of its own."""
+    import numpy as np
+
+    r = size * rng.uniform(0.30, 0.45)
+    margin = r + 1
+    cx = rng.uniform(margin, size - margin)
+    cy = rng.uniform(margin, size - margin)
+    y, x = np.mgrid[0:size, 0:size] + 0.5
+    if shape == "circle":
+        inside = (x - cx) ** 2 + (y - cy) ** 2 <= r * r
+    elif shape == "square":
+        inside = (np.abs(x - cx) <= r) & (np.abs(y - cy) <= r)
+    else:  # triangle, apex up
+        inside = (y >= cy - r) & (y <= cy + r) & (np.abs(x - cx) <= (y - (cy - r)) / 2)
+    img = np.empty((size, size, 3), np.uint8)
+    img[:] = BACKGROUND
+    img[inside] = rgb
+    return img
+
+
+def write_shapes_cache(root: Path, per_class=128, size=64, seed=0) -> int:
+    """The shapes dataset as a precomputed cache: pixels in [-1, 1] NHWC as
+    the latents, and each caption's ZeroTextEncoder(64, seq_len=32)
+    embedding (all 32 rows real, as on the online path)."""
+    import numpy as np
+
+    from f_lite_tpu_torch.data.precomputed import PrecomputedCacheWriter
+    from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+
+    enc = ZeroTextEncoder(64, seq_len=32)
+    writer = PrecomputedCacheWriter(root)
+    rng = np.random.RandomState(seed)
+    for color, rgb in COLORS.items():
+        for shape in SHAPES:
+            caption = f"a {color} {shape}"
+            emb, mask = enc.encode([caption])
+            emb = emb[0][mask[0]]
+            for i in range(per_class):
+                img = draw_shape(size, rgb, shape, rng)
+                writer.add(f"{color}/{shape}/{i}", caption,
+                           img.astype(np.float32) / 127.5 - 1.0, emb)
+    writer.finalize()
+    return len(writer.entries)
+
+
+class StepLog(logging.Handler):
+    """Prints the trainer's log lines and keeps the `step N loss X` ones."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.losses = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        log(f"  train: {msg}")
+        parts = msg.split()
+        if parts[:1] == ["step"] and parts[2:3] == ["loss"]:
+            self.losses[int(parts[1])] = float(parts[3])
+
+
+def run_training(argv, on_step) -> tuple:
+    """`f_lite_tpu_torch.train` with `argv`, its log lines printed: (result
+    dict, {step: logged loss})."""
+    from f_lite_tpu_torch.train.trainer import parse_args, train
+
+    handler = StepLog()
+    train_log = logging.getLogger("f_lite_tpu_torch.train")
+    train_log.setLevel(logging.INFO)
+    train_log.addHandler(handler)
+    try:
+        result = train(parse_args(argv), on_step=on_step)
+    finally:
+        train_log.removeHandler(handler)
+    return result, handler.losses
+
+
+class StepWatch:
+    """An `on_step` callback: per-step host time after a synchronise, the
+    launch counts of each step, and a torch.profiler window over steps
+    (start, stop]."""
+
+    def __init__(self, profile_window=None, check=None):
+        self.times, self.per_step = [], []
+        self.window = profile_window
+        self.check = check
+        self.prof = None
+        self.profile = None
+        self.state = None
+        self._last = None
+        self._t = None
+
+    def begin(self):
+        """Call just before the run: the counts and the clock start here."""
+        import torch
+
+        torch.cuda.synchronize()
+        self._last = read_counts()
+        self._t = time.perf_counter()
+
+    def __call__(self, state, metrics):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.times.append(now - self._t)
+        self._t = now
+        counts = read_counts()
+        self.per_step.append({k: counts[k] - self._last[k] for k in counts})
+        self._last = counts
+        self.state = state
+        if self.check is not None:
+            self.check(state.step, metrics)
+        if self.window and state.step == self.window[0]:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self._t_prof = time.perf_counter()
+        elif self.window and state.step == self.window[1]:
+            self.prof.__exit__(None, None, None)
+            self.profile = profile_summary(
+                self.prof, (now - self._t_prof) * 1e3,
+                label=f"step_profile (steps {self.window[0] + 1}-{self.window[1]})")
+            self.prof = None
+            self._t = time.perf_counter()  # the profiler's own teardown
+
+
+def run_fixture_training(tmp: Path, steps=300) -> dict:
+    """The fixture recipe of artifacts/fixture_run/train.log from scratch."""
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+
+    cfg = json.loads((FIXTURE / "dit" / "config.json").read_text())
+    cache = tmp / "shapes_cache"
+    t0 = time.perf_counter()
+    n_items = write_shapes_cache(cache)
+    cache_s = time.perf_counter() - t0
+    out = tmp / "fixture_train"
+    argv = ["--device", "cuda", "--use_precomputed_data",
+            "--precomputed_data_dir", str(cache), "--pixel_space",
+            "--model_width", str(cfg["hidden_size"]),
+            "--model_depth", str(cfg["depth"]),
+            "--model_head_dim", str(cfg["hidden_size"] // cfg["num_heads"]),
+            "--cross_attn_input_size", str(cfg["cross_attn_input_size"]),
+            "--residual_v", "--train_batch_size", "32",
+            "--learning_rate", "8e-4", "--num_warmup_steps", "200",
+            "--lr_scheduler", "constant", "--max_steps", str(steps),
+            "--num_epochs", "100", "--mixed_precision", "bf16",
+            "--log_every", "10", "--seed", "0", "--output_dir", str(out),
+            "--export_pipeline"]
+    n_attn = cfg["depth"] + sum(
+        DiTConfig.from_json_dict(cfg).block_has_cross_attn(i) for i in range(cfg["depth"]))
+    watch = StepWatch(profile_window=(100, 103))
+    reset_counts()
+    watch.begin()
+    result, losses = run_training(argv, watch)
+    counts = read_counts()
+    late = [losses[s] for s in range(260, steps + 1, 10)]
+    step_s = statistics.median(watch.times[2:])
+    res = dict(items=n_items, cache_write_s=cache_s, steps=result["global_step"],
+               logged_losses=losses, mean_loss_260_300=statistics.mean(late),
+               jax_mean_loss_260_300=0.073, s_per_step=step_s,
+               wall_s=result["wall_s"], launches=counts,
+               per_step_expected=dict(fwd=n_attn, dq=n_attn, dkv=n_attn),
+               idle_share=watch.profile["idle_share"])
+    log("fixture_train", json.dumps(res))
+    if result["global_step"] != steps:
+        raise AssertionError(f"fixture training ran {result['global_step']} steps")
+    bad = [i + 1 for i, c in enumerate(watch.per_step)
+           if c != dict(fwd=n_attn, dq=n_attn, dkv=n_attn)]
+    if bad:
+        raise AssertionError(f"fixture training: launch counts off at steps {bad[:5]}")
+    if not res["mean_loss_260_300"] <= 0.15:
+        raise AssertionError(f"fixture training: mean loss {res['mean_loss_260_300']} > 0.15")
+
+    # the export reloads with the same DiT (both in fp32 on one batch)
+    trained = watch.state.model
+    trained.config = dataclasses.replace(trained.config, dtype=None)
+    trained.eval()
+    pipe = FLitePipeline.from_pretrained(out / "pipeline", dtype=torch.float32)
+    g = torch.Generator("cuda").manual_seed(9)
+    x = torch.randn((4, 64, 64, 3), generator=g, device="cuda")
+    ctx = torch.randn((4, 32, cfg["cross_attn_input_size"]), generator=g, device="cuda") * 0.02
+    t = torch.rand(4, generator=g, device="cuda")
+    with torch.no_grad():
+        want = trained(x, ctx, None, t)
+        got = pipe.dit(x, ctx, None, t)
+    diff = float((got - want).abs().max())
+    res["export_max_abs_diff"] = diff
+    log("fixture_export", json.dumps(dict(max_abs_diff=diff,
+                                          out_abs_max=float(want.abs().max()))))
+    if not isinstance(pipe.dit, DiT) or diff > 1e-5:
+        raise AssertionError(f"exported DiT differs from the trained one by {diff}")
+    del pipe, trained, watch
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: f_lite_7b_width_d20_train512
+# ---------------------------------------------------------------------------
+
+def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
+    """The 7B's widths at depth 20, 512 px (64x64x16 latents), batch 4, text
+    embeddings of 77 and 128 real rows (padded to 128), bf16 compute over
+    fp32 master weights, checkpointing from block 8, AdamW, 10 steps."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.data.precomputed import PrecomputedCacheWriter
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    cache = tmp / "7b_cache"
+    writer = PrecomputedCacheWriter(cache)
+    rs = np.random.RandomState(10)
+    for i, n_text in enumerate((77, 128, 77, 128)[:batch]):
+        writer.add(f"item{i}", f"prompt {i}",
+                   rs.randn(64, 64, cfg.in_channels).astype(np.float32),
+                   (rs.randn(n_text, cfg.cross_attn_input_size) * 0.02).astype(np.float32))
+    writer.finalize()
+    argv = ["--device", "cuda", "--use_precomputed_data",
+            "--precomputed_data_dir", str(cache),
+            "--model_width", str(cfg.hidden_size), "--model_depth", str(depth),
+            "--model_head_dim", str(cfg.head_dim),
+            "--in_channels", str(cfg.in_channels),
+            "--cross_attn_input_size", str(cfg.cross_attn_input_size),
+            "--residual_v", "--train_batch_size", str(batch),
+            "--num_epochs", str(steps), "--max_steps", str(steps),
+            "--learning_rate", "1e-4", "--lr_scheduler", "constant",
+            "--num_warmup_steps", "2", "--max_grad_norm", "1.0",
+            "--mixed_precision", "bf16", "--gradient_checkpointing",
+            "--log_every", "1", "--seed", "0", "--output_dir", str(tmp / "7b_out")]
+    n_self = depth
+    n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
+    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
+    expected = dict(fwd=n_self + n_cross + n_remat, dq=n_self + n_cross,
+                    dkv=n_self + n_cross)
+    finite = []
+
+    def check(step, metrics):
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        finite.append(math.isfinite(loss) and math.isfinite(gnorm))
+        log(f"  7b step {step}: loss {loss} grad_norm {gnorm}")
+
+    watch = StepWatch(profile_window=(steps - 2, steps - 1), check=check)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    watch.begin()
+    result, _ = run_training(argv, watch)
+    counts = read_counts()
+    n_params = sum(p.numel() for p in watch.state.model.parameters())
+    res = dict(config="f_lite_7b_width_d20_train512", params=n_params,
+               batch=batch, tokens=1040, steps=result["global_step"],
+               s_per_step=statistics.median(watch.times[2:]),
+               step_s=watch.times,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, per_step=watch.per_step[0],
+               per_step_expected=expected, all_finite=all(finite),
+               step_profile=watch.profile)
+    log("7b_train", json.dumps(res))
+    if result["global_step"] != steps or not all(finite) or len(finite) != steps:
+        raise AssertionError(f"7B training: {result['global_step']} steps, finite {finite}")
+    bad = [i + 1 for i, c in enumerate(watch.per_step) if c != expected]
+    if bad:
+        raise AssertionError(
+            f"7B training: launch counts {watch.per_step[bad[0] - 1]} at step "
+            f"{bad[0]}, expected {expected}")
+    if not res["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"7B training peak {res['max_memory_allocated_gb']} GB")
+    del watch
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving, the trained fixture
 # ---------------------------------------------------------------------------
 
 def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
     import numpy as np
     import torch
 
-    from f_lite_tpu_torch.ops.cuda.flash_attention import LAUNCHES
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 
@@ -209,7 +746,7 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
 
     both = 0
     seconds = []
-    LAUNCHES.reset()
+    reset_counts()
     for seed in range(n_requests):
         latents = np.random.RandomState(seed).randn(
             len(classes), 64, 64, cfg.in_channels).astype(np.float32)
@@ -224,14 +761,15 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
         if imgs.shape != (len(classes), 64, 64, 3) or not np.isfinite(imgs).all():
             raise AssertionError(f"fixture images: shape {imgs.shape} or non-finite")
         both += sum(classify(img) == cls for img, cls in zip(imgs, classes))
-    launches = LAUNCHES.count
+    counts = read_counts()
+    launches = counts["fwd"]
     n = n_requests * len(classes)
     res = dict(requests=n_requests, images=n, both_acc=both / n,
                s_per_request=seconds, launches=launches,
-               expected_launches=expected)
+               expected_launches=expected, counts=counts)
     log("fixture", json.dumps(res))
-    if launches != expected:
-        raise AssertionError(f"fixture: {launches} kernel launches, expected {expected}")
+    if counts != dict(fwd=expected, dq=0, dkv=0):
+        raise AssertionError(f"fixture: launches {counts}, expected {expected} forward only")
     if both / n < 0.95:
         raise AssertionError(f"fixture: both_acc {both / n} < 0.95")
     del pipe
@@ -240,7 +778,7 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: one 7B-width request at 1024 px
+# phase 7: serving, one 7B-width request at 1024 px
 # ---------------------------------------------------------------------------
 
 def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict:
@@ -249,7 +787,6 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
 
     from f_lite_tpu_torch.models.dit import DiT, DiTConfig
     from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-    from f_lite_tpu_torch.ops.cuda.flash_attention import LAUNCHES
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.utils.random_weights import randomize_
 
@@ -289,7 +826,7 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
              vae.decoder.register_forward_hook(post_decode)]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    LAUNCHES.reset()
+    reset_counts()
     t0 = time.perf_counter()
     out = pipe(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
                num_inference_steps=steps, guidance_scale=guidance,
@@ -297,7 +834,8 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
                output_type="uint8")
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = LAUNCHES.count
+    counts = read_counts()
+    launches = counts["fwd"]
     for hk in hooks:
         hk.remove()
 
@@ -313,8 +851,8 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
         raise AssertionError(f"7B image {img.shape} {img.dtype}")
     if finite != [True]:
         raise AssertionError("7B decoded image holds NaN or Inf")
-    if launches != expected:
-        raise AssertionError(f"7B: {launches} kernel launches, expected {expected}")
+    if counts != dict(fwd=expected, dq=0, dkv=0):
+        raise AssertionError(f"7B: launches {counts}, expected {expected} forward only")
     res["step_profile"] = profile_step(
         lambda: pipe(prompt_embeds=embeds, context_mask=mask, height=size,
                      width=size, num_inference_steps=1,
@@ -337,17 +875,30 @@ def profile_step(run_one_step) -> dict:
         run_one_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+def profile_summary(prof, wall_ms, label="step_profile") -> dict:
+    """Device ms by kernel class, busy ms and idle share of a window of
+    `wall_ms` traced by `prof`."""
+    import torch
+
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     def dev_ms(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0)) / 1e3
     busy = sum(dev_ms(e) for e in kernels)
-    classes = {"flash_attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+               "flash_attention_bwd_dkv": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         if "flash_fwd" in n:
             classes["flash_attention_fwd"] += dev_ms(e)
+        elif "flash_bwd_dq" in n:
+            classes["flash_attention_bwd_dq"] += dev_ms(e)
+        elif "flash_bwd_dkv" in n:
+            classes["flash_attention_bwd_dkv"] += dev_ms(e)
         elif any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
             classes["matmul"] += dev_ms(e)
         else:
@@ -357,7 +908,7 @@ def profile_step(run_one_step) -> dict:
                idle_share=(1.0 - busy / wall_ms) if busy else None,
                by_class_ms=classes,
                top=[dict(name=e.key[:90], ms=dev_ms(e), count=e.count) for e in top])
-    log("step_profile", json.dumps(res))
+    log(label, json.dumps(res))
     return res
 
 
@@ -367,7 +918,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from f_lite_tpu_torch.ops.cuda.build import library_path, load
+    from f_lite_tpu_torch.ops.cuda.build import SOURCES, build, library_path
 
     card = card_line()
     log("card:", card)
@@ -377,34 +928,70 @@ def main() -> int:
         "device", torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    load("flash_attention_fwd")
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in library_path("flash_attention_fwd").with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    build()
+    log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(SOURCES)})")
+    for name in SOURCES:
+        for line in library_path(name).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     rows = check_attention()
+    bwd_rows = check_backward()
+    block = check_block_grads()
     fixture = run_fixture()
     big = run_7b()
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture_train = run_fixture_training(Path(tmp))
+        train_7b = run_7b_training(Path(tmp))
 
     main_row = next(r for r in rows if r["shape"] == "7b_self" and r["dtype"] == "bfloat16")
-    kernel = dict(
+    forward = dict(
         name="flash_attention_fwd",
         route="cuda",
         source="f_lite_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="f_lite_tpu/ops/pallas/flash_attention.py:92",
         replaces_function="_fa_fwd_kernel",
-        launches=big["launches"],
-        launches_fixture=fixture["launches"],
+        launches=train_7b["launches"]["fwd"],
+        launches_per_train_step=train_7b["per_step"]["fwd"],
+        launches_serving_7b_image=big["launches"],
+        launches_serving_fixture=fixture["launches"],
+        launches_fixture_train=fixture_train["launches"]["fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=main_row["library_ms"],
-        at="7b_self bfloat16",
+        at="7b_self (serving, B=2 L=4112) bfloat16",
         shapes=rows,
     )
-    log(json.dumps({"kernels": [kernel]}))
+    bwd_main = next(r for r in bwd_rows if r["shape"] == "7b_self" and r["dtype"] == "bfloat16")
+    backward = []
+    for name, fn, ms_key, grads in (("flash_attention_bwd_dq", "_dq_kernel:269", "dq_ms", ("dq",)),
+                                    ("flash_attention_bwd_dkv", "_dkv_kernel:316", "dkv_ms", ("dk", "dv"))):
+        which = "dq" if name.endswith("dq") else "dkv"
+        backward.append(dict(
+            name=name,
+            route="cuda",
+            source="f_lite_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"f_lite_tpu/ops/pallas/flash_attention.py:{fn.split(':')[1]}",
+            replaces_function=fn.split(":")[0],
+            launches=train_7b["launches"][which],
+            launches_per_train_step=train_7b["per_step"][which],
+            launches_fixture_train=fixture_train["launches"][which],
+            max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
+            max_err_over_tolerance=max(r["max_abs_err"][gname] / r["tolerance"][gname]
+                                       for r in bwd_rows for gname in grads),
+            ms=bwd_main[ms_key], plain_ms=bwd_main["plain_ms"],
+            plain_covers="dq, dk and dv together",
+            bound_ms=bwd_main["bound_ms"][which], bound_by=bwd_main["bound_by"][which],
+            library_ms=bwd_main["library_ms"],
+            library_covers="SDPA forward + backward minus forward (dq, dk, dv)",
+            pair_ms=bwd_main["pair_ms"], fused_bound_ms=bwd_main["bound_ms"]["fused"],
+            at="7b_self (training, B=4 L=1040) bfloat16",
+        ))
+    log(json.dumps({"kernels": [forward, *backward],
+                    "block_grads_max_rel": block["max_rel"],
+                    "backward_shapes": bwd_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

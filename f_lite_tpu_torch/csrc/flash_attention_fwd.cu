@@ -6,6 +6,10 @@
 //   O = softmax(scale * Q K^T, keys j >= kv_lens[b] masked) V
 // with fp32 online-softmax statistics, an unnormalised fp32 accumulator
 // divided by the row sum once at the end, and zero rows where kv_len == 0.
+// When `lse` is not null (the training path) it also writes the fp32 row
+// log-sum-exp lse = m + log(l) of the scaled logits, (B,H,Lq), that the
+// backward kernels (flash_attention_bwd.cu) recompute P from; a row that
+// saw no key gets kLseEmpty, as `_fa_fwd_kernel(save_lse=True)` stores.
 //
 // Two instances:
 // - bf16 (serving): tensor cores through mma.sync.m16n8k16 bf16 -> fp32.
@@ -26,14 +30,16 @@
 //
 // Entry point: flash_attention_fwd(...) returns cudaGetLastError() after
 // the launch (0 on success). dtype: 0 = fp32, 1 = bf16. kv_lens may be
-// null (every key is real).
+// null (every key is real); lse may be null (no lse output).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int kThreads = 128;  // 4 warps
 
@@ -44,88 +50,15 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kBQ = 64;  // query rows per block (16 per warp)
 constexpr int kBK = 64;  // keys per tile
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (rows, D) bf16 matrix into shared
-// memory with row stride D + 8; rows at or past `limit` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int limit, int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool valid = row0 + r < limit;
-    const __nv_bfloat16* g =
-        src + static_cast<size_t>(valid ? row0 + r : 0) * D + c * 8;
-    cp_async16(smem_u32(dst + r * kStride + c * 8), g, valid ? 16 : 0);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const int* __restrict__ kv_lens,
-                          __nv_bfloat16* __restrict__ o, int H, int Lq,
-                          int Lk, float scale_log2) {
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int H, int Lq, int Lk,
+                          float scale_log2) {
   constexpr int kStride = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -162,14 +95,14 @@ __global__ void __launch_bounds__(kThreads)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
-  load_tile<D, kBQ>(sQ, qg, q0, Lq, tid);
+  load_tile<D, kBQ, kThreads>(sQ, qg, q0, Lq, tid);
   cp_async_commit();
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
-    load_tile<D, kBK>(sK, kg, k0, Lk, tid);
+    load_tile<D, kBK, kThreads>(sK, kg, k0, Lk, tid);
     cp_async_commit();
-    load_tile<D, kBK>(sV, vg, k0, Lk, tid);
+    load_tile<D, kBK, kThreads>(sV, vg, k0, Lk, tid);
     cp_async_commit();
     cp_async_wait<1>();  // Q and K have landed; V may still be in flight
     __syncthreads();
@@ -271,6 +204,15 @@ __global__ void __launch_bounds__(kThreads)
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
   const int row = q0 + warp * 16 + g;
+  if (lse != nullptr && tig == 0) {
+    // m_run is in the log2 domain of the scaled logits
+    float* lg = lse + bh * Lq;
+    if (row < Lq)
+      lg[row] = l_run[0] > 0.f ? m_run[0] * kLn2 + logf(l_run[0]) : kLseEmpty;
+    if (row + 8 < Lq)
+      lg[row + 8] =
+          l_run[1] > 0.f ? m_run[1] * kLn2 + logf(l_run[1]) : kLseEmpty;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + tig * 2;
@@ -309,8 +251,8 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const int* __restrict__ kv_lens,
-                         float* __restrict__ o, int H, int Lq, int Lk,
-                         float scale) {
+                         float* __restrict__ o, float* __restrict__ lse,
+                         int H, int Lq, int Lk, float scale) {
   constexpr int kKS = D + 1;
   constexpr int kSS = kF32BK + 1;
   constexpr int kPer = kF32BQ * D / kThreads;  // accumulators per thread
@@ -402,6 +344,10 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();  // sL written by the softmax threads
+  if (lse != nullptr && tid < kF32BQ && q0 + tid < Lq) {
+    const float l = sL[tid];
+    lse[bh * Lq + q0 + tid] = l > 0.f ? sM[tid] + logf(l) : kLseEmpty;
+  }
 
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -415,18 +361,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const int* kv_lens, void* o, int B, int H, int Lq,
-                        int Lk, float scale, cudaStream_t stream) {
+                        const int* kv_lens, void* o, float* lse, int B,
+                        int H, int Lq, int Lk, float scale,
+                        cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (D + 8) *
                       sizeof(__nv_bfloat16);
   cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, smem);
@@ -436,23 +375,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_lens,
-      static_cast<__nv_bfloat16*>(o), H, Lq, Lk,
-      scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const int* kv_lens, void* o, int B, int H, int Lq,
-                       int Lk, float scale, cudaStream_t stream) {
+                       const int* kv_lens, void* o, float* lse, int B, int H,
+                       int Lq, int Lk, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_floats<D>() * sizeof(float);
   cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kF32BQ - 1) / kF32BQ, H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_lens, static_cast<float*>(o), H, Lq,
-      Lk, scale);
+      static_cast<const float*>(v), kv_lens, static_cast<float*>(o), lse, H,
+      Lq, Lk, scale);
   return cudaGetLastError();
 }
 
@@ -460,17 +398,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* kv_lens,
-                                   void* o, int B, int H, int Lq, int Lk,
-                                   int D, float scale, int dtype,
+                                   void* o, float* lse, int B, int H, int Lq,
+                                   int Lk, int D, float scale, int dtype,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, kv_lens, o, B, H, Lq, Lk, scale, st);
+    return launch_bf16<64>(q, k, v, kv_lens, o, lse, B, H, Lq, Lk, scale, st);
   if (dtype == 1 && D == 256)
-    return launch_bf16<256>(q, k, v, kv_lens, o, B, H, Lq, Lk, scale, st);
+    return launch_bf16<256>(q, k, v, kv_lens, o, lse, B, H, Lq, Lk, scale,
+                            st);
   if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, kv_lens, o, B, H, Lq, Lk, scale, st);
+    return launch_f32<64>(q, k, v, kv_lens, o, lse, B, H, Lq, Lk, scale, st);
   if (dtype == 0 && D == 256)
-    return launch_f32<256>(q, k, v, kv_lens, o, B, H, Lq, Lk, scale, st);
+    return launch_f32<256>(q, k, v, kv_lens, o, lse, B, H, Lq, Lk, scale,
+                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

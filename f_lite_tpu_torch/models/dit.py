@@ -10,7 +10,14 @@ cross-attention pattern, v2 per-block AdaLN with cross-attention in every
 block, `residual_v` (block 0 emits its V, later blocks mix it in through
 `lambda_v`), register tokens, the non-trainable QK-RMSNorm,
 `dynamic_softmax_temperature`, and `train_bias_and_rms`. The attention goes
-through `ops.attention.attention`, i.e. the Hopper kernel on the card.
+through `ops.attention.attention`, i.e. the Hopper kernels on the card.
+
+Training as the JAX package does it: `DiTConfig.dtype` is the compute dtype
+(None = the parameters' own), and every layer casts its weights to the
+activations' dtype, as flax's `dtype` over `param_dtype` does (fp32 master
+weights computing in bf16); `gradient_checkpoint` recomputes the blocks from
+`gradient_checkpoint_from` on in the backward (`remat_policy` "full");
+`init_weights` draws the JAX initializers.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from f_lite_tpu_torch.ops.attention import attention, compact_context
 from f_lite_tpu_torch.ops.norms import rms_norm
@@ -30,9 +38,10 @@ from f_lite_tpu_torch.ops.timesteps import timestep_embedding
 
 
 # `dit/config.json` fields that shape only the JAX program: ignored here
-_PROGRAM_ONLY = ("pipeline_microbatches", "gradient_checkpoint",
-                 "gradient_checkpoint_from", "remat_policy",
-                 "use_pallas_attention")
+_PROGRAM_ONLY = ("pipeline_microbatches", "use_pallas_attention")
+# lecun_normal: a normal of variance 1/fan_in truncated at two standard
+# deviations, widened so that the truncated variance is 1/fan_in
+_TRUNC_STD = 0.87962566103423978
 # fields whose non-default values need code the port does not have yet
 _UNSUPPORTED = {"scan_layers": False, "pipeline_stages": 1,
                 "padded_heads": None, "quantized": False}
@@ -60,10 +69,16 @@ class DiTConfig:
     cross_attn_all: bool = False  # v2: every block
     n_register_tokens: int = 16
     pos_embed_max_len: int = 2048  # only when use_rope=False
+    gradient_checkpoint: bool = False
+    gradient_checkpoint_from: int = 8  # recompute blocks >= this
+    remat_policy: str = "full"  # "full": keep block inputs only
+    dtype: torch.dtype | None = None  # compute dtype; None = param dtype
 
     def __post_init__(self):
         if self.adaln_mode not in ("shared", "per_block"):
             raise ValueError(f"adaln_mode {self.adaln_mode!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy {self.remat_policy!r}")
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "DiTConfig":
@@ -78,6 +93,16 @@ class DiTConfig:
         if unknown:
             raise ValueError(f"DiTConfig: unknown fields {sorted(unknown)}")
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def to_json_dict(self) -> dict:
+        """`dit/config.json` as the JAX package writes it: every field of
+        its DiTConfig but the dtypes, the ones the port lacks at their
+        defaults."""
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+             if f.name != "dtype"}
+        d.update(_UNSUPPORTED, pipeline_microbatches=1,
+                 use_pallas_attention=None)
+        return d
 
     @property
     def head_dim(self) -> int:
@@ -103,6 +128,15 @@ class DiTConfig:
         return cls(**kw)
 
 
+class Dense(nn.Linear):
+    """nn.Linear that computes in its input's dtype: weight and bias are
+    cast to it inside the layer (flax's `dtype` over `param_dtype`)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class RMSNormModule(nn.Module):
     """RMSNorm with a learnable weight, fp32 statistics."""
 
@@ -126,11 +160,11 @@ class Attention(nn.Module):
         self.is_self_attn = is_self_attn
         d, bias = cfg.hidden_size, cfg.train_bias_and_rms
         if is_self_attn:
-            self.qkv = nn.Linear(d, 3 * d, bias=bias)
+            self.qkv = Dense(d, 3 * d, bias=bias)
         else:
-            self.q = nn.Linear(d, d, bias=bias)
-            self.context_kv = nn.Linear(d, 2 * d, bias=bias)
-        self.proj = nn.Linear(d, d, bias=False)
+            self.q = Dense(d, d, bias=bias)
+            self.context_kv = Dense(d, 2 * d, bias=bias)
+        self.proj = Dense(d, d, bias=False)
         if has_lambda_v:
             self.lambda_v = nn.Parameter(torch.full((1,), 0.5))
 
@@ -177,9 +211,9 @@ class SwiGLUMLP(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         d, inter = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
-        self.gate_proj = nn.Linear(d, inter, bias=False)
-        self.up_proj = nn.Linear(d, inter, bias=False)
-        self.down_proj = nn.Linear(inter, d, bias=False)
+        self.gate_proj = Dense(d, inter, bias=False)
+        self.up_proj = Dense(d, inter, bias=False)
+        self.down_proj = Dense(inter, d, bias=False)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -187,7 +221,7 @@ class SwiGLUMLP(nn.Module):
 
 def _adaln_head(d: int, n: int) -> nn.Sequential:
     """SiLU -> Linear(d, n*d); keys `<name>.1.weight/bias`."""
-    return nn.Sequential(nn.SiLU(), nn.Linear(d, n * d))
+    return nn.Sequential(nn.SiLU(), Dense(d, n * d))
 
 
 class DiTBlock(nn.Module):
@@ -241,9 +275,9 @@ class PatchEmbed(nn.Module):
         self.patch_proj = nn.Conv2d(c, d, kernel_size=p, stride=p)
 
     def forward(self, tokens):
-        w = self.patch_proj.weight  # (D, C, p, p)
+        w = self.patch_proj.weight.to(tokens.dtype)  # (D, C, p, p)
         w = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
-        return F.linear(tokens, w, self.patch_proj.bias)
+        return F.linear(tokens, w, self.patch_proj.bias.to(tokens.dtype))
 
 
 class DiT(nn.Module):
@@ -254,7 +288,7 @@ class DiT(nn.Module):
         super().__init__()
         self.config = cfg
         d = cfg.hidden_size
-        self.context_proj = nn.Linear(cfg.cross_attn_input_size, d)
+        self.context_proj = Dense(cfg.cross_attn_input_size, d)
         self.context_norm = RMSNormModule(d)
         self.patch_embed = PatchEmbed(cfg)
         self.register_tokens = nn.Parameter(
@@ -265,7 +299,7 @@ class DiT(nn.Module):
                 torch.zeros(1, cfg.pos_embed_max_len, d)
             )
         self.time_embed = nn.Sequential(
-            nn.Linear(d, 4 * d), nn.SiLU(), nn.Linear(4 * d, d)
+            Dense(d, 4 * d), nn.SiLU(), Dense(4 * d, d)
         )
         if cfg.adaln_mode == "shared":
             self.adaLN_modulation = _adaln_head(d, 9)
@@ -273,11 +307,40 @@ class DiT(nn.Module):
         self.final_modulation = _adaln_head(d, 2)
         if cfg.train_bias_and_rms:
             self.final_norm = RMSNormModule(d)
-        self.final_proj = nn.Linear(d, cfg.patch_size**2 * cfg.in_channels)
+        self.final_proj = Dense(d, cfg.patch_size**2 * cfg.in_channels)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.context_proj.weight.dtype
+        """The compute dtype: `config.dtype`, else the parameters'."""
+        return self.config.dtype or self.context_proj.weight.dtype
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DiT":
+        """The JAX package's initializers, drawn from `generator` (on the
+        parameters' device): lecun_normal kernels (truncated normal,
+        fan_in = in_features) with zero biases; zero AdaLN heads and
+        final_proj, so a fresh DiT outputs exactly 0; N(0, 1) registers;
+        zero positional table; lambda_v 0.5; norm weights 1."""
+        zero_heads = {"adaLN_modulation", "final_modulation", "final_proj"}
+        for name, mod in self.named_modules():
+            if isinstance(mod, RMSNormModule):
+                mod.weight.fill_(1.0)
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                w = mod.weight
+                if zero_heads & set(name.split(".")):
+                    w.zero_()
+                else:
+                    std = math.sqrt(1.0 / math.prod(w.shape[1:])) / _TRUNC_STD
+                    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                          generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, Attention) and hasattr(mod, "lambda_v"):
+                mod.lambda_v.fill_(0.5)
+        self.register_tokens.normal_(0.0, 1.0, generator=generator)
+        if not self.config.use_rope:
+            self.positional_embedding.zero_()
+        return self
 
     def forward(self, x, context, context_mask, t):
         cfg = self.config
@@ -309,12 +372,21 @@ class DiT(nn.Module):
         if cfg.adaln_mode == "shared":
             modulation = self.adaLN_modulation(t_emb).reshape(b, 9, d)
 
+        remat = cfg.gradient_checkpoint and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported yet")
         v_first = None
-        for block in self.blocks:
+        for idx, block in enumerate(self.blocks):
             if cfg.adaln_mode == "per_block":
                 modulation = block.adaLN_modulation(t_emb).reshape(b, 9, d)
-            tokens, v_first = block(tokens, context, context_mask, modulation,
-                                    rope, v_first)
+            args = (tokens, context, context_mask, modulation, rope, v_first)
+            if remat and idx >= cfg.gradient_checkpoint_from:
+                # keep the block's inputs only; the backward runs the block
+                # again under grad mode (so attention saves its lse again)
+                tokens, v_first = checkpoint(block, *args, use_reentrant=False)
+            else:
+                tokens, v_first = block(*args)
 
         # drop registers; final modulation + projection
         tokens = tokens[:, cfg.n_register_tokens:, :]

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources into plain-C shared libraries.
 
 `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` (Hopper) into
-`csrc/build/lib<name>-<hash>.so`, where the hash covers the source and the
-flags, and is loaded with `ctypes`. Nothing includes PyTorch's headers, so a
-build takes seconds. Builds happen at first use, never at import; nvcc's
-`-Xptxas -v` report is kept beside the library as `lib<name>-<hash>.log`.
+`csrc/build/lib<name>-<hash>.so`, where the hash covers the source, the
+shared headers (`csrc/*.cuh`) and the flags, and is loaded with `ctypes`.
+Nothing includes PyTorch's headers, so a build takes seconds. Builds happen
+at first use, never at import; `build()` starts one nvcc per source, all at
+once. nvcc's `-Xptxas -v` report is kept beside each library as
+`lib<name>-<hash>.log`.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,8 +42,38 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Build every library of `names` that is not built yet: one nvcc
+    process per source, started together; raises if any fails."""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu:\n{report}")
+            continue
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(report)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -48,18 +81,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(proc.stdout)
-    lib = _libs[name] = ctypes.CDLL(str(out))
+    build([name])
+    lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -1,25 +1,35 @@
-"""Flash-attention forward: the Hopper kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the Hopper kernels' wrappers and
+their plain versions.
 
-Replaces the TPU kernel `_fa_fwd_kernel` (launcher `_flash_forward`,
-wrapper `flash_attention`) in `f_lite_tpu/ops/pallas/flash_attention.py`.
+Replaces the TPU kernels of `f_lite_tpu/ops/pallas/flash_attention.py`:
+`_fa_fwd_kernel` (launcher `_flash_forward`), `_dq_kernel` and
+`_dkv_kernel` (launcher `_flash_backward`), and their `jax.custom_vjp`
+(`_flash_fwd_vjp` / `_flash_bwd_vjp`), which becomes a
+`torch.autograd.Function`.
 
 What it computes: O = softmax(scale * Q K^T, keys j >= kv_lens[b] masked) V
 for q (B, H, Lq, D) and k, v (B, H, Lk, D), with fp32 softmax statistics,
 one division by the row sum at the end, and a zero row where kv_len == 0.
+Under grad mode the forward also returns the fp32 row log-sum-exp lse
+(B, H, Lq) (LSE_EMPTY where kv_len == 0), and the backward computes
+D = rowsum(dO * O) in fp32 once, then dq (dq kernel) and dk, dv (dkv
+kernel) from P = exp(scale * Q K^T - lse) recomputed tile by tile.
 
 Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): 4*B*H*Lq*Lk*D
-flops against (q + k + v + o) bytes. Self-attention at the 7B serving shape
-(B=2 H=10 L=4112 D=256) is operation-bound at 0.35 ms; cross-attention over
-128 padded text keys is byte-bound (q and o, about 25 us).
+flops forward, 14*B*H*Lq*Lk*D for the two backward kernels (dq 3 products,
+dkv 4), against the bytes of q, k, v, o (and dO, lse, D, dq, dk, dv).
+Self-attention at the 7B shapes is operation-bound; cross-attention over
+128 padded text keys is byte-bound.
 
-Design (`csrc/flash_attention_fwd.cu`): bf16 runs on the tensor cores with
-mma.sync m16n8k16, 64 query rows per block and key tiles of 64 rows
-streamed through shared memory with cp.async up to kv_len only; fp32 (the
-parity type) is a plain FMA kernel. D is 64 (the trained fixture) or 256
+Design (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`): bf16
+runs on the tensor cores with mma.sync m16n8k16, 64-row blocks and 64-row
+tiles streamed through shared memory with cp.async up to kv_len only; fp32
+(the parity type) is plain FMA. D is 64 (the trained fixture) or 256
 (7B/10B); other head dims and dtypes raise.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. `LAUNCHES.count` counts kernel launches.
+On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
+they launch the kernels or raise. `LAUNCHES`, `DQ_LAUNCHES` and
+`DKV_LAUNCHES` count kernel launches.
 """
 
 from __future__ import annotations
@@ -35,6 +45,9 @@ HEAD_DIMS = (64, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FP32_ATOL = 1e-5
 BF16_RMS_FRACTION = 0.05
+# lse of a row that saw no key: the TPU kernel's running-max start value
+# (-0.7 * float32 max) plus log(1)
+LSE_EMPTY = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
@@ -53,6 +66,21 @@ def tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
     raise TypeError(f"no tolerance for {dtype}")
 
 
+def grad_tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
+    """The largest abs error allowed between a backward kernel's gradient in
+    `dtype` and the plain version's fp32 gradient `ref` on the same inputs.
+
+    fp32: 1e-5 of the reference's largest magnitude, since each gradient
+    sums up to Lq or Lk products in another order. bf16: 5% of the
+    reference's rms, as for the forward. The plain version rounds P and dS
+    to bf16 where the kernels (and the TPU kernels) do: that rounding alone
+    moves a gradient's largest errors to the size of the bar, so the bar
+    holds the kernel to the specified arithmetic, not to unrounded fp32."""
+    if dtype == torch.float32:
+        return FP32_ATOL * float(ref.abs().max())
+    return tolerance(ref, dtype)
+
+
 class LaunchCounter:
     """A plain count of kernel launches, reset by whoever reads it."""
 
@@ -63,7 +91,9 @@ class LaunchCounter:
         self.count = 0
 
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()      # the forward kernel
+DQ_LAUNCHES = LaunchCounter()   # the dq kernel
+DKV_LAUNCHES = LaunchCounter()  # the dkv kernel
 
 
 def _lengths(kv_lens, b, lk, device):
@@ -73,6 +103,13 @@ def _lengths(kv_lens, b, lk, device):
     if lens.shape != (b,):
         raise ValueError(f"kv_lens must have shape ({b},), got {tuple(lens.shape)}")
     return lens.to(torch.int32).clamp(0, lk).contiguous()
+
+
+def _key_mask(lens, lk, device):
+    """(B, 1, 1, Lk) bool, True at real keys; None when every key is."""
+    if lens is None:
+        return None
+    return (torch.arange(lk, device=device)[None, :] < lens[:, None])[:, None, None, :]
 
 
 def flash_attention_plain(q, k, v, kv_lens=None, *, scale=None):
@@ -85,8 +122,7 @@ def flash_attention_plain(q, k, v, kv_lens=None, *, scale=None):
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     lens = _lengths(kv_lens, b, lk, q.device)
     if lens is not None:
-        key_ok = torch.arange(lk, device=q.device)[None, :] < lens[:, None]
-        logits = logits.masked_fill(~key_ok[:, None, None, :], float("-inf"))
+        logits = logits.masked_fill(~_key_mask(lens, lk, q.device), float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     if lens is not None:
         # softmax over an all -inf row is NaN; such rows attend nothing
@@ -95,26 +131,81 @@ def flash_attention_plain(q, k, v, kv_lens=None, *, scale=None):
     return out.to(q.dtype)
 
 
+def flash_attention_lse_plain(q, k, kv_lens=None, *, scale=None):
+    """The plain version of the forward's lse output: fp32 (B, H, Lq)
+    log-sum-exp of the masked scaled logits, LSE_EMPTY where kv_len == 0."""
+    b, _, _, d = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    lens = _lengths(kv_lens, b, lk, q.device)
+    if lens is None:
+        return torch.logsumexp(logits, dim=-1)
+    logits = logits.masked_fill(~_key_mask(lens, lk, q.device), float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.where((lens > 0)[:, None, None], lse, LSE_EMPTY)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, lse, delta, kv_lens=None, *,
+                              scale=None, out_dtype=None):
+    """The plain version of both backward kernels, the same recompute math
+    in fp32: P = exp(scale * Q K^T - lse), selected to 0 at masked keys;
+    dv = P^T dO; dS = P * (dO V^T - delta); dq = scale * dS K;
+    dk = scale * dS^T Q. `delta` (B, H, Lq) is rowsum(dO * O) in fp32.
+    As in the kernels and the TPU kernels, P is rounded to dO's dtype
+    before P^T dO and dS to q's dtype before the dq and dk products (a no-op
+    for fp32 inputs). Returns (dq, dk, dv) in `out_dtype`, else in the
+    dtypes of q, k, v."""
+    b, _, _, d = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    lens = _lengths(kv_lens, b, lk, q.device)
+    if lens is not None:
+        # a select, never a product: exp overflows to inf where lse is
+        # LSE_EMPTY (kv_len == 0)
+        p = torch.where(_key_mask(lens, lk, q.device), p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = (p * (dp - delta.float()[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return (dq.to(out_dtype or q.dtype), dk.to(out_dtype or k.dtype),
+            dv.to(out_dtype or v.dtype))
+
+
+def attention_delta(out, dout):
+    """D = rowsum(dO * O) in fp32, (B, H, Lq): computed once outside the
+    backward kernels, as `_flash_bwd_vjp` does outside Pallas."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 @functools.cache
-def _library():
-    """The C entry point (builds the kernel on first use)."""
-    fn = load("flash_attention_fwd").flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
+def _entry(lib_name: str, fn_name: str, n_ptrs: int):
+    """A C entry point `fn(<n_ptrs pointers>, B, H, Lq, Lk, D, scale, dtype,
+    stream)` (builds its library on first use)."""
+    fn = getattr(load(lib_name), fn_name)
+    fn.restype = _INT
+    fn.argtypes = [_PTR] * n_ptrs + [_INT] * 5 + [_FLOAT, _INT, _PTR]
     return fn
 
 
-def flash_attention(q, k, v, kv_lens=None, *, scale=None):
-    """Flash attention. q (B,H,Lq,D); k, v (B,H,Lk,D); kv_lens (B,) ints,
-    the number of real keys of each batch row (None: all Lk are real).
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
-    CPU tensors take `flash_attention_plain`. CUDA tensors launch the
-    Hopper kernel; q, k and v are made contiguous first (the DiT hands
-    over head-transposed views)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_lens, scale=scale)
+
+def _check_cuda(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -137,20 +228,150 @@ def flash_attention(q, k, v, kv_lens=None, *, scale=None):
         raise ValueError("flash_attention: q, k, v on different devices")
     if lq == 0 or lk == 0:
         raise ValueError("flash_attention: empty query or key sequence")
-    if scale is None:
-        scale = d**-0.5
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lens = _lengths(kv_lens, b, lk, q.device)
-    out = torch.empty_like(q)
-    fn = _library()
+
+
+def _launch(fn_name, lib_name, ptrs, q, k, scale):
+    """Launch entry point `fn_name` of `csrc/<lib_name>.cu` on q's stream."""
+    b, h, lq, d = q.shape
+    fn = _entry(lib_name, fn_name, len(ptrs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lens is None else lens.data_ptr(), out.data_ptr(),
-            b, h, lq, lk, d, float(scale), _DTYPE_CODES[q.dtype], stream,
-        )
+        err = fn(*ptrs, b, h, lq, k.shape[2], d, float(scale),
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+def _forward_kernel(q, k, v, lens, scale, with_lse: bool):
+    """Launch the forward kernel on contiguous CUDA q, k, v: (out, lse or
+    None)."""
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
+           if with_lse else None)
+    _launch("flash_attention_fwd", "flash_attention_fwd",
+            (_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out), _ptr(lse)),
+            q, k, scale)
     LAUNCHES.count += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fwd_lse(q, k, v, kv_lens=None, *, scale=None):
+    """(out, lse): the forward with its fp32 (B, H, Lq) row log-sum-exp.
+    CPU tensors take the plain versions; CUDA tensors launch the forward
+    kernel with its lse output."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, kv_lens, scale=scale),
+                flash_attention_lse_plain(q, k, kv_lens, scale=scale))
+    _check_cuda(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lens = _lengths(kv_lens, q.shape[0], k.shape[2], q.device)
+    return _forward_kernel(q, k, v, lens, scale, with_lse=True)
+
+
+def _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale):
+    """Checked, contiguous inputs of the backward kernels (CUDA tensors)."""
+    _check_cuda(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention_bwd: dout {tuple(dout.shape)} {dout.dtype} "
+            f"does not match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
+        raise ValueError("flash_attention_bwd: lse and delta must be (B, H, Lq)")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    lens = _lengths(kv_lens, q.shape[0], k.shape[2], q.device)
+    q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(lens))
+    return q, k, v, ptrs, scale
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_lens=None, *,
+                           scale=None):
+    """dq from the dq kernel (CUDA tensors; see `flash_attention_bwd`)."""
+    q, k, v, ptrs, scale = _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale)
+    dq = torch.empty_like(q)
+    _launch("flash_attention_bwd_dq", "flash_attention_bwd",
+            ptrs + (_ptr(dq),), q, k, scale)
+    DQ_LAUNCHES.count += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_lens=None, *,
+                            scale=None):
+    """(dk, dv) from the dkv kernel (CUDA tensors; see
+    `flash_attention_bwd`)."""
+    q, k, v, ptrs, scale = _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv", "flash_attention_bwd",
+            ptrs + (_ptr(dk), _ptr(dv)), q, k, scale)
+    DKV_LAUNCHES.count += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, kv_lens=None, *,
+                        scale=None):
+    """Gradients (dq, dk, dv) of flash attention from the forward's lse and
+    delta = rowsum(dO * O). CPU tensors take `flash_attention_bwd_plain`;
+    CUDA tensors launch the dq kernel, then the dkv kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, kv_lens,
+                                         scale=scale)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_lens, scale=scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_lens,
+                                     scale=scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the counterpart of the
+    `jax.custom_vjp` `_flash_attention`): the forward saves q, k, v,
+    kv_lens, O and lse; the backward computes D = rowsum(dO * O) once and
+    launches the dq and dkv kernels (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens, scale):
+        out, lse = flash_attention_fwd_lse(q, k, v, lens, scale=scale)
+        ctx.save_for_backward(q, k, v, lens, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lens, out, lse = ctx.saved_tensors
+        # dO arrives as a transposed view (out.transpose(1, 2).reshape(...)
+        # in the DiT); the kernels take contiguous rows
+        dout = dout.contiguous()
+        delta = attention_delta(out, dout)
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, delta, lens,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, kv_lens=None, *, scale=None):
+    """Flash attention. q (B,H,Lq,D); k, v (B,H,Lk,D); kv_lens (B,) ints,
+    the number of real keys of each batch row (None: all Lk are real).
+
+    CPU tensors take `flash_attention_plain`. CUDA tensors launch the Hopper
+    kernel; q, k and v are made contiguous first (the DiT hands over
+    head-transposed views). When a gradient is needed (grad mode on and q,
+    k or v requiring one) the call goes through `_FlashAttention`: the
+    forward kernel also writes lse, and the backward launches the dq and
+    dkv kernels. Otherwise the LSE-free forward runs alone."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    on_cpu = q.device.type == "cpu"
+    if not on_cpu:
+        _check_cuda(q, k, v)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lens = _lengths(kv_lens, q.shape[0], k.shape[2], q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, lens, float(scale))
+    if on_cpu:
+        return flash_attention_plain(q, k, v, lens, scale=scale)
+    return _forward_kernel(q, k, v, lens, scale, with_lse=False)[0]

@@ -1,5 +1,5 @@
-"""Timestep embeddings and the resolution-shift schedule (counterpart of
-`f_lite_tpu/ops/timesteps.py`)."""
+"""Timestep embeddings, the resolution-shift schedule and train-time t
+sampling (counterpart of `f_lite_tpu/ops/timesteps.py`)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,16 @@ def euler_timestep_pairs(num_steps: int, alpha: float) -> torch.Tensor:
     t = shift_t(i / num_steps, alpha)
     t_next = shift_t((i - 1.0) / num_steps, alpha)
     return torch.stack([t, t_next], dim=-1)
+
+
+def sample_train_timesteps(generator: torch.Generator, batch_size: int,
+                           image_token_size: int) -> torch.Tensor:
+    """Train-time t, fp32 (B,) in (0, 1), on the generator's device: 90%
+    sigmoid(N(0, 1)) through the resolution shift, 10% uniform."""
+    device = generator.device
+    alpha = resolution_alpha(image_token_size)
+    z = torch.randn(batch_size, generator=generator, device=device)
+    t_shifted = shift_t(torch.sigmoid(z), alpha)
+    do_uniform = torch.rand(batch_size, generator=generator, device=device) < 0.1
+    uniform = torch.rand(batch_size, generator=generator, device=device)
+    return torch.where(do_uniform, uniform, t_shifted)

@@ -1,12 +1,17 @@
 """Text encoders producing (embeddings (B, S, C), mask (B, S)) pairs
 (counterpart of `f_lite_tpu/text/encoder.py`; only the hermetic encoder is
-ported so far)."""
+ported so far), and the precompute cache's caption key."""
 
 from __future__ import annotations
 
 import hashlib
 
 import numpy as np
+
+
+def caption_cache_key(caption: str) -> str:
+    """md5 of the caption: the key of the precomputed-embedding cache."""
+    return hashlib.md5(caption.encode("utf-8")).hexdigest()
 
 
 class ZeroTextEncoder:

@@ -1,10 +1,10 @@
-"""A numpy-only reader of the safetensors format.
+"""A numpy-only reader and writer of the safetensors format.
 
 Layout: an 8-byte little-endian header length N, N bytes of JSON
 ({name: {"dtype", "shape", "data_offsets": [begin, end]}, optional
 "__metadata__"}), then the tensor bytes, offsets relative to the end of the
 header. F32 and F16 load as such; BF16 widens exactly to float32 (numpy has
-no bfloat16).
+no bfloat16). The writer stores float32 arrays, in name order.
 """
 
 from __future__ import annotations
@@ -38,3 +38,26 @@ def load_file(path: str | Path) -> dict[str, np.ndarray]:
             arr = (arr.astype(np.uint32) << 16).view(np.float32)
         out[name] = arr.copy()
     return out
+
+
+def save_file(tensors: dict[str, np.ndarray], path: str | Path) -> None:
+    """Write `tensors` ({name: float32 array}) as one safetensors file."""
+    header: dict = {}
+    blobs, offset = [], 0
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        if arr.dtype != np.float32:
+            raise ValueError(f"tensor {name}: {arr.dtype}, the writer takes float32")
+        data = arr.astype("<f4", copy=False).tobytes()
+        header[name] = {"dtype": "F32",
+                        "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)

@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the Hopper kernel against its
-plain version, and the DiT and pipeline on the card against the same code on
-the CPU. They skip without a card. This file imports no JAX, so it also runs
+"""Tests of the port that need an NVIDIA GPU: the Hopper kernels (forward,
+dq, dkv) against their plain versions, and the DiT's gradients, a training
+step and the pipeline on the card against the same code on the CPU. They
+skip without a card. This file imports no JAX, so it also runs
 on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -16,6 +17,8 @@ from f_lite_tpu_torch.models.dit import DiT, DiTConfig
 from f_lite_tpu_torch.ops.cuda import flash_attention as tfa
 from f_lite_tpu_torch.pipeline import FLitePipeline
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+from f_lite_tpu_torch.train.optim import build_optimizer
+from f_lite_tpu_torch.train.step import TrainState, train_step
 from f_lite_tpu_torch.utils.random_weights import randomize_
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -66,6 +69,67 @@ def test_kernel_matches_plain(cuda_device, dtype, b, h, lq, lk, d, kv_lens):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES)
+def test_forward_lse_matches_plain(cuda_device, dtype, b, h, lq, lk, d, kv_lens):
+    q, k, v = _qkv(b, h, lq, lk, d, cuda_device, dtype)
+    lens = None if kv_lens is None else torch.tensor(kv_lens, device=cuda_device)
+    out, lse = tfa.flash_attention_fwd_lse(q, k, v, lens)
+    want = tfa.flash_attention_lse_plain(q.float(), k.float(), lens)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, lq)
+    torch.testing.assert_close(out, tfa.flash_attention(q, k, v, lens),
+                               atol=0, rtol=0)
+    live = torch.ones(b, dtype=torch.bool, device=cuda_device) if lens is None else lens > 0
+    torch.testing.assert_close(lse[live], want[live], rtol=0,
+                               atol=1e-4 if dtype == torch.float32 else 2e-2)
+    assert bool((lse[~live] < -1e38).all())  # kv_len 0: the sentinel, never read
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES)
+def test_backward_kernels_match_plain(cuda_device, dtype, b, h, lq, lk, d,
+                                      kv_lens):
+    """dq and dkv kernels against `flash_attention_bwd_plain` on the same
+    inputs (plain in fp32): `grad_tolerance`, exact zeros at masked keys
+    and at kv_len 0 rows, one launch each."""
+    q, k, v = _qkv(b, h, lq, lk, d, cuda_device, dtype)
+    dout = _qkv(b, h, lq, lq, d, cuda_device, dtype, seed=1)[0]
+    lens = None if kv_lens is None else torch.tensor(kv_lens, device=cuda_device)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    lse = tfa.flash_attention_lse_plain(qf, kf, lens)
+    delta = tfa.attention_delta(tfa.flash_attention_plain(qf, kf, vf, lens), dof)
+    before = (tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    got = tfa.flash_attention_bwd(q, k, v, dout, lse, delta, lens)
+    torch.cuda.synchronize()
+    assert (tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, lens,
+                                         out_dtype=torch.float32)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        err = float((g.float() - w).abs().max())
+        assert err <= tfa.grad_tolerance(w, dtype), (name, err)
+    if kv_lens is not None:
+        assert not got[0][lens == 0].any()
+        masked = torch.arange(lk, device=cuda_device)[None, :] >= lens[:, None]
+        for g in got[1:]:
+            assert not g.transpose(1, 2)[masked].any()
+
+
+@pytest.mark.cuda
+def test_autograd_launches_the_backward_kernels(cuda_device):
+    q, k, v = (x.requires_grad_() for x in _qkv(2, 2, 70, 70, 64, cuda_device,
+                                                 torch.bfloat16))
+    before = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    tfa.flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    after = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in (q, k, v))
+
+
+@pytest.mark.cuda
 def test_kernel_takes_transposed_views(cuda_device):
     q, k, v = _qkv(2, 3, 50, 50, 64, cuda_device, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
@@ -105,6 +169,71 @@ def test_dit_on_the_card_matches_the_cpu(cuda_device):
     assert tfa.LAUNCHES.count - before == 3 + 2  # 3 self, 2 cross blocks
     assert float(want.abs().max()) > 1e-2
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _small_dit_and_inputs():
+    cfg = DiTConfig(in_channels=4, hidden_size=256, depth=3, num_heads=4,
+                    mlp_ratio=2.0, cross_attn_input_size=32, residual_v=True,
+                    cross_attn_first_n=1, cross_attn_period=2)
+    cpu = randomize_(DiT(cfg), seed=0)
+    rs = np.random.RandomState(1)
+    args = (torch.from_numpy(rs.randn(2, 16, 16, 4).astype(np.float32)),
+            torch.from_numpy(rs.randn(2, 8, 32).astype(np.float32)),
+            torch.from_numpy(np.arange(8)[None] < np.array([[8], [3]])),
+            torch.from_numpy(rs.rand(2).astype(np.float32)))
+    weight = torch.from_numpy(rs.randn(2, 16, 16, 4).astype(np.float32))
+    return cfg, cpu, args, weight
+
+
+@pytest.mark.cuda
+def test_dit_grads_on_the_card_match_the_cpu(cuda_device):
+    """Every parameter gradient of a 3-block residual_v DiT, fp32, on the
+    card (through the attention kernels) equals the CPU's (plain attention
+    under autograd), atol 1e-4: attention must pass gradients on the card."""
+    cfg, cpu, args, weight = _small_dit_and_inputs()
+    gpu = DiT(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda_device)
+    (cpu(*args) * weight).sum().backward()
+    before = (tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    (gpu(*(a.to(cuda_device) for a in args)) * weight.to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    # 3 self-attention and 2 cross-attention calls, each through both kernels
+    assert (tfa.DQ_LAUNCHES.count - before[0], tfa.DKV_LAUNCHES.count - before[1]) == (5, 5)
+    for (name, pc), (_, pg) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        assert pc.grad is not None, name
+        assert pg.grad is not None, f"{name}: no gradient on the card"
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One step of loss -> backward -> clip -> AdamW in fp32, on the same
+    weights, batch, timesteps and noise: loss, grad norm and the updated
+    parameters agree."""
+    cfg, cpu, (x, ctx, mask, _), _ = _small_dit_and_inputs()
+    gpu = DiT(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda_device)
+    rs = np.random.RandomState(2)
+    t = torch.from_numpy(rs.rand(2).astype(np.float32))
+    noise = torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+    metrics = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        opt = build_optimizer(list(model.parameters()), learning_rate=1e-4,
+                              lr_scheduler="constant", weight_decay=0.01)
+        metrics.append(train_step(
+            TrainState(model, opt), x.to(dev), ctx.to(dev), mask.to(dev), uncond_prob=0.0,
+            timesteps=t.to(dev), noise=noise.to(dev)))
+    torch.cuda.synchronize()
+    want, got = metrics
+    torch.testing.assert_close(got["loss"].cpu(), want["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got["grad_norm"].cpu(), want["grad_norm"],
+                               rtol=1e-4, atol=0)
+    for (name, pc), (_, pg) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        torch.testing.assert_close(pg.detach().cpu(), pc.detach(), atol=1e-5,
+                                   rtol=0, msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.mark.cuda

@@ -1,18 +1,22 @@
-"""The port's flash-attention forward against the JAX Pallas kernel.
+"""The port's flash attention, forward and backward, against the JAX
+Pallas kernels.
 
-On the CPU the port's wrapper computes its plain version; the Pallas kernel
-runs in interpret mode, as tests/test_flash_attention.py runs it. fp32,
-atol 1e-5 (summation order differs). The Hopper kernel itself is held to
-the plain version on the card by tests/test_torch_cuda.py.
+On the CPU the port's wrapper computes its plain versions (the backward
+through its autograd Function); the Pallas kernels run in interpret mode,
+as tests/test_flash_attention.py runs them. fp32: forward atol 1e-5,
+gradients < 3e-6 (summation order differs). The Hopper kernels themselves
+are held to the plain versions on the card by tests/test_torch_cuda.py.
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from f_lite_tpu.ops.pallas.flash_attention import _flash_forward
 from f_lite_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
 from f_lite_tpu_torch.ops import attention as tattn
 from f_lite_tpu_torch.ops.cuda import flash_attention as tfa
@@ -55,6 +59,81 @@ def test_plain_and_attention_match_pallas(b, h, lq, lk, d, kv_lens):
     via_dispatch = tattn.attention(tq, tk, tv, kv_mask=mask)
     np.testing.assert_allclose(via_dispatch.numpy(), want, atol=1e-5, rtol=0)
     assert tfa.LAUNCHES.count == 0  # CPU tensors never launch the kernel
+
+
+def _lens(kv_lens):
+    return None if kv_lens is None else np.asarray(kv_lens, np.int32)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES)
+def test_grads_match_jax_vjp_and_plain_autograd(b, h, lq, lk, d, kv_lens):
+    """dq, dk, dv through the port's autograd Function (plain backward on
+    the CPU) against jax.vjp of the Pallas kernels and against torch
+    autograd through `flash_attention_plain`: max abs diff < 3e-6."""
+    q, k, v = _qkv(b, h, lq, lk, d, seed=1)
+    g = np.random.RandomState(2).randn(b, h, lq, d).astype(np.float32)
+    lens = _lens(kv_lens)
+    jl = None if lens is None else jnp.asarray(lens)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_fa(q_, k_, v_, kv_lens=jl),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    tlens = None if lens is None else torch.from_numpy(lens)
+    tfa.DQ_LAUNCHES.reset()
+    tfa.DKV_LAUNCHES.reset()
+    ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*ins, tlens).backward(torch.from_numpy(g))
+    plain_ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention_plain(*plain_ins, tlens).backward(torch.from_numpy(g))
+    assert tfa.DQ_LAUNCHES.count == tfa.DKV_LAUNCHES.count == 0
+    for name, got, plain, ref in zip("qkv", ins, plain_ins, want):
+        assert np.abs(ref).max() > 0.1, name
+        assert float(np.abs(got.grad.numpy() - ref).max()) < 3e-6, name
+        assert float(np.abs(got.grad.numpy() - plain.grad.numpy()).max()) < 3e-6, name
+    if lens is not None:
+        dead = torch.from_numpy(lens == 0)
+        assert not ins[0].grad[dead].any()  # kv_len 0 rows: dq = 0
+        masked = torch.arange(lk)[None, :] >= tlens[:, None]  # (B, Lk)
+        for t in ins[1:]:
+            assert not t.grad.transpose(1, 2)[masked].any()  # dk = dv = 0
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES)
+def test_lse_matches_the_pallas_forward(b, h, lq, lk, d, kv_lens):
+    q, k, _ = _qkv(b, h, lq, lk, d, seed=3)
+    lens = _lens(kv_lens)
+    _, lse = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+        None if lens is None else jnp.asarray(lens), d**-0.5, 128, 128,
+        True, save_lse=True)
+    want = np.asarray(lse)[:, :, :lq, 0]
+    got = tfa.flash_attention_lse_plain(
+        torch.from_numpy(q), torch.from_numpy(k),
+        None if lens is None else torch.from_numpy(lens)).numpy()
+    live = np.ones(b, bool) if lens is None else lens > 0
+    np.testing.assert_allclose(got[live], want[live], atol=1e-5, rtol=1e-6)
+    assert (got[~live] == tfa.LSE_EMPTY).all() and (want[~live] < -1e38).all()
+
+
+def test_bwd_plain_is_the_gradient_of_the_plain_forward():
+    """flash_attention_bwd with an explicit lse and delta equals autograd
+    through the plain forward, and the no-grad path runs the LSE-free
+    forward."""
+    q, k, v = _qkv(2, 2, 40, 24, 64, seed=4)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    lens = torch.tensor([24, 9])
+    g = torch.randn(2, 2, 40, 64, generator=torch.Generator().manual_seed(0))
+    out = tfa.flash_attention_plain(tq, tk, tv, lens)
+    lse = tfa.flash_attention_lse_plain(tq, tk, lens)
+    got = tfa.flash_attention_bwd(tq, tk, tv, g, lse,
+                                  tfa.attention_delta(out, g), lens)
+    ins = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    tfa.flash_attention_plain(*ins, lens).backward(g)
+    for a, b in zip(got, ins):
+        torch.testing.assert_close(a, b.grad, atol=3e-6, rtol=0)
+    with torch.no_grad():
+        y = tfa.flash_attention(*ins, lens)
+    assert y.grad_fn is None and torch.equal(y, out)
 
 
 def test_plain_custom_scale():
@@ -123,3 +202,41 @@ def test_chip_smoke_bound_of_the_7b_self_attention():
     ms, by = chip_smoke.attention_bound_ms(2, 10, 4112, 128, 256, [77, 128],
                                            "bfloat16")
     assert by == "bytes" and 0.02 < ms < 0.03
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", [
+    (1, 2, 256, 1024, 256, None),
+    (2, 2, 256, 128, 256, [77, 128]),
+    (4, 2, 256, 32, 64, [32, 17, 32, 5]),
+])
+def test_bwd_bf16_tolerance_passes_rounding_and_fails_mistakes(b, h, lq, lk, d,
+                                                              kv_lens):
+    """The card holds the bf16 backward kernels to the plain version on the
+    same bf16 inputs (P and dS rounded to bf16 where the kernels round
+    them) with `grad_tolerance`. Correct arithmetic rounded elsewhere (the
+    unrounded fp32 gradient, rounded to bf16 at the end) passes; a softmax
+    scale 2% off or one key too few fails every gradient by 2x or more."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(b, h, n, d, generator=g).bfloat16()
+                     for n in (lq, lk, lk, lq))
+    lens = None if kv_lens is None else torch.tensor(kv_lens)
+
+    def grads(q_, k_, v_, do_, kv, scale=None):
+        qf, kf, vf = q_.float(), k_.float(), v_.float()
+        lse = tfa.flash_attention_lse_plain(qf, kf, kv, scale=scale)
+        delta = tfa.attention_delta(
+            tfa.flash_attention_plain(qf, kf, vf, kv, scale=scale), do_.float())
+        return tfa.flash_attention_bwd_plain(q_, k_, v_, do_, lse, delta, kv,
+                                             scale=scale, out_dtype=torch.float32)
+
+    want = grads(q, k, v, dout, lens)
+    tols = [tfa.grad_tolerance(w, torch.bfloat16) for w in want]
+
+    def ratios(got):
+        return [float((a - w).abs().max()) / t for a, w, t in zip(got, want, tols)]
+
+    unrounded = grads(q.float(), k.float(), v.float(), dout.float(), lens)
+    assert max(ratios([x.bfloat16().float() for x in unrounded])) < 1.0
+    assert min(ratios(grads(q, k, v, dout, lens, scale=d**-0.5 * 1.02))) > 2.0
+    fewer = torch.tensor([n - 1 for n in (kv_lens or [lk] * b)])
+    assert min(ratios(grads(q, k, v, dout, fewer))) > 2.0

@@ -1,7 +1,8 @@
-"""The port stands alone: with `jax`, `flax` and `f_lite_tpu` blocked by an
-import hook, every module of `f_lite_tpu_torch` and `chip_smoke.py` import
-(and do no work at import time), and the pipeline's default device is the
-card: without one, `from_pretrained` raises instead of falling back."""
+"""The port stands alone: with `jax`, `flax`, `optax` and `f_lite_tpu`
+blocked by an import hook, every module of `f_lite_tpu_torch` (the training
+path's included) and `chip_smoke.py` import (and do no work at import
+time), and the entry points' default device is the card: without one,
+`from_pretrained` and the trainer raise instead of falling back."""
 
 import subprocess
 import sys
@@ -16,7 +17,7 @@ ROOT = Path(__file__).resolve().parent.parent
 BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "f_lite_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "f_lite_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -36,8 +37,16 @@ BLOCKED_IMPORTS = textwrap.dedent("""
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     built = list(__import__("pathlib").Path("f_lite_tpu_torch/csrc").glob("build/*.so"))
+    print(" ".join(names))
     print(len(names), "modules", "built-at-import:", len(built) - BUILT_BEFORE)
 """)
+
+TRAINING_MODULES = (
+    "f_lite_tpu_torch.train.trainer", "f_lite_tpu_torch.train.__main__",
+    "f_lite_tpu_torch.train.loss", "f_lite_tpu_torch.train.optim",
+    "f_lite_tpu_torch.train.step", "f_lite_tpu_torch.data.precomputed",
+    "f_lite_tpu_torch.data.samplers", "f_lite_tpu_torch.convert.to_jax",
+)
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -51,8 +60,10 @@ def test_port_imports_without_jax_or_reference_package():
     before = len(list((ROOT / "f_lite_tpu_torch/csrc").glob("build/*.so")))
     out = _run(BLOCKED_IMPORTS.replace("BUILT_BEFORE", str(before)))
     assert out.returncode == 0, out.stderr
-    n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15, out.stdout
+    names, summary = out.stdout.strip().splitlines()[-2:]
+    assert set(TRAINING_MODULES) <= set(names.split()), names
+    n_modules = int(summary.split()[0])
+    assert n_modules >= 23, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -75,6 +86,16 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
     assert "no CUDA device" in out.stdout
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    _skip_on_a_cuda_host()
+    out = subprocess.run(
+        [sys.executable, "-m", "f_lite_tpu_torch.train",
+         "--use_precomputed_data", "--precomputed_data_dir", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
