@@ -20,30 +20,47 @@ Phases (any failed check raises and the run exits non-zero):
    kernels round them, 1e-5 of its largest magnitude in fp32),
    with exact zeros at masked keys and kv_len 0 rows, timed beside the
    plain version, SDPA forward + backward minus forward, and the bound;
-5. one 7B-width DiT block with cross-attention and residual_v (bf16
+5. the perf lab's variant kernel (`csrc/flash_attention_variants.cu`)
+   against `flash_fwd_plain`: its seven variants at every compiled block
+   pair, at 2x10x4112x256 and at 333 keys (ragged tiles) with D 256 and 64,
+   within `flash_attention.tolerance`, condmask equal to its twin bit for
+   bit, with the plain version's, SDPA's and the bound's ms; then the lab
+   as a user runs it (`python -m f_lite_tpu_torch.tools.flash_variants`),
+   its launches counted, and its sweep at the ragged shapes;
+6. one 7B-width DiT block with cross-attention and residual_v (bf16
    compute, fp32 weights, 512 px, batch 4): every parameter and input
    gradient through the kernels within 2e-2 (relative norm) of the same
    block through the plain attention;
-6. serving, the committed trained fixture (`artifacts/fixture_run/
+7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
-7. serving, one 7B-width request (DiT f_lite_7b + Flux VAE decoder, seeded
-   random weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77
-   are real; finite output, exactly 30 * 56 forward launches;
-8. training, the fixture's recipe from scratch through the port's trainer
+8. the fixture again with limited-interval guidance (0.1, 0.9), both_acc
+   >= 0.95, and at 15 steps with Euler and with ab2, each one's MSE to
+   Euler@30 printed;
+9. serving, one 7B-width request (DiT f_lite_7b + Flux VAE, seeded random
+   weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77 are
+   real; finite output, exactly 30 * 56 forward launches;
+10. image to image with a mask at 1280 px on the same pipeline: strength
+   0.5 (15 of 30 steps), the left half repainted, encode and decode tiled
+   (9 tiles each); finite output, exactly 15 * 56 forward launches, the
+   kept region of the final latents equal to the encoded image's;
+11. strength 1.0 without a mask equals text to image bit for bit (256 px);
+12. training, the fixture's recipe from scratch through the port's trainer
    (`f_lite_tpu_torch.train`): a precomputed cache of 24 classes x 128
    shapes images (64 px, pixel space) written here, 300 steps at batch 32,
    bf16; the mean logged loss over steps 260-300 must be <= 0.15 (the JAX
    run's `artifacts/fixture_run/train.log` reads 0.073); exactly 12
    launches of each kernel per step; the exported pipeline reloads with
    the same DiT output;
-9. training, `f_lite_7b_width_d20_train512`: the 7B's widths at depth 20,
+13. training, `f_lite_7b_width_d20_train512`: the 7B's widths at depth 20,
    512 px latents (1040 tokens), batch 4, bf16 with fp32 master weights,
    checkpointing from block 8, 10 steps; finite loss and grad norm,
    exactly 46 forward, 31 dq and 31 dkv launches per step, peak memory
    under 80 GB, and a profile of one step;
-10. a `{"kernels": [...]}` line, then the card line, then the last line
+14. a `{"kernels": [...]}` line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
+Every path runs with the launch counts set to 0 just before it and read
+just after; a kernel of another path launched there fails the run.
 
 Exits non-zero, printing no result, where `torch.cuda.is_available()` is
 false or the package is missing.
@@ -64,6 +81,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "artifacts" / "fixture_run" / "pipeline"
+
+# every entry of the {"kernels": [...]} line carries these
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -113,16 +134,23 @@ def log(*args):
 
 def reset_counts():
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
-    for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES):
+    for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fv.LAUNCHES):
         counter.reset()
 
 
 def read_counts() -> dict:
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
     return dict(fwd=fa.LAUNCHES.count, dq=fa.DQ_LAUNCHES.count,
-                dkv=fa.DKV_LAUNCHES.count)
+                dkv=fa.DKV_LAUNCHES.count, variants=fv.LAUNCHES.count)
+
+
+def launches(fwd=0, dq=0, dkv=0, variants=0) -> dict:
+    """The counts `read_counts` should give."""
+    return dict(fwd=fwd, dq=dq, dkv=dkv, variants=variants)
 
 
 def card_line() -> str:
@@ -352,7 +380,106 @@ def check_backward() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: one 7B-width block's gradients, kernels against plain attention
+# phase 5: the perf lab's variant kernel against its plain version, then the
+# lab itself
+# ---------------------------------------------------------------------------
+
+# (label, B, H, L, D): the lab's default shape and ragged key tails
+VARIANT_SHAPES = [
+    ("7b_serving", 2, 10, 4112, 256),
+    ("ragged_d256", 1, 2, 333, 256),
+    ("ragged_d64", 1, 2, 333, 64),
+]
+
+
+def check_variants() -> list[dict]:
+    """Every variant of `flash_variants.VARIANTS` at every compiled block
+    pair against `flash_fwd_plain` at the same block_k (plain in fp32 on the
+    same bf16 inputs), within `flash_attention.tolerance`; `condmask` equal
+    to its unmasked twin bit for bit; each other flag's branch at the full
+    step from its twin (`flag_step` near 1). Per shape: the plain version's ms
+    (base, block_k 64), SDPA's ms on the same q, k, v and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.ops.cuda import flash_variants as fv
+
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(2)
+    for label, b, h, l, d in VARIANT_SHAPES:
+        q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        errs, ratios, steps = [], [], []
+        for bq, bk in fv.BLOCKS:
+            outs, wants = {}, {}
+            for name, kw in fv.VARIANTS.items():
+                got = fv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
+                torch.cuda.synchronize()
+                want = fv.flash_fwd_plain(q, k, v, block_k=bk,
+                                          out_dtype=torch.float32, **kw)
+                err = float((got.float() - want).abs().max())
+                tol = fa.tolerance(want, torch.bfloat16)
+                if not math.isfinite(err) or err > tol:
+                    raise AssertionError(f"variant {name} {label} ({bq}, {bk}): "
+                                         f"max abs err {err} > {tol}")
+                errs.append(err)
+                ratios.append(err / tol)
+                outs[name], wants[name] = got, want
+            for twin, masked in (("base", "condmask-e"), ("exp2", "condmask")):
+                if not torch.equal(outs[twin], outs[masked]):
+                    raise AssertionError(f"variant {masked} {label} ({bq}, {bk}) "
+                                         f"differs from {twin}")
+            # the twins differ by less than the tolerance: each flag branch
+            # must also move the output from its twin's plain result to its own
+            for own, twin in fv.FLAG_TWINS:
+                c = fv.flag_step(outs[own], wants[own], wants[twin])
+                if not abs(c - 1) < fv.FLAG_STEP_TOLERANCE:
+                    raise AssertionError(f"variant {own} {label} ({bq}, {bk}): "
+                                         f"flag step {c} from {twin}, expected 1")
+                steps.append(c)
+            del outs, wants
+        bound, bound_by = attention_bound_ms(b, h, l, l, d, None, "bfloat16")
+        row = dict(shape=label, q=[b, h, l, d], max_abs_err=max(errs),
+                   max_err_over_tolerance=max(ratios),
+                   flag_step=[min(steps), max(steps)],
+                   plain_ms=time_ms(lambda: fv.flash_fwd_plain(q, k, v, block_k=64)),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   bound_ms=bound, bound_by=bound_by)
+        log("variants", json.dumps(row))
+        rows.append(row)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_lab() -> dict:
+    """The lab's entry point as a user runs it (`python -m
+    f_lite_tpu_torch.tools.flash_variants`: every block pair and variant at
+    2x10x4112x256 bf16, 20 timed launches each), its launch counts, and its
+    sweep at the ragged shapes."""
+    from f_lite_tpu_torch.ops.cuda import flash_variants as fv
+    from f_lite_tpu_torch.tools import flash_variants as lab
+
+    reset_counts()
+    rows = lab.main()
+    counts = read_counts()
+    per_row = 1 + 1 + lab.REPS  # checked call, warm-up, timed launches
+    expected = launches(variants=len(fv.BLOCKS) * len(fv.VARIANTS) * per_row)
+    if counts != expected:
+        raise AssertionError(f"lab: launches {counts}, expected {expected}")
+    ragged = {label: lab.sweep((b, h, l, d))
+              for label, b, h, l, d in VARIANT_SHAPES[1:]}
+    for label, rs in ragged.items():
+        for r in rs:
+            log("lab", label, lab.format_row(r))
+    res = dict(launches=counts, rows=rows, ragged=ragged)
+    log("lab_sweep", json.dumps(dict(launches=counts, rows=rows)))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one 7B-width block's gradients, kernels against plain attention
 # ---------------------------------------------------------------------------
 
 def check_block_grads(batch=4, size=512, text_len=128) -> dict:
@@ -425,7 +552,7 @@ def check_block_grads(batch=4, size=512, text_len=128) -> dict:
     kernel = grads(fa.flash_attention)
     counts = read_counts()
     plain = grads(fa.flash_attention_plain)
-    if counts != dict(fwd=2, dq=2, dkv=2):
+    if counts != launches(fwd=2, dq=2, dkv=2):
         raise AssertionError(f"block gradients: launches {counts}, expected 2 of each")
     rel = {n: float((kernel[n] - plain[n]).norm() / plain[n].norm()) for n in plain}
     res = dict(config="f_lite_7b block 1", batch=batch, tokens=tokens,
@@ -441,7 +568,7 @@ def check_block_grads(batch=4, size=512, text_len=128) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the fixture's training recipe through the port's trainer
+# phase 12: the fixture's training recipe through the port's trainer
 # ---------------------------------------------------------------------------
 
 def draw_shape(size, rgb, shape, rng):
@@ -611,13 +738,13 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
                logged_losses=losses, mean_loss_260_300=statistics.mean(late),
                jax_mean_loss_260_300=0.073, s_per_step=step_s,
                wall_s=result["wall_s"], launches=counts,
-               per_step_expected=dict(fwd=n_attn, dq=n_attn, dkv=n_attn),
+               per_step_expected=launches(fwd=n_attn, dq=n_attn, dkv=n_attn),
                idle_share=watch.profile["idle_share"])
     log("fixture_train", json.dumps(res))
     if result["global_step"] != steps:
         raise AssertionError(f"fixture training ran {result['global_step']} steps")
     bad = [i + 1 for i, c in enumerate(watch.per_step)
-           if c != dict(fwd=n_attn, dq=n_attn, dkv=n_attn)]
+           if c != launches(fwd=n_attn, dq=n_attn, dkv=n_attn)]
     if bad:
         raise AssertionError(f"fixture training: launch counts off at steps {bad[:5]}")
     if not res["mean_loss_260_300"] <= 0.15:
@@ -647,7 +774,7 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: f_lite_7b_width_d20_train512
+# phase 13: f_lite_7b_width_d20_train512
 # ---------------------------------------------------------------------------
 
 def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
@@ -684,8 +811,8 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
     n_self = depth
     n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
     n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
-    expected = dict(fwd=n_self + n_cross + n_remat, dq=n_self + n_cross,
-                    dkv=n_self + n_cross)
+    expected = launches(fwd=n_self + n_cross + n_remat, dq=n_self + n_cross,
+                        dkv=n_self + n_cross)
     finite = []
 
     def check(step, metrics):
@@ -725,11 +852,41 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving, the trained fixture
+# phases 7-8: serving, the trained fixture
 # ---------------------------------------------------------------------------
 
-def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
+def fixture_requests(pipe, embeds, mask, n_requests, **kw):
+    """The fixture's requests (one per seed, 24 captions each, numpy
+    latents of that seed): (images (n*24, 64, 64, 3), host s per request)."""
     import numpy as np
+    import torch
+
+    images, seconds = [], []
+    for seed in range(n_requests):
+        latents = np.random.RandomState(seed).randn(
+            embeds.shape[0], 64, 64, pipe.dit.config.in_channels).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(prompt_embeds=embeds, context_mask=mask, latents=latents,
+                   output_type="np", **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        imgs = out.images
+        if imgs.shape != (embeds.shape[0], 64, 64, 3) or not np.isfinite(imgs).all():
+            raise AssertionError(f"fixture images: shape {imgs.shape} or non-finite")
+        images.append(imgs)
+    return np.concatenate(images), seconds
+
+
+def both_acc(images, classes) -> float:
+    hits = sum(classify(img) == cls
+               for img, cls in zip(images, classes * (len(images) // len(classes))))
+    return hits / len(images)
+
+
+def load_fixture():
+    """(pipeline in bf16, its 24 captions' embeddings and mask, the
+    classes, forward launches per step)."""
     import torch
 
     from f_lite_tpu_torch.pipeline import FLitePipeline
@@ -742,47 +899,72 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> dict:
         [f"a {c} {s}" for c, s in classes]
     )
     n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-    expected = n_requests * steps * n_blocks
+    return pipe, embeds, mask, classes, n_blocks
 
-    both = 0
-    seconds = []
+
+def run_fixture(n_requests=4, steps=30, guidance=6.0) -> tuple:
+    """Phase 7: full CFG Euler@30 (res, images)."""
+    import torch
+
+    pipe, embeds, mask, classes, n_blocks = load_fixture()
+    expected = n_requests * steps * n_blocks
     reset_counts()
-    for seed in range(n_requests):
-        latents = np.random.RandomState(seed).randn(
-            len(classes), 64, 64, cfg.in_channels).astype(np.float32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = pipe(prompt_embeds=embeds, context_mask=mask, latents=latents,
-                   num_inference_steps=steps, guidance_scale=guidance,
-                   output_type="np")
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        imgs = out.images
-        if imgs.shape != (len(classes), 64, 64, 3) or not np.isfinite(imgs).all():
-            raise AssertionError(f"fixture images: shape {imgs.shape} or non-finite")
-        both += sum(classify(img) == cls for img, cls in zip(imgs, classes))
+    images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+                                       num_inference_steps=steps,
+                                       guidance_scale=guidance)
     counts = read_counts()
-    launches = counts["fwd"]
-    n = n_requests * len(classes)
-    res = dict(requests=n_requests, images=n, both_acc=both / n,
-               s_per_request=seconds, launches=launches,
+    acc = both_acc(images, classes)
+    res = dict(requests=n_requests, images=len(images), both_acc=acc,
+               s_per_request=seconds, launches=counts["fwd"],
                expected_launches=expected, counts=counts)
     log("fixture", json.dumps(res))
-    if counts != dict(fwd=expected, dq=0, dkv=0):
+    if counts != launches(fwd=expected):
         raise AssertionError(f"fixture: launches {counts}, expected {expected} forward only")
-    if both / n < 0.95:
-        raise AssertionError(f"fixture: both_acc {both / n} < 0.95")
+    if acc < 0.95:
+        raise AssertionError(f"fixture: both_acc {acc} < 0.95")
+    del pipe
+    torch.cuda.empty_cache()
+    return res, images
+
+
+def run_fixture_extras(full_images, n_requests=4, guidance=6.0) -> dict:
+    """Phase 8: limited-interval guidance (0.1, 0.9) at 30 steps, both_acc
+    >= 0.95 (JAX 0.990, QUALITY_FIXTURE.json); ab2 and Euler at 15 steps,
+    each one's image MSE to Euler@30 (JAX 0.0146 and 0.0129)."""
+    import numpy as np
+    import torch
+
+    pipe, embeds, mask, classes, n_blocks = load_fixture()
+    runs = {"gi0.1-0.9@30": dict(num_inference_steps=30, guidance_interval=(0.1, 0.9)),
+            "euler@15": dict(num_inference_steps=15),
+            "ab2@15": dict(num_inference_steps=15, sampler="ab2")}
+    expected = n_requests * n_blocks * sum(kw["num_inference_steps"] for kw in runs.values())
+    res = {}
+    reset_counts()
+    for name, kw in runs.items():
+        images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+                                           guidance_scale=guidance, **kw)
+        res[name] = dict(both_acc=both_acc(images, classes), s_per_request=seconds,
+                         mse_vs_euler30=float(np.mean((images - full_images) ** 2)))
+    counts = read_counts()
+    res.update(launches=counts, expected_launches=expected,
+               jax=dict(gi_both_acc=0.9896, ab2_15_mse=0.014558, euler_15_mse=0.012942))
+    log("fixture_extras", json.dumps(res))
+    if counts != launches(fwd=expected):
+        raise AssertionError(f"fixture extras: launches {counts}, expected {expected}")
+    if res["gi0.1-0.9@30"]["both_acc"] < 0.95:
+        raise AssertionError(f"fixture gi: both_acc {res['gi0.1-0.9@30']['both_acc']} < 0.95")
     del pipe
     torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving, one 7B-width request at 1024 px
+# phases 9-11: serving at 7B width (DiT f_lite_7b + the Flux VAE, seeded
+# random weights)
 # ---------------------------------------------------------------------------
 
-def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict:
-    import numpy as np
+def build_7b_pipe():
     import torch
 
     from f_lite_tpu_torch.models.dit import DiT, DiTConfig
@@ -790,25 +972,42 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.utils.random_weights import randomize_
 
-    cfg = DiTConfig.f_lite_7b()
     with torch.device("cuda"):
         prev = torch.get_default_dtype()
         torch.set_default_dtype(torch.bfloat16)
         try:
-            dit = DiT(cfg).eval()
+            dit = DiT(DiTConfig.f_lite_7b()).eval()
         finally:
             torch.set_default_dtype(prev)
         vae = AutoencoderKL(VAEConfig.flux()).eval()
     randomize_(dit, seed=1)
     randomize_(vae, seed=2)
-    n_params = sum(p.numel() for p in dit.parameters())
-    pipe = FLitePipeline(dit, vae)
+    return FLitePipeline(dit, vae)
+
+
+def text_7b(pipe, text_len=128, real_len=77):
+    """128 text rows of which the first 77 are real, seeded."""
+    import numpy as np
 
     rs = np.random.RandomState(3)
-    embeds = (rs.randn(1, text_len, cfg.cross_attn_input_size) * 0.02).astype(np.float32)
-    mask = np.arange(text_len)[None, :] < real_len
-    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-    expected = steps * n_blocks
+    embeds = (rs.randn(1, text_len, pipe.dit.config.cross_attn_input_size)
+              * 0.02).astype(np.float32)
+    return embeds, np.arange(text_len)[None, :] < real_len
+
+
+def blocks_7b(pipe) -> int:
+    cfg = pipe.dit.config
+    return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+
+
+def run_7b(pipe, steps=30, guidance=6.0, size=1024) -> dict:
+    """Phase 9: text to image at 1024 px, 30 steps, g=6."""
+    import numpy as np
+    import torch
+
+    vae = pipe.vae
+    embeds, mask = text_7b(pipe)
+    expected = steps * blocks_7b(pipe)
 
     marks = {}
     finite = []
@@ -835,30 +1034,150 @@ def run_7b(steps=30, guidance=6.0, size=1024, text_len=128, real_len=77) -> dict
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts["fwd"]
     for hk in hooks:
         hk.remove()
 
     img = out.images
     denoise_s = marks["decode_start"] - t0
-    res = dict(params=n_params, image=list(img.shape), dtype=str(img.dtype),
+    res = dict(params=sum(p.numel() for p in pipe.dit.parameters()),
+               image=list(img.shape), dtype=str(img.dtype),
                s_per_step=denoise_s / steps, decode_s=marks["decode_end"] - marks["decode_start"],
                s_per_image=total, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=launches, expected_launches=expected,
+               launches=counts["fwd"], counts=counts, expected_launches=expected,
                decoded_finite=finite == [True])
     log("7b", json.dumps(res))
     if img.shape != (1, size, size, 3) or img.dtype != np.uint8:
         raise AssertionError(f"7B image {img.shape} {img.dtype}")
     if finite != [True]:
         raise AssertionError("7B decoded image holds NaN or Inf")
-    if counts != dict(fwd=expected, dq=0, dkv=0):
+    if counts != launches(fwd=expected):
         raise AssertionError(f"7B: launches {counts}, expected {expected} forward only")
     res["step_profile"] = profile_step(
         lambda: pipe(prompt_embeds=embeds, context_mask=mask, height=size,
                      width=size, num_inference_steps=1,
                      guidance_scale=guidance, output_type="latent"))
-    del pipe, dit, vae
     torch.cuda.empty_cache()
+    return res
+
+
+def run_img2img(pipe, steps=30, strength=0.5, guidance=6.0, size=1280) -> dict:
+    """Phase 10: image to image with a mask at 1280 px (6416 tokens):
+    strength 0.5 (15 of 30 steps), g=6, the left half repainted (mask at
+    the latent grid); "auto" memory mode tiles the encode and the decode
+    (3x3 tiles of 64 latents each). Finite output, exactly 15 * 56 forward
+    launches and none of the others, and in the final latents the kept
+    region equal to the encoded image's latents (the last step ends at
+    t = 0)."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.models.vae import normalize_latents
+
+    embeds, mask = text_7b(pipe)
+    lh = size // pipe.vae_scale_factor
+    rs = np.random.RandomState(11)
+    image = rs.randint(0, 256, (size, size, 3)).astype(np.uint8)
+    repaint = np.zeros((lh, lh), np.uint8)
+    repaint[:, : lh // 2] = 255
+    n_run = max(1, min(steps, int(round(strength * steps))))  # rows run
+    expected = n_run * blocks_7b(pipe)
+
+    seen = {}
+    tiles = {"encoder": 0, "decoder": 0}
+
+    def timed(name, fn):
+        def wrapper(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize()
+            seen[name] = (x, out, time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def count(name):
+        def hook(_m, _inp, _out):
+            tiles[name] += 1
+        return hook
+
+    pipe._encode_image_latents = timed("encode", pipe._encode_image_latents)
+    pipe._decode = timed("decode", pipe._decode)
+    hooks = [pipe.vae.encoder.register_forward_hook(count("encoder")),
+             pipe.vae.decoder.register_forward_hook(count("decoder"))]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipe(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
+                   num_inference_steps=steps, guidance_scale=guidance,
+                   image=image, strength=strength, mask_image=repaint,
+                   generator=torch.Generator("cuda").manual_seed(12),
+                   output_type="uint8")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        for hk in hooks:
+            hk.remove()
+        del pipe._encode_image_latents, pipe._decode
+
+    img = out.images
+    encoded = normalize_latents(seen["encode"][1].float(), pipe.vae.config)
+    final = seen["decode"][0]
+    keep = slice(lh // 2, None)
+    # the final latents are in the DiT's dtype, rounded from fp32 at the end
+    kept_equal = bool(torch.equal(final[:, :, keep],
+                                  encoded[:, :, keep].to(final.dtype)))
+    repaint_moved = float((final[:, :, : lh // 2].float()
+                           - encoded[:, :, : lh // 2]).abs().mean())
+    res = dict(size=size, tokens=16 + (lh // 2) ** 2, strength=strength,
+               steps_run=n_run, image=list(img.shape),
+               s_per_image=total, encode_s=seen["encode"][2], decode_s=seen["decode"][2],
+               s_per_step=(total - seen["encode"][2] - seen["decode"][2]) / n_run,
+               tiles=tiles, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, expected_launches=expected,
+               kept_region_equals_encoded=kept_equal,
+               repainted_mean_abs_change=repaint_moved)
+    log("7b_img2img", json.dumps(res))
+    if img.shape != (1, size, size, 3) or not bool(torch.isfinite(final).all()):
+        raise AssertionError(f"img2img: image {img.shape} or non-finite latents")
+    if counts != launches(fwd=expected):
+        raise AssertionError(f"img2img: launches {counts}, expected {expected} forward only")
+    if tiles != {"encoder": 9, "decoder": 9}:
+        raise AssertionError(f"img2img: tiles {tiles}, expected 9 encode and 9 decode")
+    if not kept_equal or not repaint_moved > 0:
+        raise AssertionError("img2img: the kept region is not the encoded image, "
+                             f"or the repainted one did not move ({repaint_moved})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_strength_one(pipe, size=256, steps=3, guidance=6.0) -> dict:
+    """Phase 11: image to image at strength 1.0 (no mask) is text to image
+    bit for bit: the encode is skipped and the start noise is the same
+    draw."""
+    import numpy as np
+    import torch
+
+    embeds, mask = text_7b(pipe)
+    image = np.random.RandomState(13).randint(0, 256, (size, size, 3)).astype(np.uint8)
+    kw = dict(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
+              num_inference_steps=steps, guidance_scale=guidance, output_type="np")
+    reset_counts()
+    a = pipe(**kw, image=image, strength=1.0,
+             generator=torch.Generator("cuda").manual_seed(14)).images
+    b = pipe(**kw, generator=torch.Generator("cuda").manual_seed(14)).images
+    counts = read_counts()
+    expected = 2 * steps * blocks_7b(pipe)
+    res = dict(size=size, steps=steps, bitwise_equal=bool(np.array_equal(a, b)),
+               finite=bool(np.isfinite(a).all()), launches=counts,
+               expected_launches=expected)
+    log("7b_strength_one", json.dumps(res))
+    if not res["bitwise_equal"] or not res["finite"]:
+        raise AssertionError("strength 1.0 differs from text to image")
+    if counts != launches(fwd=expected):
+        raise AssertionError(f"strength 1.0: launches {counts}, expected {expected}")
     return res
 
 
@@ -935,14 +1254,31 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    rows = check_attention()
-    bwd_rows = check_backward()
-    block = check_block_grads()
-    fixture = run_fixture()
-    big = run_7b()
+    t_start = time.perf_counter()
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s "
+            f"(script {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    rows = phase(check_attention)
+    bwd_rows = phase(check_backward)
+    variant_rows = phase(check_variants)
+    lab = phase(run_lab)
+    block = phase(check_block_grads)
+    fixture, full_images = phase(run_fixture)
+    fixture_extras = phase(run_fixture_extras, full_images)
+    pipe = build_7b_pipe()
+    big = phase(run_7b, pipe)
+    img2img = phase(run_img2img, pipe)
+    strength_one = phase(run_strength_one, pipe)
+    del pipe
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        fixture_train = run_fixture_training(Path(tmp))
-        train_7b = run_7b_training(Path(tmp))
+        fixture_train = phase(run_fixture_training, Path(tmp))
+        train_7b = phase(run_7b_training, Path(tmp))
 
     main_row = next(r for r in rows if r["shape"] == "7b_self" and r["dtype"] == "bfloat16")
     forward = dict(
@@ -954,7 +1290,10 @@ def main() -> int:
         launches=train_7b["launches"]["fwd"],
         launches_per_train_step=train_7b["per_step"]["fwd"],
         launches_serving_7b_image=big["launches"],
+        launches_serving_7b_img2img_1280=img2img["launches"]["fwd"],
         launches_serving_fixture=fixture["launches"],
+        launches_serving_fixture_extras=fixture_extras["launches"]["fwd"],
+        launches_lab=lab["launches"]["fwd"],
         launches_fixture_train=fixture_train["launches"]["fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
@@ -989,7 +1328,38 @@ def main() -> int:
             pair_ms=bwd_main["pair_ms"], fused_bound_ms=bwd_main["bound_ms"]["fused"],
             at="7b_self (training, B=4 L=1040) bfloat16",
         ))
-    log(json.dumps({"kernels": [forward, *backward],
+    from f_lite_tpu_torch.ops.cuda import flash_variants as fv
+
+    lab_base = next(r for r in lab["rows"] if r["variant"] == "base"
+                    and (r["block_q"], r["block_k"]) == fv.BLOCKS[0])
+    lab_main = next(r for r in variant_rows if r["shape"] == "7b_serving")
+    variants = dict(
+        name="flash_attention_variants",
+        route="cuda",
+        source="f_lite_tpu_torch/csrc/flash_attention_variants.cu",
+        replaces="tools/flash_variants.py:43",
+        replaces_function="_kernel",
+        launches=lab["launches"]["variants"],
+        launches_serving=sum(c["variants"] for c in (
+            fixture["counts"], fixture_extras["launches"], big["counts"],
+            img2img["launches"], strength_one["launches"])),
+        launches_training=(fixture_train["launches"]["variants"]
+                           + train_7b["launches"]["variants"]),
+        max_abs_err=max(r["max_abs_err"] for r in variant_rows),
+        max_err_over_tolerance=max(r["max_err_over_tolerance"] for r in variant_rows),
+        ms=lab_base["ms"], plain_ms=lab_main["plain_ms"],
+        bound_ms=lab_main["bound_ms"], bound_by=lab_main["bound_by"],
+        library_ms=lab_main["library_ms"],
+        at=f"7b_serving 2x10x4112x256 bfloat16, base, blocks {fv.BLOCKS[0]}",
+        sweep=[[r["block_q"], r["block_k"], r["variant"], r["ms"]] for r in lab["rows"]],
+        shapes=variant_rows,
+    )
+    kernels = [forward, *backward, variants]
+    for k in kernels:
+        missing = [key for key in KERNEL_KEYS if key not in k]
+        if missing:
+            raise AssertionError(f"kernels line: {k['name']} lacks {missing}")
+    log(json.dumps({"kernels": kernels,
                     "block_grads_max_rel": block["max_rel"],
                     "backward_shapes": bwd_rows}))
     log(card)

@@ -37,14 +37,17 @@ from f_lite_tpu_torch.ops.rope import apply_rotary, rope_2d_freqs
 from f_lite_tpu_torch.ops.timesteps import timestep_embedding
 
 
-# `dit/config.json` fields that shape only the JAX program: ignored here
-_PROGRAM_ONLY = ("pipeline_microbatches", "use_pallas_attention")
+# `dit/config.json` fields that shape only the JAX program or the saved
+# parameter layout (scan-stacked, pipeline-parallel, head-padded; undone at
+# load by `convert.from_jax.state_dict_from_jax`): ignored here
+_PROGRAM_ONLY = {"pipeline_microbatches": 1, "use_pallas_attention": None,
+                 "scan_layers": False, "pipeline_stages": 1,
+                 "padded_heads": None}
 # lecun_normal: a normal of variance 1/fan_in truncated at two standard
 # deviations, widened so that the truncated variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978
 # fields whose non-default values need code the port does not have yet
-_UNSUPPORTED = {"scan_layers": False, "pipeline_stages": 1,
-                "padded_heads": None, "quantized": False}
+_UNSUPPORTED = {"quantized": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +85,9 @@ class DiTConfig:
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "DiTConfig":
-        """Parse a saved `dit/config.json`; refuses layouts the port cannot
-        run (scan-stacked or pipelined blocks, padded heads, int8)."""
+        """Parse a saved `dit/config.json`; the parameter layout fields are
+        accepted (the port runs unrolled blocks at `num_heads`), int8
+        refused."""
         bad = {k: d[k] for k, default in _UNSUPPORTED.items()
                if d.get(k, default) != default}
         if bad:
@@ -100,8 +104,7 @@ class DiTConfig:
         defaults."""
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
              if f.name != "dtype"}
-        d.update(_UNSUPPORTED, pipeline_microbatches=1,
-                 use_pallas_attention=None)
+        d.update(_UNSUPPORTED, **_PROGRAM_ONLY)
         return d
 
     @property

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_variants")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -15,6 +15,7 @@ import torch
 
 from f_lite_tpu_torch.models.dit import DiT, DiTConfig
 from f_lite_tpu_torch.ops.cuda import flash_attention as tfa
+from f_lite_tpu_torch.ops.cuda import flash_variants as tfv
 from f_lite_tpu_torch.pipeline import FLitePipeline
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 from f_lite_tpu_torch.train.optim import build_optimizer
@@ -146,6 +147,70 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 8, 128, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(tfv.VARIANTS))
+@pytest.mark.parametrize("b,h,l,d", [(1, 2, 333, 64), (1, 2, 333, 256),
+                                     (2, 1, 256, 64)])
+def test_variant_kernel_matches_plain(cuda_device, variant, b, h, l, d):
+    """Kernel #4 at every compiled block pair against `flash_fwd_plain` at
+    the same block_k (plain in fp32 on the same bf16 inputs), within
+    `flash_attention.tolerance`; ragged (333) and whole (256) key tiles."""
+    kw = tfv.VARIANTS[variant]
+    q, k, v = _qkv(b, h, l, l, d, cuda_device, torch.bfloat16, seed=7)
+    for bq, bk in tfv.BLOCKS:
+        before = tfv.LAUNCHES.count
+        got = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
+        torch.cuda.synchronize()
+        assert tfv.LAUNCHES.count == before + 1
+        want = tfv.flash_fwd_plain(q, k, v, block_k=bk, out_dtype=torch.float32,
+                                   **kw)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        err = float((got.float() - want).abs().max())
+        assert err <= tfa.tolerance(want, torch.bfloat16), (bq, bk, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_variant_flag_branches_round_as_named(cuda_device, d):
+    """Each flag branch moves the kernel's output from the plain result of
+    the twin without that flag to the plain result of its own variant
+    (`flag_step` within FLAG_STEP_TOLERANCE of 1), at the ragged shape and
+    every compiled block pair."""
+    q, k, v = _qkv(1, 2, 333, 333, d, cuda_device, torch.bfloat16, seed=9)
+    for bq, bk in tfv.BLOCKS:
+        plain = {name: tfv.flash_fwd_plain(q, k, v, block_k=bk,
+                                           out_dtype=torch.float32, **kw)
+                 for name, kw in tfv.VARIANTS.items()}
+        for own, twin in tfv.FLAG_TWINS:
+            got = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **tfv.VARIANTS[own])
+            c = tfv.flag_step(got, plain[own], plain[twin])
+            assert abs(c - 1) < tfv.FLAG_STEP_TOLERANCE, (bq, bk, own, c)
+
+
+@pytest.mark.cuda
+def test_variant_condmask_equals_its_twin(cuda_device):
+    q, k, v = _qkv(1, 2, 333, 333, 256, cuda_device, torch.bfloat16, seed=8)
+    for bq, bk in tfv.BLOCKS:
+        for twin, masked in (("base", "condmask-e"), ("exp2", "condmask")):
+            a = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **tfv.VARIANTS[twin])
+            c = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **tfv.VARIANTS[masked])
+            assert torch.equal(a, c), (bq, bk, twin)
+
+
+@pytest.mark.cuda
+def test_variant_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tfv.flash_fwd(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="blocks"):
+        tfv.flash_fwd(q, q, q, block_q=32, block_k=64)
+    with pytest.raises(ValueError, match="flag set"):
+        tfv.flash_fwd(q, q, q, condmask=True, alpha_bf16=True)
+    q = torch.zeros(1, 1, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tfv.flash_fwd(q, q, q)
 
 
 @pytest.mark.cuda

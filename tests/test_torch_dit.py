@@ -139,12 +139,20 @@ def test_config_json_refuses_unsupported_layouts():
     ok = dict(BASE, scan_layers=False, quantized=False, padded_heads=None,
               pipeline_stages=1, remat_policy="full")
     assert DiTConfig.from_json_dict(ok).hidden_size == 64
-    for bad in (dict(scan_layers=True), dict(padded_heads=8),
-                dict(quantized=True), dict(pipeline_stages=2)):
-        with pytest.raises(ValueError, match="not supported"):
-            DiTConfig.from_json_dict({**ok, **bad})
-    flat = {"blocks_all.blk_0.norm1.weight": np.ones(4, np.float32)}
-    with pytest.raises(NotImplementedError, match="scan-stacked"):
+    # parameter layouts are undone at load; the port runs unrolled blocks
+    for layout in (dict(scan_layers=True), dict(padded_heads=8),
+                   dict(scan_layers=True, pipeline_stages=2)):
+        assert DiTConfig.from_json_dict({**ok, **layout}) == DiTConfig(**BASE)
+    with pytest.raises(ValueError, match="not supported"):
+        DiTConfig.from_json_dict({**ok, "quantized": True})
+    with pytest.raises(ValueError, match="unknown fields"):
+        DiTConfig.from_json_dict({**ok, "num_experts": 4})
+    # head padding must be zeros: anything else is refused, not sliced off
+    jcfg = JaxDiTConfig(**BASE, use_pallas_attention=False)
+    flat = dict(random_jax_params(jcfg, 0))
+    key = "blocks_1.self_attn.qkv.kernel"
+    flat[key] = np.concatenate([flat[key], np.ones_like(flat[key][..., :1, :])], axis=-2)
+    with pytest.raises(ValueError, match="padded heads"):
         state_dict_from_jax(flat, DiTConfig(**BASE))
 
 

@@ -47,6 +47,8 @@ TRAINING_MODULES = (
     "f_lite_tpu_torch.train.step", "f_lite_tpu_torch.data.precomputed",
     "f_lite_tpu_torch.data.samplers", "f_lite_tpu_torch.convert.to_jax",
 )
+LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
+               "f_lite_tpu_torch.tools.flash_variants")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -61,9 +63,9 @@ def test_port_imports_without_jax_or_reference_package():
     out = _run(BLOCKED_IMPORTS.replace("BUILT_BEFORE", str(before)))
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
-    assert set(TRAINING_MODULES) <= set(names.split()), names
+    assert set(TRAINING_MODULES + LAB_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 23, out.stdout
+    assert n_modules >= 26, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -94,6 +96,14 @@ def test_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
         [sys.executable, "-m", "f_lite_tpu_torch.train",
          "--use_precomputed_data", "--precomputed_data_dir", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr
+
+
+def test_lab_raises_without_a_card():
+    _skip_on_a_cuda_host()
+    out = subprocess.run([sys.executable, "-m", "f_lite_tpu_torch.tools.flash_variants"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr, out.stderr
 
