@@ -6,14 +6,17 @@
 Phases (any failed check raises and the run exits non-zero):
 1. the card's name and power limit; TF32 off, so fp32 means fp32;
 2. build the CUDA kernels (`f_lite_tpu_torch/csrc/*.cu`, one nvcc each, in
-   parallel) and print ptxas' register and spill lines;
-3. the forward kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, in bf16 and fp32, timed beside the
-   plain version, one PyTorch library call of the same function
-   (`scaled_dot_product_attention`, a yardstick the port never calls) and
-   the card's bound for the work; the largest abs error allowed is 1e-5 in
-   fp32 and 5% of the plain fp32 result's rms in bf16
-   (`flash_attention.tolerance`), printed with each shape;
+   parallel) and print ptxas' register, spill and warning lines;
+3. the forward kernel (bf16: TMA + wgmma, warp-specialised) against its
+   plain PyTorch version on the card, at the shapes the serving and
+   training paths give it (7B self and cross at 1024 px, 4112 tokens, and
+   at 1280 px, 6416 tokens; the fixture's; training's 1040 tokens; ragged
+   tails), in bf16 and fp32, timed beside the plain version, one PyTorch
+   library call of the same function (`scaled_dot_product_attention`, a
+   yardstick the port never calls) and the card's bound for the work; the
+   largest abs error allowed is 1e-5 in fp32 and 5% of the plain fp32
+   result's rms in bf16 (`flash_attention.tolerance`), printed with each
+   shape;
 4. the dq and dkv kernels against `flash_attention_bwd_plain` at the
    training path's shapes, in bf16 and fp32 (`grad_tolerance`: 5% of the
    plain gradient's rms in bf16, with P and dS rounded to bf16 where the
@@ -197,6 +200,8 @@ ATTN_SHAPES = [
     ("odd_d256", 2, 3, 130, 93, 256, [0, 93]),
     ("train_7b_self", 4, 10, 1040, 1040, 256, None),
     ("train_7b_cross", 4, 10, 1040, 128, 256, [77, 128, 77, 128]),
+    ("7b1280_self", 2, 10, 6416, 6416, 256, None),
+    ("7b1280_cross", 2, 10, 6416, 128, 256, [77, 128]),
 ]
 
 
@@ -1251,7 +1256,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(SOURCES)})")
     for name in SOURCES:
         for line in library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "warning")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     t_start = time.perf_counter()

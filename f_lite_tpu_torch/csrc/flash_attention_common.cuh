@@ -1,6 +1,8 @@
-// Helpers shared by the flash-attention kernels (forward and backward):
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 -> fp32 product of sm_80+ tensor cores.
+// Helpers shared by the flash-attention kernels: constants, shared-memory
+// addresses and bf16 packing for all; cp.async copies into shared memory,
+// ldmatrix fragment loads and the mma.sync m16n8k16 bf16 -> fp32 product
+// for the backward and the lab's kernels (the forward's Hopper helpers are
+// in hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

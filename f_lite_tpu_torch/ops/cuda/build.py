@@ -6,7 +6,11 @@ shared headers (`csrc/*.cuh`) and the flags, and is loaded with `ctypes`.
 Nothing includes PyTorch's headers, so a build takes seconds. Builds happen
 at first use, never at import; `build()` starts one nvcc per source, all at
 once. nvcc's `-Xptxas -v` report is kept beside each library as
-`lib<name>-<hash>.log`.
+`lib<name>-<hash>.log`. `defines` ("NAME=VALUE" strings, passed as `-D`)
+and `csrc` (another checkout's source directory) build a variant of a
+source into its own library: the forward's tile trial
+(`f_lite_tpu_torch/tools/forward_tiles.py`) builds its tile sizes and an
+earlier commit's forward so; the package's own libraries take neither.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -41,27 +45,31 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=(), csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(
-        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        src + headers + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names=SOURCES) -> None:
+def build(names=SOURCES, defines=(), csrc: Path = CSRC) -> None:
     """Build every library of `names` that is not built yet: one nvcc
     process per source, started together; raises if any fails."""
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines, csrc)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *_flags(defines), "-o", str(tmp),
+             str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
@@ -77,11 +85,13 @@ def build(names=SOURCES) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines=(), csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for `<csrc>/<name>.cu` (with `defines`), built
+    first if needed."""
+    key = (name, tuple(defines), Path(csrc).resolve())
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    build([name])
-    lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+    build([name], defines, Path(csrc))
+    lib = _libs[key] = ctypes.CDLL(str(library_path(name, defines, Path(csrc))))
     return lib

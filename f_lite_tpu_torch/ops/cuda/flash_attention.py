@@ -21,11 +21,14 @@ dkv 4), against the bytes of q, k, v, o (and dO, lse, D, dq, dk, dv).
 Self-attention at the 7B shapes is operation-bound; cross-attention over
 128 padded text keys is byte-bound.
 
-Design (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`): bf16
-runs on the tensor cores with mma.sync m16n8k16, 64-row blocks and 64-row
-tiles streamed through shared memory with cp.async up to kv_len only; fp32
-(the parity type) is plain FMA. D is 64 (the trained fixture) or 256
-(7B/10B); other head dims and dtypes raise.
+Design: the bf16 forward (`csrc/flash_attention_fwd.cu`) is warp-specialised
+for Hopper: a producer warpgroup loads Q, K and V tiles by TMA through a
+ring of mbarrier-guarded stages, two consumer warpgroups run Q K^T and P V
+on wgmma, with tensor maps encoded at each launch (so q, k and v must be
+16-byte aligned). The bf16 backward (`csrc/flash_attention_bwd.cu`) runs
+mma.sync m16n8k16 on 64-row tiles streamed with cp.async. Every kernel
+visits keys up to kv_len only; fp32 (the parity type) is plain FMA. D is 64
+(the trained fixture) or 256 (7B/10B); other head dims and dtypes raise.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. `LAUNCHES`, `DQ_LAUNCHES` and
@@ -230,6 +233,15 @@ def _check_cuda(q, k, v):
         raise ValueError("flash_attention: empty query or key sequence")
 
 
+# the forward's own error codes (csrc/flash_attention_fwd.cu kErr*); any
+# other non-zero code is a cudaError_t
+_LAUNCH_ERRORS = {
+    10001: "tensor map encode failed (cuTensorMapEncodeTiled)",
+    10002: "the kernel's registers do not fit its warpgroups' split",
+    10003: "q, k or v not 16-byte aligned",
+}
+
+
 def _launch(fn_name, lib_name, ptrs, q, k, scale):
     """Launch entry point `fn_name` of `csrc/<lib_name>.cu` on q's stream."""
     b, h, lq, d = q.shape
@@ -239,12 +251,26 @@ def _launch(fn_name, lib_name, ptrs, q, k, scale):
         err = fn(*ptrs, b, h, lq, k.shape[2], d, float(scale),
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
+
+
+def check_aligned(*tensors) -> None:
+    """Raise ValueError unless every tensor's data starts 16-byte aligned:
+    TMA reads the forward's q, k and v from their base addresses. A view
+    at an odd storage offset is refused, never copied."""
+    for name, t in zip("qkv", tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} at address {t.data_ptr():#x} is not "
+                "16-byte aligned (storage offset "
+                f"{t.storage_offset()}); TMA needs 16-byte alignment")
 
 
 def _forward_kernel(q, k, v, lens, scale, with_lse: bool):
-    """Launch the forward kernel on contiguous CUDA q, k, v: (out, lse or
-    None)."""
+    """Launch the forward kernel on contiguous, 16-byte aligned CUDA q, k,
+    v: (out, lse or None)."""
+    check_aligned(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
            if with_lse else None)

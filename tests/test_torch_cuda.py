@@ -33,6 +33,21 @@ CASES = [
     (2, 1, 97, 130, 256, [0, 93]),
     (1, 2, 40, 40, 256, None),
     (2, 4, 1040, 32, 64, [32, 17]),
+    # the forward's tile edges (128 query rows a block; 80 keys a tile at
+    # D = 256, 32 at D = 64): a last query tile of 16 rows (4112 % 128) and
+    # of 1 row (129)
+    (1, 2, 144, 144, 256, None),
+    (1, 2, 144, 96, 64, None),
+    (2, 1, 129, 70, 256, [70, 33]),
+    # fewer keys than a tile
+    (2, 2, 96, 32, 256, None),
+    (2, 2, 96, 20, 64, None),
+    # kv_len inside the last tile, 0, and a multiple of the tile
+    (3, 1, 200, 256, 256, [150, 0, 160]),
+    (3, 1, 200, 256, 64, [150, 64, 256]),
+    # more blocks than the card holds at once
+    (2, 40, 256, 256, 256, None),
+    (3, 50, 256, 200, 64, None),
 ]
 
 
@@ -116,6 +131,33 @@ def test_backward_kernels_match_plain(cuda_device, dtype, b, h, lq, lk, d,
         masked = torch.arange(lk, device=cuda_device)[None, :] >= lens[:, None]
         for g in got[1:]:
             assert not g.transpose(1, 2)[masked].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_kernel_is_deterministic(cuda_device, d):
+    """Two launches on the same inputs give the same bits (output and lse):
+    no atomics, no order that changes from run to run."""
+    q, k, v = _qkv(2, 3, 300, 200, d, cuda_device, torch.bfloat16, seed=3)
+    lens = torch.tensor([200, 77], device=cuda_device)
+    first = tfa.flash_attention_fwd_lse(q, k, v, lens)
+    second = tfa.flash_attention_fwd_lse(q, k, v, lens)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_raises_on_an_unaligned_q(cuda_device, dtype):
+    """A contiguous q at a storage offset of 2 elements is not 16-byte
+    aligned: the wrapper raises before any launch and copies nothing."""
+    flat = torch.randn(2 + 2 * 2 * 64 * 64, device=cuda_device).to(dtype)
+    q = flat[2:].view(2, 2, 64, 64)
+    k = torch.randn(2, 2, 64, 64, device=cuda_device).to(dtype)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = tfa.LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention(q, k, k)
+    assert tfa.LAUNCHES.count == before
 
 
 @pytest.mark.cuda

@@ -30,6 +30,11 @@ CASES = [
     (3, 1, 33, 77, 64, [77, 0, 41]),
     (2, 1, 97, 130, 256, [0, 93]),
     (1, 2, 40, 40, 256, None),
+    # the Hopper forward's tile edges: a 16-row last query tile with fewer
+    # keys than a tile; a 1-row last query tile with kv_len inside the last
+    # key tile, 0, and a multiple of the tile
+    (1, 2, 144, 32, 256, None),
+    (3, 1, 129, 200, 64, [150, 0, 128]),
 ]
 
 
@@ -202,6 +207,17 @@ def test_chip_smoke_bound_of_the_7b_self_attention():
     ms, by = chip_smoke.attention_bound_ms(2, 10, 4112, 128, 256, [77, 128],
                                            "bfloat16")
     assert by == "bytes" and 0.02 < ms < 0.03
+    # 1280 px: 6416 tokens
+    ms, by = chip_smoke.attention_bound_ms(2, 10, 6416, 6416, 256, None,
+                                           "bfloat16")
+    assert by == "operations"
+    assert abs(ms - 4 * 2 * 10 * 6416**2 * 256 / 989e12 * 1e3) < 1e-9
+    assert 0.851 < ms < 0.853
+    ms, by = chip_smoke.attention_bound_ms(2, 10, 6416, 128, 256, [77, 128],
+                                           "bfloat16")
+    nbytes = 2 * (2 * 2 * 10 * 6416 * 256 + 2 * 10 * 256 * (77 + 128))
+    assert by == "bytes" and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-9
+    assert 0.039 < ms < 0.040
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", [
@@ -240,3 +256,31 @@ def test_bwd_bf16_tolerance_passes_rounding_and_fails_mistakes(b, h, lq, lk, d,
     assert min(ratios(grads(q, k, v, dout, lens, scale=d**-0.5 * 1.02))) > 2.0
     fewer = torch.tensor([n - 1 for n in (kv_lens or [lk] * b)])
     assert min(ratios(grads(q, k, v, dout, fewer))) > 2.0
+
+
+@pytest.mark.parametrize("label,lq,lk,kv_lens", [
+    ("7b1280_self", 6416, 6416, None),
+    ("7b1280_cross", 6416, 128, [77, 128]),
+])
+def test_chip_smoke_times_the_1280px_attention(label, lq, lk, kv_lens):
+    """chip_smoke's phase 3 holds the forward kernel at the 1280 px serving
+    calls (6416 tokens: 16 registers + 80x80 patches, 50 query tiles of 128
+    with a 16-row last one) beside the 1024 px ones."""
+    import chip_smoke
+
+    shapes = {s[0]: s[1:] for s in chip_smoke.ATTN_SHAPES}
+    assert shapes[label] == (2, 10, lq, lk, 256, kv_lens)
+    assert lq == 16 + (1280 // 16) ** 2 and lq % 128 == 16
+    assert shapes["7b_self"][2] == 16 + (1024 // 16) ** 2
+
+
+def test_check_aligned_refuses_an_odd_storage_offset():
+    """The forward's TMA loads need 16-byte aligned q, k, v: a contiguous
+    view at a storage offset of 2 elements is refused, never copied."""
+    flat = torch.zeros(2 + 2 * 64, dtype=torch.bfloat16)
+    aligned = flat[:128].view(2, 64)
+    odd = flat[2:].view(2, 64)
+    assert aligned.data_ptr() % 16 == 0 and odd.is_contiguous()
+    tfa.check_aligned(aligned, aligned, aligned)
+    with pytest.raises(ValueError, match="k at address .* not 16-byte aligned"):
+        tfa.check_aligned(aligned, odd, aligned)
