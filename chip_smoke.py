@@ -17,12 +17,15 @@ Phases (any failed check raises and the run exits non-zero):
    largest abs error allowed is 1e-5 in fp32 and 5% of the plain fp32
    result's rms in bf16 (`flash_attention.tolerance`), printed with each
    shape;
-4. the dq and dkv kernels against `flash_attention_bwd_plain` at the
-   training path's shapes, in bf16 and fp32 (`grad_tolerance`: 5% of the
-   plain gradient's rms in bf16, with P and dS rounded to bf16 where the
-   kernels round them, 1e-5 of its largest magnitude in fp32),
+4. the dq and dkv kernels (bf16: TMA + wgmma, warp-specialised) against
+   `flash_attention_bwd_plain` at the training path's shapes and at a head
+   dim the wrapper pads (128 -> 256), in bf16 and fp32 (`grad_tolerance`:
+   5% of the plain gradient's rms in bf16, with P and dS rounded to bf16
+   where the kernels round them, 1e-5 of its largest magnitude in fp32),
    with exact zeros at masked keys and kv_len 0 rows, timed beside the
    plain version, SDPA forward + backward minus forward, and the bound;
+   ptxas' register, spill and C7512 lines of the bf16 backward kernels,
+   none of which may spill or have its wgmma serialised;
 5. the perf lab's variant kernel (`csrc/flash_attention_variants.cu`)
    against `flash_fwd_plain`: its seven variants at every compiled block
    pair, at 2x10x4112x256 and at 333 keys (ragged tiles) with D 256 and 64,
@@ -273,7 +276,38 @@ BWD_SHAPES = [
     ("7b_cross", 4, 10, 1040, 128, 256, [77, 128, 77, 128]),
     ("odd_d64", 3, 2, 333, 77, 64, [77, 0, 41]),
     ("odd_d256", 2, 3, 130, 93, 256, [0, 93]),
+    # a head dim with no compiled instance: zero-padded to 256
+    ("7b_d128", 4, 10, 1040, 1040, 128, None),
 ]
+
+
+def backward_ptxas() -> list[str]:
+    """ptxas' register, spill and warning lines of the bf16 backward
+    kernels (their build log); raises where one spills or has its wgmma
+    serialised (C7512)."""
+    import re
+
+    from f_lite_tpu_torch.ops.cuda.build import library_path
+
+    names = ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+    report = library_path("flash_attention_bwd").with_suffix(".log").read_text()
+    lines, bad, kernel = [], [], None
+    for line in map(str.strip, report.splitlines()):
+        if "Compiling entry" in line:
+            kernel = next((n for n in names if n in line), None)
+        elif "C7512" in line and any(n in line for n in names):
+            lines.append(line)
+            bad.append(line)
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.append(f"{kernel}: {line}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and spills.groups() != ("0", "0"):
+                bad.append(f"{kernel}: {line}")
+    for line in lines:
+        log(f"  ptxas backward: {line}")
+    if bad:
+        raise AssertionError(f"bf16 backward kernels spill or serialise: {bad}")
+    return lines
 
 
 def backward_bound_ms(b, h, lq, lk, d, kv_lens, dtype_name, which) -> tuple:
@@ -325,6 +359,7 @@ def check_backward() -> list[dict]:
 
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 
+    backward_ptxas()
     rows = []
     gen = torch.Generator("cuda").manual_seed(1)
     for label, b, h, lq, lk, d, kv in BWD_SHAPES:
@@ -836,7 +871,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
     res = dict(config="f_lite_7b_width_d20_train512", params=n_params,
                batch=batch, tokens=1040, steps=result["global_step"],
                s_per_step=statistics.median(watch.times[2:]),
-               step_s=watch.times,
+               s_per_step_pr5=0.409, step_s=watch.times,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=counts, per_step=watch.per_step[0],
                per_step_expected=expected, all_finite=all(finite),
@@ -1333,6 +1368,10 @@ def main() -> int:
             library_covers="SDPA forward + backward minus forward (dq, dk, dv)",
             pair_ms=bwd_main["pair_ms"], fused_bound_ms=bwd_main["bound_ms"]["fused"],
             at="7b_self (training, B=4 L=1040) bfloat16",
+            by_shape={r["shape"]: dict(ms=r[ms_key], pair_ms=r["pair_ms"],
+                                       library_ms=r["library_ms"],
+                                       bound_ms=r["bound_ms"][which])
+                      for r in bwd_rows if r["dtype"] == "bfloat16"},
         ))
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 

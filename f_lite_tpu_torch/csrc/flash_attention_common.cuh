@@ -1,8 +1,8 @@
 // Helpers shared by the flash-attention kernels: constants, shared-memory
 // addresses and bf16 packing for all; cp.async copies into shared memory,
 // ldmatrix fragment loads and the mma.sync m16n8k16 bf16 -> fp32 product
-// for the backward and the lab's kernels (the forward's Hopper helpers are
-// in hopper.cuh).
+// for the lab's kernels (the Hopper helpers of the forward and the
+// backward are in hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels: mbarriers,
-// TMA tile loads through tensor maps, wgmma shared-memory descriptors and
-// products, and register reallocation between warpgroups (setmaxnreg).
+// TMA tile loads through tensor maps and bulk copies, named barriers and
+// the proxy fence, wgmma shared-memory descriptors and products, and
+// register reallocation between warpgroups (setmaxnreg).
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so nothing links libcuda.
@@ -77,6 +78,42 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// `bytes` contiguous bytes from global `src` into shared memory at `dst`
+// (both 16-byte aligned, bytes a multiple of 16), counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Shared memory written by threads and read by wgmma
+// ---------------------------------------------------------------------------
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma operands read from shared memory); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of element (row, col) of a bf16 tile stored as TMA stores it
+// with the 128-byte swizzle: 64-column boxes of `rows` rows, one after the
+// other; inside a box the 16-byte chunk index is XORed with row % 8.
+__device__ __forceinline__ uint32_t swizzle128_offset(int rows, int row,
+                                                      int col) {
+  return (col / 64) * rows * 128 + row * 128 +
+         ((((col % 64) / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
 }
 
 // ---------------------------------------------------------------------------
@@ -157,6 +194,12 @@ template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint32_t a,
                                          uint32_t b, int scale_d);
 
+// d (64 x N fp32) (+)= A (64 x 16 bf16, K-major, descriptor low word a) *
+// B (16 x N bf16, MN-major, descriptor low word b).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint32_t a,
+                                            uint32_t b, int scale_d);
+
 // d (64 x N fp32) (+)= A (64 x 16 bf16 in registers, the mma.m16n8k16 A
 // fragment of each warp's 16 rows) * B (16 x N bf16, MN-major, descriptor
 // low word b).
@@ -181,6 +224,28 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint32_t a,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint32_t a,
+                                             uint32_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %27, 0;\n"
+      "mov.b64 da, {%24, %26};\n"
+      "mov.b64 db, {%25, %26};\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
 }
 
@@ -255,6 +320,43 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint32_t a,
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint32_t a,
+                                                 uint32_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "mov.b64 da, {%64, %66};\n"
+      "mov.b64 db, {%65, %66};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

@@ -8,9 +8,10 @@ at first use, never at import; `build()` starts one nvcc per source, all at
 once. nvcc's `-Xptxas -v` report is kept beside each library as
 `lib<name>-<hash>.log`. `defines` ("NAME=VALUE" strings, passed as `-D`)
 and `csrc` (another checkout's source directory) build a variant of a
-source into its own library: the forward's tile trial
-(`f_lite_tpu_torch/tools/forward_tiles.py`) builds its tile sizes and an
-earlier commit's forward so; the package's own libraries take neither.
+source into its own library: the tile trials
+(`f_lite_tpu_torch/tools/forward_tiles.py`, `backward_tiles.py`) build
+their tile sizes and an earlier commit's kernels so; the package's own
+libraries take neither.
 """
 
 from __future__ import annotations

@@ -21,14 +21,23 @@ dkv 4), against the bytes of q, k, v, o (and dO, lse, D, dq, dk, dv).
 Self-attention at the 7B shapes is operation-bound; cross-attention over
 128 padded text keys is byte-bound.
 
-Design: the bf16 forward (`csrc/flash_attention_fwd.cu`) is warp-specialised
-for Hopper: a producer warpgroup loads Q, K and V tiles by TMA through a
-ring of mbarrier-guarded stages, two consumer warpgroups run Q K^T and P V
-on wgmma, with tensor maps encoded at each launch (so q, k and v must be
-16-byte aligned). The bf16 backward (`csrc/flash_attention_bwd.cu`) runs
-mma.sync m16n8k16 on 64-row tiles streamed with cp.async. Every kernel
-visits keys up to kv_len only; fp32 (the parity type) is plain FMA. D is 64
-(the trained fixture) or 256 (7B/10B); other head dims and dtypes raise.
+Design: the bf16 kernels are warp-specialised for Hopper: a producer
+warpgroup loads tiles by TMA through a ring of mbarrier-guarded stages and
+consumer warpgroups run the products on wgmma, with tensor maps encoded at
+each launch (so q, k, v and dO must be 16-byte aligned). The forward
+(`csrc/flash_attention_fwd.cu`) streams K and V past 128 query rows; the dq
+kernel (`csrc/flash_attention_bwd.cu`) does the same for Q and dO, and the
+dkv kernel streams Q, dO, lse and delta past resident K and V. Every kernel
+visits keys up to kv_len only; fp32 (the parity type) is plain FMA.
+
+The kernels are compiled for head dims 64 (the trained fixture) and 256
+(7B/10B). Any other D up to 256 is zero-padded along D to the next of them
+(`padded_head_dim`) and the outputs sliced back: zero columns add nothing
+to Q K^T (so lse and P are unchanged), nothing to delta = rowsum(dO * O),
+and give zero output and gradient columns. The softmax scale comes from the
+true D. D > 256 and other dtypes raise. The bf16 backward kernels read lse
+and delta with rows padded to a multiple of `STAT_ROWS` (`pad_stat_rows`),
+so that each tile of them is one aligned bulk copy.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. `LAUNCHES`, `DQ_LAUNCHES` and
@@ -44,7 +53,8 @@ import torch
 
 from f_lite_tpu_torch.ops.cuda.build import load
 
-HEAD_DIMS = (64, 256)
+HEAD_DIMS = (64, 256)  # the compiled instances; other D are padded up
+STAT_ROWS = 128  # the bf16 backward's lse / delta rows: a multiple of this
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FP32_ATOL = 1e-5
 BF16_RMS_FRACTION = 0.05
@@ -97,6 +107,32 @@ class LaunchCounter:
 LAUNCHES = LaunchCounter()      # the forward kernel
 DQ_LAUNCHES = LaunchCounter()   # the dq kernel
 DKV_LAUNCHES = LaunchCounter()  # the dkv kernel
+
+
+def padded_head_dim(d: int) -> int:
+    """The compiled head dim a D runs at on the card: 64 for D <= 64, 256
+    for 64 < D <= 256. Larger D raise ValueError."""
+    if not 0 < d <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head dim {d} not in 1..{HEAD_DIMS[-1]}")
+    return next(n for n in HEAD_DIMS if d <= n)
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """x zero-padded along its last dim to `padded_head_dim`, contiguous
+    (x itself when it already is)."""
+    d = x.shape[-1]
+    d_pad = padded_head_dim(d)
+    if d != d_pad:
+        x = torch.nn.functional.pad(x, (0, d_pad - d))
+    return x.contiguous()
+
+
+def pad_stat_rows(x: torch.Tensor) -> torch.Tensor:
+    """An fp32 (B, H, Lq) lse or delta zero-padded to a multiple of
+    STAT_ROWS rows, contiguous. The pad rows are never read as real rows:
+    their q and dO rows are zero-filled and P is selected to 0 there."""
+    pad = -x.shape[-1] % STAT_ROWS
+    return torch.nn.functional.pad(x.float(), (0, pad)).contiguous()
 
 
 def _lengths(kv_lens, b, lk, device):
@@ -220,8 +256,7 @@ def _check_cuda(q, k, v):
             f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do not match"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    padded_head_dim(d)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
@@ -233,12 +268,12 @@ def _check_cuda(q, k, v):
         raise ValueError("flash_attention: empty query or key sequence")
 
 
-# the forward's own error codes (csrc/flash_attention_fwd.cu kErr*); any
-# other non-zero code is a cudaError_t
+# the kernels' own error codes (kErr* in csrc/flash_attention_fwd.cu and
+# csrc/flash_attention_bwd.cu); any other non-zero code is a cudaError_t
 _LAUNCH_ERRORS = {
     10001: "tensor map encode failed (cuTensorMapEncodeTiled)",
     10002: "the kernel's registers do not fit its warpgroups' split",
-    10003: "q, k or v not 16-byte aligned",
+    10003: "q, k, v, dO, lse or delta not 16-byte aligned",
 }
 
 
@@ -257,9 +292,9 @@ def _launch(fn_name, lib_name, ptrs, q, k, scale):
 
 def check_aligned(*tensors) -> None:
     """Raise ValueError unless every tensor's data starts 16-byte aligned:
-    TMA reads the forward's q, k and v from their base addresses. A view
-    at an odd storage offset is refused, never copied."""
-    for name, t in zip("qkv", tensors):
+    TMA reads q, k, v (and the backward's dO) from their base addresses. A
+    view at an odd storage offset is refused, never copied."""
+    for name, t in zip(("q", "k", "v", "dO"), tensors):
         if t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} at address {t.data_ptr():#x} is not "
@@ -269,7 +304,10 @@ def check_aligned(*tensors) -> None:
 
 def _forward_kernel(q, k, v, lens, scale, with_lse: bool):
     """Launch the forward kernel on contiguous, 16-byte aligned CUDA q, k,
-    v: (out, lse or None)."""
+    v, padded along D to a compiled head dim and sliced back: (out, lse or
+    None). `scale` is already the true D's."""
+    d = q.shape[-1]
+    q, k, v = pad_head_dim(q), pad_head_dim(k), pad_head_dim(v)
     check_aligned(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
@@ -278,7 +316,7 @@ def _forward_kernel(q, k, v, lens, scale, with_lse: bool):
             (_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out), _ptr(lse)),
             q, k, scale)
     LAUNCHES.count += 1
-    return out, lse
+    return out[..., :d], lse
 
 
 def flash_attention_fwd_lse(q, k, v, kv_lens=None, *, scale=None):
@@ -297,7 +335,10 @@ def flash_attention_fwd_lse(q, k, v, kv_lens=None, *, scale=None):
 
 
 def _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale):
-    """Checked, contiguous inputs of the backward kernels (CUDA tensors)."""
+    """Checked, contiguous inputs of the backward kernels (CUDA tensors):
+    (q, k, v, dO padded along D to a compiled head dim, lse, delta (in
+    bf16 padded to a multiple of STAT_ROWS rows), kv_lens), and the scale,
+    from the true D."""
     _check_cuda(q, k, v)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(
@@ -308,35 +349,45 @@ def _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     lens = _lengths(kv_lens, q.shape[0], k.shape[2], q.device)
-    q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(lens))
-    return q, k, v, ptrs, scale
+    q, k, v, dout = (pad_head_dim(x) for x in (q, k, v, dout))
+    check_aligned(q, k, v, dout)
+    if q.dtype == torch.bfloat16:
+        lse, delta = pad_stat_rows(lse), pad_stat_rows(delta)
+    else:
+        lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    return (q, k, v, dout, lse, delta, lens), scale
+
+
+def _dq_kernel(ins, scale, d):
+    dq = torch.empty_like(ins[0])
+    _launch("flash_attention_bwd_dq", "flash_attention_bwd",
+            tuple(map(_ptr, ins + (dq,))), ins[0], ins[1], scale)
+    DQ_LAUNCHES.count += 1
+    return dq[..., :d]
+
+
+def _dkv_kernel(ins, scale, d):
+    dk = torch.empty_like(ins[1])
+    dv = torch.empty_like(ins[2])
+    _launch("flash_attention_bwd_dkv", "flash_attention_bwd",
+            tuple(map(_ptr, ins + (dk, dv))), ins[0], ins[1], scale)
+    DKV_LAUNCHES.count += 1
+    return dk[..., :d], dv[..., :d]
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_lens=None, *,
                            scale=None):
     """dq from the dq kernel (CUDA tensors; see `flash_attention_bwd`)."""
-    q, k, v, ptrs, scale = _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale)
-    dq = torch.empty_like(q)
-    _launch("flash_attention_bwd_dq", "flash_attention_bwd",
-            ptrs + (_ptr(dq),), q, k, scale)
-    DQ_LAUNCHES.count += 1
-    return dq
+    return _dq_kernel(*_bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale),
+                      q.shape[-1])
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_lens=None, *,
                             scale=None):
     """(dk, dv) from the dkv kernel (CUDA tensors; see
     `flash_attention_bwd`)."""
-    q, k, v, ptrs, scale = _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", "flash_attention_bwd",
-            ptrs + (_ptr(dk), _ptr(dv)), q, k, scale)
-    DKV_LAUNCHES.count += 1
-    return dk, dv
+    return _dkv_kernel(*_bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale),
+                       q.shape[-1])
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, kv_lens=None, *,
@@ -347,10 +398,9 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_lens=None, *,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, kv_lens,
                                          scale=scale)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_lens, scale=scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_lens,
-                                     scale=scale)
-    return dq, dk, dv
+    ins, scale = _bwd_inputs(q, k, v, dout, lse, delta, kv_lens, scale)
+    return (_dq_kernel(ins, scale, q.shape[-1]),
+            *_dkv_kernel(ins, scale, q.shape[-1]))
 
 
 class _FlashAttention(torch.autograd.Function):

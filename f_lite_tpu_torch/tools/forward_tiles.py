@@ -89,6 +89,30 @@ def time_ms(run) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def time_in_turns(labels, run) -> dict:
+    """{label: [ms, ms]}: `run(label)` timed for every label in turns (a,
+    b, ..., b, a), so that drift of the card's clock falls on all."""
+    times = {label: [] for label in labels}
+    for label in list(labels) + list(labels)[::-1]:
+        times[label].append(time_ms(lambda: run(label)))
+    return times
+
+
+def build_all(source: str, builds) -> None:
+    """Build `source` for every (defines, csrc) of `builds`, all nvcc
+    processes at once, and print ptxas' register, spill and warning lines
+    of each."""
+    builds = sorted(set(builds), key=str)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: build.build([source], *b), builds))
+    for defines, csrc in builds:
+        log = build.library_path(source, defines, csrc).with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if any(w in line for w in ("bf16", "spill", "Used", "warning")):
+                print(f"  ptxas {csrc.parts[-3]} {' '.join(defines)}: "
+                      f"{line.strip()[:160]}", flush=True)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -104,15 +128,8 @@ def main(argv=None) -> list[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("forward_tiles: needs an NVIDIA GPU")
     print("card:", card_line(), flush=True)
-    builds = {v for d in CANDIDATES for v in candidates(d, args.against).values()}
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda b: build.build([SOURCE], *b), builds))
-    for defines, csrc in sorted(builds, key=str):
-        log = build.library_path(SOURCE, defines, csrc).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "bf16" in line or "spill" in line or "Used" in line:
-                print(f"  ptxas {csrc.parts[-3]} {' '.join(defines)}: "
-                      f"{line.strip()[:160]}", flush=True)
+    build_all(SOURCE, [v for d in CANDIDATES
+                       for v in candidates(d, args.against).values()])
     rows = []
     gen = torch.Generator("cuda").manual_seed(0)
     for d in CANDIDATES:
@@ -126,14 +143,13 @@ def main(argv=None) -> list[dict]:
             ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), lens)
             tol = fa.tolerance(ref, torch.bfloat16)
             out = torch.empty_like(q)
-            errs, times = {}, {label: [] for label in labels}
+            errs = {}
             for label in labels:
                 launch(fns[label], q, k, v, lens, out)
                 torch.cuda.synchronize()
                 errs[label] = float((out.float() - ref).abs().max())
-            for label in labels + labels[::-1]:
-                times[label].append(
-                    time_ms(lambda: launch(fns[label], q, k, v, lens, out)))
+            times = time_in_turns(
+                labels, lambda label: launch(fns[label], q, k, v, lens, out))
             for label in labels:
                 row = dict(d=d, candidate=label, shape=shape, q=[b, h, lq, d],
                            kv=[b, h, lk, d], kv_lens=kv, max_abs_err=errs[label],

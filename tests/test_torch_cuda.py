@@ -50,6 +50,26 @@ CASES = [
     (3, 50, 256, 200, 64, None),
 ]
 
+# the backward kernels' tile edges: the dq kernel's 128 q rows a block and
+# 48 keys a tile (32 at D = 64); the dkv kernel's 64 keys a block (128 at
+# D = 64) and 64 q rows a tile. q rows past a tile (333, 129, 97); kv_len
+# 0, inside the last tile and a multiple of the tiles; fewer keys than a
+# tile.
+BWD_EDGES = [
+    (2, 2, 333, 333, 256, [333, 200]),
+    (3, 1, 333, 77, 64, [77, 0, 41]),
+    (2, 1, 129, 192, 256, [64, 192]),
+    (2, 1, 129, 300, 64, [128, 257]),
+    (2, 2, 97, 20, 64, None),
+    (2, 2, 97, 16, 256, [16, 0]),
+    (2, 3, 97, 131, 256, [96, 131]),
+    (2, 2, 97, 160, 256, [144, 150]),
+    (4, 2, 1040, 128, 256, [77, 128, 0, 33]),
+]
+
+# head dims the wrapper zero-pads along D to a compiled instance
+PADDED_DIMS = [32, 96, 128, 192]
+
 
 @pytest.fixture
 def cuda_device():
@@ -103,7 +123,7 @@ def test_forward_lse_matches_plain(cuda_device, dtype, b, h, lq, lk, d, kv_lens)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES)
+@pytest.mark.parametrize("b,h,lq,lk,d,kv_lens", CASES + BWD_EDGES)
 def test_backward_kernels_match_plain(cuda_device, dtype, b, h, lq, lk, d,
                                       kv_lens):
     """dq and dkv kernels against `flash_attention_bwd_plain` on the same
@@ -136,13 +156,59 @@ def test_backward_kernels_match_plain(cuda_device, dtype, b, h, lq, lk, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 256])
 def test_kernel_is_deterministic(cuda_device, d):
-    """Two launches on the same inputs give the same bits (output and lse):
-    no atomics, no order that changes from run to run."""
+    """Two launches on the same inputs give the same bits (output and lse,
+    and dq, dk, dv of the backward kernels): no atomics, no order that
+    changes from run to run."""
     q, k, v = _qkv(2, 3, 300, 200, d, cuda_device, torch.bfloat16, seed=3)
     lens = torch.tensor([200, 77], device=cuda_device)
     first = tfa.flash_attention_fwd_lse(q, k, v, lens)
     second = tfa.flash_attention_fwd_lse(q, k, v, lens)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    dout = _qkv(2, 3, 300, 300, d, cuda_device, torch.bfloat16, seed=4)[0]
+    delta = tfa.attention_delta(first[0], dout)
+    grads = [tfa.flash_attention_bwd(q, k, v, dout, first[1], delta, lens)
+             for _ in range(2)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_padded_head_dims_match_plain(cuda_device, dtype, d):
+    """A head dim with no compiled instance runs zero-padded to the next
+    one: forward (out and lse) within `tolerance`, dq, dk, dv within
+    `grad_tolerance` of the plain versions at the true D, one launch of
+    each kernel, exact zeros at kv_len 0 rows and masked keys."""
+    b, h, lq, lk = 2, 3, 200, 150
+    q, k, v = _qkv(b, h, lq, lk, d, cuda_device, dtype, seed=11)
+    dout = _qkv(b, h, lq, lq, d, cuda_device, dtype, seed=12)[0]
+    lens = torch.tensor([150, 0], device=cuda_device)
+    before = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    out, lse = tfa.flash_attention_fwd_lse(q, k, v, lens)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    want = tfa.flash_attention_plain(qf, kf, vf, lens)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert float((out.float() - want).abs().max()) <= tfa.tolerance(want, dtype)
+    want_lse = tfa.flash_attention_lse_plain(qf, kf, lens)
+    torch.testing.assert_close(lse[0], want_lse[0], rtol=0,
+                               atol=1e-4 if dtype == torch.float32 else 2e-2)
+    assert not out[1].any()
+    lse_p = tfa.flash_attention_lse_plain(qf, kf, lens)
+    delta = tfa.attention_delta(want, dof)
+    got = tfa.flash_attention_bwd(q, k, v, dout, lse_p, delta, lens)
+    torch.cuda.synchronize()
+    after = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    assert [x - y for x, y in zip(after, before)] == [1, 1, 1]
+    ref = tfa.flash_attention_bwd_plain(q, k, v, dout, lse_p, delta, lens,
+                                        out_dtype=torch.float32)
+    for name, g, w in zip(("dq", "dk", "dv"), got, ref):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        err = float((g.float() - w).abs().max())
+        assert err <= tfa.grad_tolerance(w, dtype), (name, err)
+    assert not got[0][1].any()
+    assert not got[1][:, :, 150:].any() and not got[1][1].any()
+    assert not got[2][:, :, 150:].any() and not got[2][1].any()
 
 
 @pytest.mark.cuda
@@ -186,7 +252,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q, q)
-    q = torch.zeros(1, 1, 8, 128, device=cuda_device)
+    q = torch.zeros(1, 1, 8, 320, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
 
@@ -309,6 +375,37 @@ def test_dit_grads_on_the_card_match_the_cpu(cuda_device):
     assert (tfa.DQ_LAUNCHES.count - before[0], tfa.DKV_LAUNCHES.count - before[1]) == (5, 5)
     for (name, pc), (_, pg) in zip(cpu.named_parameters(), gpu.named_parameters()):
         assert pc.grad is not None, name
+        assert pg.grad is not None, f"{name}: no gradient on the card"
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+def test_dit_with_128_wide_heads_on_the_card_matches_the_cpu(cuda_device):
+    """A DiT whose heads are 128 wide (no compiled instance: the kernels
+    run it zero-padded to 256), fp32: output and every parameter gradient
+    on the card equal the CPU's (plain attention), atol 1e-4."""
+    cfg = DiTConfig(in_channels=4, hidden_size=256, depth=3, num_heads=2,
+                    mlp_ratio=2.0, cross_attn_input_size=32, residual_v=True,
+                    cross_attn_first_n=1, cross_attn_period=2)
+    assert cfg.head_dim == 128
+    _, _, args, weight = _small_dit_and_inputs()
+    cpu = randomize_(DiT(cfg), seed=0)
+    gpu = DiT(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda_device)
+    want = cpu(*args)
+    (want * weight).sum().backward()
+    before = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    got = gpu(*(a.to(cuda_device) for a in args))
+    (got * weight.to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    after = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+    assert [x - y for x, y in zip(after, before)] == [5, 5, 5]
+    assert float(want.abs().max()) > 1e-2
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-4,
+                               rtol=1e-4)
+    for (name, pc), (_, pg) in zip(cpu.named_parameters(), gpu.named_parameters()):
         assert pg.grad is not None, f"{name}: no gradient on the card"
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4,
                                    msg=lambda m, n=name: f"{n}: {m}")

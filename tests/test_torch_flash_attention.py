@@ -35,6 +35,11 @@ CASES = [
     # key tile, 0, and a multiple of the tile
     (1, 2, 144, 32, 256, None),
     (3, 1, 129, 200, 64, [150, 0, 128]),
+    # head dims the card pads along D (to 256): the wrapper's result must
+    # still be the reference's
+    (2, 2, 97, 70, 96, [70, 33]),
+    (1, 2, 64, 64, 128, None),
+    (2, 1, 33, 48, 128, [0, 48]),
 ]
 
 
@@ -284,3 +289,104 @@ def test_check_aligned_refuses_an_odd_storage_offset():
     tfa.check_aligned(aligned, aligned, aligned)
     with pytest.raises(ValueError, match="k at address .* not 16-byte aligned"):
         tfa.check_aligned(aligned, odd, aligned)
+
+
+@pytest.mark.parametrize("d,want", [
+    (32, 64), (64, 64), (96, 256), (128, 256), (192, 256), (256, 256),
+    (257, None),
+])
+def test_padded_head_dim(d, want):
+    """Every D up to 256 runs on a compiled instance (64 or 256); a larger
+    one raises."""
+    if want is None:
+        with pytest.raises(ValueError, match="head dim 257"):
+            tfa.padded_head_dim(d)
+    else:
+        assert tfa.padded_head_dim(d) == want
+        x = torch.ones(2, 3, d)
+        padded = tfa.pad_head_dim(x)
+        assert padded.shape == (2, 3, want) and padded.is_contiguous()
+        assert torch.equal(padded[..., :d], x) and not padded[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [32, 96, 128, 192])
+def test_zero_padding_along_d_is_exact(d):
+    """What the card's wrapper does at a D it has no instance for: zero-pad
+    q, k, v and dO along D, run the computation at the padded D with the
+    true D's scale, slice back. fp32, against the plain versions at the
+    true D: forward, lse and every gradient."""
+    b, h, lq, lk = 2, 2, 40, 24
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, lq, lk, d, seed=5))
+    dout = torch.from_numpy(np.random.RandomState(6).randn(b, h, lq, d)
+                            .astype(np.float32))
+    lens = torch.tensor([24, 9])
+    scale = d**-0.5
+    qp, kp, vp, dop = (tfa.pad_head_dim(x) for x in (q, k, v, dout))
+    assert qp.shape[-1] == tfa.padded_head_dim(d) > d
+
+    out = tfa.flash_attention_plain(q, k, v, lens, scale=scale)
+    out_p = tfa.flash_attention_plain(qp, kp, vp, lens, scale=scale)
+    torch.testing.assert_close(out_p[..., :d], out, atol=1e-6, rtol=0)
+    assert not out_p[..., d:].any()
+    lse = tfa.flash_attention_lse_plain(q, k, lens, scale=scale)
+    torch.testing.assert_close(tfa.flash_attention_lse_plain(qp, kp, lens, scale=scale),
+                               lse, atol=1e-6, rtol=0)
+    delta = tfa.attention_delta(out, dout)
+    torch.testing.assert_close(tfa.attention_delta(out_p, dop), delta,
+                               atol=1e-6, rtol=0)
+    want = tfa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, lens,
+                                         scale=scale)
+    got = tfa.flash_attention_bwd_plain(qp, kp, vp, dop, lse, delta, lens,
+                                        scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g[..., :d], w, atol=1e-6, rtol=0, msg=name)
+        assert not g[..., d:].any(), name
+
+
+def test_padded_stat_rows_leave_the_backward_unchanged():
+    """The bf16 backward kernels read lse and delta with rows padded to a
+    multiple of STAT_ROWS (zeros), beside q and dO rows that TMA zero-fills
+    past Lq. Those rows add nothing: the plain backward on the padded rows
+    gives the same dk and dv, and the same dq on the real rows."""
+    b, h, lq, lk, d = 2, 2, 97, 40, 64
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, lq, lk, d, seed=7))
+    dout = torch.from_numpy(np.random.RandomState(8).randn(b, h, lq, d)
+                            .astype(np.float32))
+    lens = torch.tensor([40, 13])
+    lse = tfa.flash_attention_lse_plain(q, k, lens)
+    delta = tfa.attention_delta(tfa.flash_attention_plain(q, k, v, lens), dout)
+    lse_p, delta_p = tfa.pad_stat_rows(lse), tfa.pad_stat_rows(delta)
+    rows = lse_p.shape[-1]
+    assert rows % tfa.STAT_ROWS == 0 and rows - lq < tfa.STAT_ROWS
+    assert lse_p.is_contiguous() and lse_p.dtype == torch.float32
+    # a transposed view whose rows are a multiple already comes back
+    # contiguous too
+    assert tfa.pad_stat_rows(torch.zeros(128, 2, 2).permute(1, 2, 0)).is_contiguous()
+    assert torch.equal(lse_p[..., :lq], lse) and not lse_p[..., lq:].any()
+    assert torch.equal(delta_p[..., :lq], delta) and not delta_p[..., lq:].any()
+
+    def zero_rows(x):  # q or dO: rows are dim 2
+        return torch.nn.functional.pad(x, (0, 0, 0, rows - lq))
+
+    want = tfa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, lens)
+    got = tfa.flash_attention_bwd_plain(zero_rows(q), k, v, zero_rows(dout),
+                                        lse_p, delta_p, lens)
+    assert torch.equal(got[0][:, :, :lq], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_chip_smoke_backward_bounds_and_padded_shape():
+    """chip_smoke's phase 4 holds the backward kernels at the 7B training
+    self-attention (bounds: dq 3 products, dkv 4, over 4x10x1040x1040x256)
+    and at a head dim the wrapper pads to 256 (128)."""
+    import chip_smoke
+
+    flops = 2 * 4 * 10 * 1040 * 1040 * 256 / 989e12 * 1e3
+    for which, products in (("dq", 3), ("dkv", 4), ("pair", 7)):
+        ms, by = chip_smoke.backward_bound_ms(4, 10, 1040, 1040, 256, None,
+                                              "bfloat16", which)
+        assert by == "operations" and abs(ms - products * flops) < 1e-12
+    shapes = {s[0]: s[1:] for s in chip_smoke.BWD_SHAPES}
+    b, h, lq, lk, d, kv = shapes["7b_d128"]
+    assert d not in tfa.HEAD_DIMS and tfa.padded_head_dim(d) == 256
+    assert (b, h, lq, lk) == shapes["7b_self"][:4]

@@ -48,7 +48,9 @@ TRAINING_MODULES = (
     "f_lite_tpu_torch.data.samplers", "f_lite_tpu_torch.convert.to_jax",
 )
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
-               "f_lite_tpu_torch.tools.flash_variants")
+               "f_lite_tpu_torch.tools.flash_variants",
+               "f_lite_tpu_torch.tools.forward_tiles",
+               "f_lite_tpu_torch.tools.backward_tiles")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -106,6 +108,16 @@ def test_lab_raises_without_a_card():
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("tool", ["forward_tiles", "backward_tiles"])
+def test_tile_trials_raise_without_a_card(tool):
+    _skip_on_a_cuda_host()
+    out = subprocess.run([sys.executable, "-m", f"f_lite_tpu_torch.tools.{tool}"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "needs an NVIDIA GPU" in out.stderr, out.stderr
+    assert '"tiles"' not in out.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
