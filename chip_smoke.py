@@ -6,7 +6,8 @@
 Phases (any failed check raises and the run exits non-zero):
 1. the card's name and power limit; TF32 off, so fp32 means fp32;
 2. build the CUDA kernels (`f_lite_tpu_torch/csrc/*.cu`, one nvcc each, in
-   parallel) and print ptxas' register, spill and warning lines;
+   parallel) and print ptxas' register, spill and warning lines and each
+   source's nvcc seconds;
 3. the forward kernel (bf16: TMA + wgmma, warp-specialised) against its
    plain PyTorch version on the card, at the shapes the serving and
    training paths give it (7B self and cross at 1024 px, 4112 tokens, and
@@ -16,7 +17,8 @@ Phases (any failed check raises and the run exits non-zero):
    yardstick the port never calls) and the card's bound for the work; the
    largest abs error allowed is 1e-5 in fp32 and 5% of the plain fp32
    result's rms in bf16 (`flash_attention.tolerance`), printed with each
-   shape;
+   shape; ptxas' lines of its bf16 instances, none of which may spill or
+   have its wgmma serialised (C7512);
 4. the dq and dkv kernels (bf16: TMA + wgmma, warp-specialised) against
    `flash_attention_bwd_plain` at the training path's shapes and at a head
    dim the wrapper pads (128 -> 256), in bf16 and fp32 (`grad_tolerance`:
@@ -26,13 +28,16 @@ Phases (any failed check raises and the run exits non-zero):
    plain version, SDPA forward + backward minus forward, and the bound;
    ptxas' register, spill and C7512 lines of the bf16 backward kernels,
    none of which may spill or have its wgmma serialised;
-5. the perf lab's variant kernel (`csrc/flash_attention_variants.cu`)
-   against `flash_fwd_plain`: its seven variants at every compiled block
-   pair, at 2x10x4112x256 and at 333 keys (ragged tiles) with D 256 and 64,
-   within `flash_attention.tolerance`, condmask equal to its twin bit for
-   bit, with the plain version's, SDPA's and the bound's ms; then the lab
-   as a user runs it (`python -m f_lite_tpu_torch.tools.flash_variants`),
-   its launches counted, and its sweep at the ragged shapes;
+5. the perf lab's variant kernel (`csrc/flash_attention_variants.cu`, on
+   the forward's mainloop) against `flash_fwd_plain`: ptxas' lines of its
+   42 instances (no spill, no C7512); its seven variants at every block
+   pair of `flash_variants.blocks(d)`, at 2x10x4112x256, at 333 keys
+   (ragged tiles) with D 256 and 64, and at a head dim the wrapper pads
+   (128 -> 256), within `flash_attention.tolerance`, condmask equal to its
+   twin bit for bit, each flag's `flag_step` within 0.25 of 1, with the
+   plain version's, SDPA's and the bound's ms; then the lab as a user runs
+   it (`python -m f_lite_tpu_torch.tools.flash_variants`), its launches
+   counted against `blocks(256)`, and its sweep at the other shapes;
 6. one 7B-width DiT block with cross-attention and residual_v (bf16
    compute, fp32 weights, 512 px, batch 4): every parameter and input
    gradient through the kernels within 2e-2 (relative norm) of the same
@@ -224,6 +229,7 @@ def check_attention() -> list[dict]:
 
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 
+    ptxas_check(("flash_attention_fwd",), ("flash_fwd_bf16_kernel",), "forward")
     rows = []
     gen = torch.Generator("cuda").manual_seed(0)
     for label, b, h, lq, lk, d, kv in ATTN_SHAPES:
@@ -281,33 +287,51 @@ BWD_SHAPES = [
 ]
 
 
-def backward_ptxas() -> list[str]:
-    """ptxas' register, spill and warning lines of the bf16 backward
-    kernels (their build log); raises where one spills or has its wgmma
-    serialised (C7512)."""
+def kernel_label(mangled: str, name: str) -> str:
+    """`name<template arguments>` of a mangled kernel name, e.g.
+    flash_variant_kernel<256,80,1,1,0,0> (D, BK, then the flags)."""
+    import re
+
+    args = re.findall(r"L[ib](\d+)E", mangled.split(name, 1)[-1])
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_check(sources, names, what) -> list[str]:
+    """ptxas' register, spill and warning lines of the kernels named by
+    one of `names` in the build logs of `sources`; raises where one spills
+    or has its wgmma serialised (C7512)."""
     import re
 
     from f_lite_tpu_torch.ops.cuda.build import library_path
 
-    names = ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
-    report = library_path("flash_attention_bwd").with_suffix(".log").read_text()
-    lines, bad, kernel = [], [], None
-    for line in map(str.strip, report.splitlines()):
-        if "Compiling entry" in line:
-            kernel = next((n for n in names if n in line), None)
-        elif "C7512" in line and any(n in line for n in names):
-            lines.append(line)
-            bad.append(line)
-        elif kernel and ("registers" in line or "spill" in line):
-            lines.append(f"{kernel}: {line}")
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and spills.groups() != ("0", "0"):
-                bad.append(f"{kernel}: {line}")
+    lines, bad = [], []
+    for source in sources:
+        report = library_path(source).with_suffix(".log").read_text()
+        kernel = None
+        for line in map(str.strip, report.splitlines()):
+            if "Compiling entry" in line:
+                name = next((n for n in names if n in line), None)
+                kernel = name and kernel_label(line, name)
+            elif "C7512" in line and any(n in line for n in names):
+                lines.append(line)
+                bad.append(line)
+            elif kernel and ("registers" in line or "spill" in line):
+                lines.append(f"{kernel}: {line}")
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if spills and spills.groups() != ("0", "0"):
+                    bad.append(f"{kernel}: {line}")
     for line in lines:
-        log(f"  ptxas backward: {line}")
+        log(f"  ptxas {what}: {line}")
     if bad:
-        raise AssertionError(f"bf16 backward kernels spill or serialise: {bad}")
+        raise AssertionError(f"{what} kernels spill or serialise: {bad}")
     return lines
+
+
+def backward_ptxas() -> list[str]:
+    """ptxas' lines of the bf16 backward kernels; raises where one spills
+    or has its wgmma serialised (C7512)."""
+    return ptxas_check(("flash_attention_bwd",),
+                       ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"), "backward")
 
 
 def backward_bound_ms(b, h, lq, lk, d, kv_lens, dtype_name, which) -> tuple:
@@ -424,34 +448,45 @@ def check_backward() -> list[dict]:
 # lab itself
 # ---------------------------------------------------------------------------
 
-# (label, B, H, L, D): the lab's default shape and ragged key tails
+# (label, B, H, L, D): the lab's default shape, ragged key tails, and a
+# head dim the wrapper pads (128 -> 256)
 VARIANT_SHAPES = [
     ("7b_serving", 2, 10, 4112, 256),
     ("ragged_d256", 1, 2, 333, 256),
     ("ragged_d64", 1, 2, 333, 64),
+    ("padded_d128", 1, 2, 333, 128),
 ]
 
 
+def variants_ptxas() -> list[str]:
+    """ptxas' lines of every variant kernel instance; raises where one
+    spills or has its wgmma serialised."""
+    return ptxas_check(("flash_attention_variants",), ("flash_variant_kernel",),
+                       "variants")
+
+
 def check_variants() -> list[dict]:
-    """Every variant of `flash_variants.VARIANTS` at every compiled block
-    pair against `flash_fwd_plain` at the same block_k (plain in fp32 on the
-    same bf16 inputs), within `flash_attention.tolerance`; `condmask` equal
-    to its unmasked twin bit for bit; each other flag's branch at the full
-    step from its twin (`flag_step` near 1). Per shape: the plain version's ms
-    (base, block_k 64), SDPA's ms on the same q, k, v and the bound."""
+    """Every variant of `flash_variants.VARIANTS` at every block pair of
+    `blocks(d)` against `flash_fwd_plain` at the same block_k (plain in fp32
+    on the same bf16 inputs), within `flash_attention.tolerance`; `condmask`
+    equal to its unmasked twin bit for bit; each other flag's branch at the
+    full step from its twin (`flag_step` near 1). Per shape: the plain
+    version's ms (base, block_k 64), SDPA's ms on the same q, k, v and the
+    bound. First, ptxas' lines of every instance (no spill, no C7512)."""
     import torch
     import torch.nn.functional as F
 
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
+    variants_ptxas()
     rows = []
     gen = torch.Generator("cuda").manual_seed(2)
     for label, b, h, l, d in VARIANT_SHAPES:
         q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         errs, ratios, steps = [], [], []
-        for bq, bk in fv.BLOCKS:
+        for bq, bk in fv.blocks(d):
             outs, wants = {}, {}
             for name, kw in fv.VARIANTS.items():
                 got = fv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
@@ -480,8 +515,8 @@ def check_variants() -> list[dict]:
                 steps.append(c)
             del outs, wants
         bound, bound_by = attention_bound_ms(b, h, l, l, d, None, "bfloat16")
-        row = dict(shape=label, q=[b, h, l, d], max_abs_err=max(errs),
-                   max_err_over_tolerance=max(ratios),
+        row = dict(shape=label, q=[b, h, l, d], blocks=fv.blocks(d),
+                   max_abs_err=max(errs), max_err_over_tolerance=max(ratios),
                    flag_step=[min(steps), max(steps)],
                    plain_ms=time_ms(lambda: fv.flash_fwd_plain(q, k, v, block_k=64)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -495,19 +530,21 @@ def check_variants() -> list[dict]:
 
 def run_lab() -> dict:
     """The lab's entry point as a user runs it (`python -m
-    f_lite_tpu_torch.tools.flash_variants`: every block pair and variant at
-    2x10x4112x256 bf16, 20 timed launches each), its launch counts, and its
-    sweep at the ragged shapes."""
+    f_lite_tpu_torch.tools.flash_variants`: every variant at every pair of
+    `blocks(d)` at 2x10x4112x256 bf16, 20 timed launches each), its launch
+    counts, and its sweep at the other shapes of VARIANT_SHAPES."""
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
     from f_lite_tpu_torch.tools import flash_variants as lab
 
     reset_counts()
-    rows = lab.main()
+    rows = lab.main([])
     counts = read_counts()
     per_row = 1 + 1 + lab.REPS  # checked call, warm-up, timed launches
-    expected = launches(variants=len(fv.BLOCKS) * len(fv.VARIANTS) * per_row)
-    if counts != expected:
-        raise AssertionError(f"lab: launches {counts}, expected {expected}")
+    n_rows = len(fv.blocks(lab.lab_shape()[3])) * len(fv.VARIANTS)
+    expected = launches(variants=n_rows * per_row)
+    if counts != expected or len(rows) != n_rows:
+        raise AssertionError(f"lab: launches {counts} and {len(rows)} rows, "
+                             f"expected {expected} and {n_rows}")
     ragged = {label: lab.sweep((b, h, l, d))
               for label, b, h, l, d in VARIANT_SHAPES[1:]}
     for label, rs in ragged.items():
@@ -1292,7 +1329,7 @@ def main() -> int:
     for name in SOURCES:
         for line in library_path(name).with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry",
-                                       "warning")):
+                                       "warning", "nvcc seconds")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     t_start = time.perf_counter()
@@ -1375,8 +1412,8 @@ def main() -> int:
         ))
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
-    lab_base = next(r for r in lab["rows"] if r["variant"] == "base"
-                    and (r["block_q"], r["block_k"]) == fv.BLOCKS[0])
+    lab_at = {(r["block_q"], r["block_k"], r["variant"]): r["ms"] for r in lab["rows"]}
+    serving_pair = fv.SERVING_BLOCKS[256]
     lab_main = next(r for r in variant_rows if r["shape"] == "7b_serving")
     variants = dict(
         name="flash_attention_variants",
@@ -1392,10 +1429,14 @@ def main() -> int:
                            + train_7b["launches"]["variants"]),
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
         max_err_over_tolerance=max(r["max_err_over_tolerance"] for r in variant_rows),
-        ms=lab_base["ms"], plain_ms=lab_main["plain_ms"],
+        ms=lab_at[(*serving_pair, "base")],
+        ms_block_k_64=lab_at[(128, 64, "base")],
+        forward_ms=main_row["ms"],
+        plain_ms=lab_main["plain_ms"],
         bound_ms=lab_main["bound_ms"], bound_by=lab_main["bound_by"],
         library_ms=lab_main["library_ms"],
-        at=f"7b_serving 2x10x4112x256 bfloat16, base, blocks {fv.BLOCKS[0]}",
+        at=f"7b_serving 2x10x4112x256 bfloat16, base, blocks {serving_pair}; "
+           "forward_ms: flash_attention_fwd at 7b_self (phase 3)",
         sweep=[[r["block_q"], r["block_k"], r["variant"], r["ms"]] for r in lab["rows"]],
         shapes=variant_rows,
     )

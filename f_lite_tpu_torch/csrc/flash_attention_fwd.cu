@@ -19,38 +19,27 @@
 //
 // Two instances:
 // - bf16 (serving and training): warp-specialised, for the tensor cores'
-//   full rate, which only wgmma reaches. A block of three warpgroups owns
-//   128 query rows of one (batch, head):
-//   * warpgroup 0, the producer, lowers its registers (setmaxnreg) and one
-//     thread issues TMA loads: the Q tile once, then K and V tiles of BK
-//     keys through a ring of kStages stages, each with a full and an empty
-//     mbarrier (K and V apart, so Q K^T starts before V has landed). Tiles
-//     past kv_len are never loaded; the tensor maps are 3-D (D, L, B*H), so
-//     rows past a head's end (Lq % 128, Lk < BK, ragged tails) arrive as
-//     zeros and never as the next head's rows.
-//   * warpgroups 1 and 2, the consumers, raise their registers and own 64
-//     query rows each: S = Q K^T by wgmma with both operands in shared
-//     memory (128-byte swizzle, as TMA wrote it), the online softmax in the
-//     accumulator layout (quad shuffles), keys >= kv_len masked on the last
-//     visited tile only (every earlier tile is full), then O += P V by
-//     wgmma with P converted to bf16 in registers as the A operand and V
-//     read MN-major from shared memory. Each consumer releases a stage by
-//     one arrival per warp once its wgmma has been waited for.
-//   The epilogue divides by l, stores bf16 O for rows < Lq and lse.
-//   No ping-pong between the consumers, no softmax/GEMM overlap inside one,
-//   no persistent grid: later work.
+//   full rate, which only wgmma reaches: the mainloop of
+//   flash_fwd_mainloop.cuh (a producer warpgroup issuing TMA loads through
+//   a two-stage mbarrier ring, two consumer warpgroups of 64 query rows on
+//   wgmma) with this kernel's softmax policy (`ServePolicy`): logits scaled
+//   by scale * log2(e) and exp2, keys >= kv_len masked to -inf on the last
+//   visited tile only (every earlier tile is full), the running max from
+//   -inf. The epilogue divides by l, stores bf16 O for rows < Lq (zero rows
+//   where l = 0) and lse when asked.
 // - fp32 (parity): plain FMA on CUDA cores, 16 query rows per block.
 //
 // Entry point: flash_attention_fwd(...) returns cudaGetLastError() after
-// the launch (0 on success), or one of the kErr* codes below without
-// launching. dtype: 0 = fp32, 1 = bf16. kv_lens may be null (every key is
-// real); lse may be null (no lse output). bf16 q, k, v must be 16-byte
-// aligned (TMA).
+// the launch (0 on success), or one of the kErr* codes of
+// flash_fwd_mainloop.cuh without launching. dtype: 0 = fp32, 1 = bf16.
+// kv_lens may be null (every key is real); lse may be null (no lse
+// output). bf16 q, k, v must be 16-byte aligned (TMA).
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "flash_fwd_mainloop.cuh"
 #include "hopper.cuh"
 
 // Keys per K/V tile: 80 at D = 256 (Q 64 KB + two stages of K and V 160
@@ -68,49 +57,60 @@
 namespace {
 
 using namespace flash;
+using namespace flash_fwd;
 using namespace hopper;
-
-constexpr int kErrTensorMap = 10001;   // cuTensorMapEncodeTiled failed
-constexpr int kErrRegisters = 10002;   // setmaxnreg's split would not fit
-constexpr int kErrAlignment = 10003;   // a bf16 q, k or v not 16-byte aligned
 
 constexpr int kThreads = 128;  // fp32 instance: 4 warps
 
 // ---------------------------------------------------------------------------
-// bf16 instance: TMA + wgmma, warp-specialised
+// bf16 instance: the shared TMA + wgmma mainloop with the serving policy
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 128;                    // query rows per block
-constexpr int kWgThreads = 128;             // one warpgroup
-constexpr int kWgThreadsAll = 3 * kWgThreads;  // producer + 2 consumers
-constexpr int kStages = 2;                  // K/V ring depth
-constexpr int kProducerRegs = 24;
-constexpr int kBoxBytes = 128;              // one row of a 64-column box
-
 template <int D>
-struct FwdTiles {
-  static constexpr int kBK = D == 256 ? FLASH_FWD_BK_D256 : FLASH_FWD_BK_D64;
-  // two blocks an SM where a consumer's fragments fit half the registers
-  static constexpr int kMinBlocks = D * kBK <= 64 * 64 ? 2 : 1;
-  // registers a thread at launch, and the consumers' share once the
-  // producer has given up all but kProducerRegs
-  static constexpr int kEntryRegs =
-      65536 / (kWgThreadsAll * kMinBlocks) / 8 * 8;
-  static constexpr int kConsumerRegs =
-      (kEntryRegs * kWgThreadsAll - kProducerRegs * kWgThreads) /
-      (2 * kWgThreads) / 8 * 8;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;
-  // 1024 bytes of slack to align the tiles for the 128-byte swizzle, then
-  // Q, the K ring, the V ring and the barriers
-  static constexpr int kSmem =
-      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 4 * kStages);
-  static_assert(kBK % 16 == 0 && kBK <= 256, "BK: a multiple of 16");
-  static_assert(kSmem <= 232448, "shared memory of one block");
+constexpr int kBK = D == 256 ? FLASH_FWD_BK_D256 : FLASH_FWD_BK_D64;
+
+// _fa_fwd_kernel's softmax in the log2 domain: exp2 of logits scaled by
+// scale * log2(e), -inf for masked keys and the running max's start, zero
+// rows where no key was seen, lse = m * ln 2 + log(l) when lse is not null.
+struct ServePolicy {
+  float scale_log2;
+  float* lse;
+
+  static constexpr float kMaxStart = -INFINITY;
+  static constexpr float kMasked = -INFINITY;
+  static constexpr bool kSelectMaskedP = false;
+
+  __device__ __forceinline__ bool mask_tile(bool last, bool) const {
+    return last;
+  }
+  __device__ __forceinline__ float scale(float s) const {
+    return s * scale_log2;
+  }
+  __device__ __forceinline__ float alpha(float m_prev, float m_new) const {
+    return exp2f(m_prev - m_new);
+  }
+  __device__ __forceinline__ float p(float s, float m) const {
+    return exp2f(s - m);
+  }
+  // a row that saw no key (kv_len == 0) is zero
+  __device__ __forceinline__ float inv_l(float l) const {
+    return l > 0.f ? 1.f / l : 0.f;
+  }
+  __device__ __forceinline__ void store_stats(int bh, int Lq, int row,
+                                              int tig, const float (&m)[2],
+                                              const float (&l)[2]) const {
+    if (lse != nullptr && tig == 0) {
+      // m is in the log2 domain of the scaled logits
+      float* lg = lse + static_cast<size_t>(bh) * Lq;
+      if (row < Lq) lg[row] = l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : kLseEmpty;
+      if (row + 8 < Lq)
+        lg[row + 8] = l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : kLseEmpty;
+    }
+  }
 };
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreadsAll, FwdTiles<D>::kMinBlocks)
+__global__ void __launch_bounds__(kWgThreadsAll, Tiles<D, kBK<D>>::kMinBlocks)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -118,253 +118,24 @@ __global__ void __launch_bounds__(kWgThreadsAll, FwdTiles<D>::kMinBlocks)
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int H, int Lq, int Lk,
                           float scale_log2) {
-  using T = FwdTiles<D>;
-  constexpr int BK = T::kBK;
-  constexpr int kBoxes = D / 64;  // 64-column boxes of a row
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + T::kQBytes;             // kStages tiles
-  const uint32_t sV = sK + kStages * T::kKVBytes;  // kStages tiles
-  const uint32_t q_full = sV + kStages * T::kKVBytes;
-  // per stage s: k_full, k_empty, v_full, v_empty
-  const uint32_t ring_bars = q_full + 8;
-
-  const int b = blockIdx.z;
-  const int bh = b * H + blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  // warp-uniform for the compiler too (a shuffle from lane 0), so that
-  // what derives from it can live in uniform registers
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
-
-  int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
+  int kv_len = kv_lens != nullptr ? kv_lens[blockIdx.z] : Lk;
   kv_len = max(0, min(kv_len, Lk));
-  const int n_tiles = (kv_len + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
-    // fetch the tensor maps while the barriers are set up
-    prefetch_tensor_map(&q_map);
-    prefetch_tensor_map(&k_map);
-    prefetch_tensor_map(&v_map);
-    mbar_init(q_full, 1);
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(ring_bars + 32 * s, 1);       // k_full: the producer
-      mbar_init(ring_bars + 32 * s + 8, 8);   // k_empty: each consumer warp
-      mbar_init(ring_bars + 32 * s + 16, 1);  // v_full
-      mbar_init(ring_bars + 32 * s + 24, 8);  // v_empty
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // ---- producer: one thread keeps the TMA loads in flight ----
-    regs_lower<kProducerRegs>();
-    if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_expect_tx(q_full, T::kQBytes);
-#pragma unroll
-      for (int c = 0; c < kBoxes; ++c)
-        tma_load_3d(sQ + c * kBQ * kBoxBytes, &q_map, q_full, c * 64, q0, bh);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        // a stage's first use waits for nothing (the phase before 0)
-        const uint32_t parity = ((t / kStages) & 1) ^ 1;
-        const uint32_t bars = ring_bars + 32 * s;
-        mbar_wait(bars + 8, parity);
-        mbar_expect_tx(bars, T::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < kBoxes; ++c)
-          tma_load_3d(sK + s * T::kKVBytes + c * BK * kBoxBytes, &k_map, bars,
-                      c * 64, t * BK, bh);
-        mbar_wait(bars + 24, parity);
-        mbar_expect_tx(bars + 16, T::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < kBoxes; ++c)
-          tma_load_3d(sV + s * T::kKVBytes + c * BK * kBoxBytes, &v_map,
-                      bars + 16, c * 64, t * BK, bh);
-      }
-    }
-  } else {
-    // ---- consumers: 64 query rows each ----
-    regs_raise<T::kConsumerRegs>();
-    const int cw = wg - 1;
-    const int tw = threadIdx.x - wg * kWgThreads;
-    const int warp = tw >> 5;
-    const int lane = tw & 31;
-    const int g = lane >> 2;   // accumulator row group
-    const int tig = lane & 3;  // thread in group
-
-    // O (64 x D) in the wgmma accumulator layout: acc[4j + 2i + e] is row
-    // 16 * warp + g + 8i, column 8j + 2 tig + e
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    // running max (log2 domain, scaled) and sum for rows g and g + 8
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};
-
-    // this warpgroup's 64 rows of each 128-row Q box
-    const uint32_t q_desc = desc_lo(sQ + cw * 64 * kBoxBytes, 16);
-    if (n_tiles > 0) mbar_wait(q_full, 0);
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      const uint32_t parity = (t / kStages) & 1;
-      const uint32_t bars = ring_bars + 32 * s;
-      const uint32_t k_desc = desc_lo(sK + s * T::kKVBytes, 16);
-      const uint32_t v_desc = desc_lo(sV + s * T::kKVBytes, BK * kBoxBytes);
-
-      // S = Q K^T: 64 x BK, D / 16 k-steps of 32 bytes inside each box
-      float sc[BK / 2];
-      mbar_wait(bars, parity);
-      fence_regs(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t in_box = (kk % 4) * 32;
-        wgmma_ss<BK>(sc, q_desc + (((kk / 4) * kBQ * kBoxBytes + in_box) >> 4),
-                     k_desc + (((kk / 4) * BK * kBoxBytes + in_box) >> 4),
-                     kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      if (lane == 0) mbar_arrive(bars + 8);  // K stage free
-
-      // the last visited tile holds key kv_len - 1; mask the keys past it
-      if (t == n_tiles - 1) {
-        const int limit = kv_len - t * BK;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (j * 8 + tig * 2 + (e & 1) >= limit) sc[4 * j + e] = -INFINITY;
-          }
-        }
-      }
-
-      // online softmax in fp32 (exp2 of log2-scaled logits)
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        sc[i] *= scale_log2;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        // key t * BK < kv_len is in every visited tile: the new max is finite
-        const float m_new = fmaxf(m_run[r], mx[r]);
-        alpha[r] = exp2f(m_run[r] - m_new);
-        m_run[r] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const float p = exp2f(sc[i] - m_run[(i >> 1) & 1]);
-        sc[i] = p;
-        rs[(i >> 1) & 1] += p;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-        l_run[r] = l_run[r] * alpha[r] + rs[r];
-      }
-      if (t > 0) {  // O is still zero on the first tile
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      }
-
-      // P in bf16 as the A fragments of BK / 16 k-steps
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
-
-      // O += P V: V (BK x D) is MN-major for this product; a k-step is 16
-      // rows of every box
-      mbar_wait(bars + 16, parity);
-      fence_regs(acc);
-      fence_regs(pa);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(acc, pa[kk], v_desc + ((kk * 16 * kBoxBytes) >> 4), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(bars + 24);  // V stage free
-    }
-
-    // one division per row; a row that saw no key (kv_len == 0) is zero
-    const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
-    const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
-    const int row = q0 + cw * 64 + warp * 16 + g;
-    if (lse != nullptr && tig == 0) {
-      // m_run is in the log2 domain of the scaled logits
-      float* lg = lse + static_cast<size_t>(bh) * Lq;
-      if (row < Lq)
-        lg[row] = l_run[0] > 0.f ? m_run[0] * kLn2 + logf(l_run[0]) : kLseEmpty;
-      if (row + 8 < Lq)
-        lg[row + 8] =
-            l_run[1] > 0.f ? m_run[1] * kLn2 + logf(l_run[1]) : kLseEmpty;
-    }
-    __nv_bfloat16* og = o + static_cast<size_t>(bh) * Lq * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + tig * 2;
-      if (row < Lq) {
-        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(row) * D +
-                                           col) =
-            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-      }
-      if (row + 8 < Lq) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            og + static_cast<size_t>(row + 8) * D + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
-      }
-    }
-  }
-}
-
-// 0 when setmaxnreg's split fits the registers the kernel was built with:
-// the consumers' raise waits for registers the producer gives up, so a
-// split that does not fit would never return.
-template <int D>
-int check_registers() {
-  using T = FwdTiles<D>;
-  cudaFuncAttributes attr{};
-  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_bf16_kernel<D>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int pool = attr.numRegs * kWgThreadsAll;
-  const int needed =
-      kProducerRegs * kWgThreads + T::kConsumerRegs * 2 * kWgThreads;
-  return attr.numRegs <= T::kEntryRegs && needed <= pool ? 0 : kErrRegisters;
+  mainloop<D, kBK<D>>(&q_map, &k_map, &v_map, o, H, Lq, kv_len,
+                      ServePolicy{scale_log2, lse});
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const int* kv_lens, void* o, float* lse, int B, int H, int Lq,
                 int Lk, float scale, cudaStream_t stream) {
-  using T = FwdTiles<D>;
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
-    return kErrAlignment;
-  static const int registers = check_registers<D>();
-  if (registers != 0) return registers;
+  using T = Tiles<D, kBK<D>>;
+  static const int registers =
+      check_registers<D, kBK<D>>(flash_fwd_bf16_kernel<D>);
   CUtensorMap q_map, k_map, v_map;
-  const uint64_t n = static_cast<uint64_t>(B) * H;
-  if (!encode_bf16_rows(&q_map, q, n, Lq, D, kBQ) ||
-      !encode_bf16_rows(&k_map, k, n, Lk, D, T::kBK) ||
-      !encode_bf16_rows(&v_map, v, n, Lk, D, T::kBK))
-    return kErrTensorMap;
+  int code = encode_maps<D, kBK<D>>(&q_map, &k_map, &v_map, q, k, v, B, H,
+                                     Lq, Lk);
+  if (code == 0) code = registers;
+  if (code != 0) return code;
   cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + kBQ - 1) / kBQ, H, B);

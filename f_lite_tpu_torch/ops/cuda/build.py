@@ -6,7 +6,8 @@ shared headers (`csrc/*.cuh`) and the flags, and is loaded with `ctypes`.
 Nothing includes PyTorch's headers, so a build takes seconds. Builds happen
 at first use, never at import; `build()` starts one nvcc per source, all at
 once. nvcc's `-Xptxas -v` report is kept beside each library as
-`lib<name>-<hash>.log`. `defines` ("NAME=VALUE" strings, passed as `-D`)
+`lib<name>-<hash>.log`, ending in a line `nvcc seconds: <s>` (the wall
+time of that source's nvcc process). `defines` ("NAME=VALUE" strings, passed as `-D`)
 and `csrc` (another checkout's source directory) build a variant of a
 source into its own library: the tile trials
 (`f_lite_tpu_torch/tools/forward_tiles.py`, `backward_tiles.py`) build
@@ -16,11 +17,13 @@ libraries take neither.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -62,6 +65,7 @@ def build(names=SOURCES, defines=(), csrc: Path = CSRC) -> None:
     """Build every library of `names` that is not built yet: one nvcc
     process per source, started together; raises if any fails."""
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name, defines, csrc)
         if out.exists():
@@ -74,14 +78,20 @@ def build(names=SOURCES, defines=(), csrc: Path = CSRC) -> None:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
+
+    def finish(proc):  # the report and the wall time at its end
+        return proc.communicate()[0], time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(procs))) as pool:
+        reports = dict(zip(procs, pool.map(finish, (p[2] for p in procs.values()))))
     for name, (out, tmp, proc) in procs.items():
-        report = proc.communicate()[0]
+        report, seconds = reports[name]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed for {name}.cu:\n{report}")
             continue
         os.replace(tmp, out)
-        out.with_suffix(".log").write_text(report)
+        out.with_suffix(".log").write_text(f"{report}nvcc seconds: {seconds:.1f}\n")
     if failed:
         raise RuntimeError("\n".join(failed))
 

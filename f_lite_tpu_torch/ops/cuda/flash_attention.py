@@ -270,7 +270,7 @@ def _check_cuda(q, k, v):
 
 # the kernels' own error codes (kErr* in csrc/flash_attention_fwd.cu and
 # csrc/flash_attention_bwd.cu); any other non-zero code is a cudaError_t
-_LAUNCH_ERRORS = {
+LAUNCH_ERRORS = {
     10001: "tensor map encode failed (cuTensorMapEncodeTiled)",
     10002: "the kernel's registers do not fit its warpgroups' split",
     10003: "q, k, v, dO, lse or delta not 16-byte aligned",
@@ -287,7 +287,7 @@ def _launch(fn_name, lib_name, ptrs, q, k, scale):
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
+                           f"{LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
 
 
 def check_aligned(*tensors) -> None:

@@ -19,10 +19,16 @@ of the rounded argument); p is zero at masked keys; l == 0 gives 1/l = 1.
 The result depends on `block_k` (the tile the running max moves by), not on
 `block_q`.
 
-The kernel (`csrc/flash_attention_variants.cu`) takes bf16, D in
-`HEAD_DIMS`, (block_q, block_k) in `BLOCKS` and the flag sets of
-`VARIANTS`; on a CUDA tensor anything else raises. On a CPU tensor the
-wrapper computes `flash_fwd_plain`. `LAUNCHES` counts kernel launches.
+The kernel (`csrc/flash_attention_variants.cu`, the serving forward's
+TMA + wgmma mainloop with the lab's softmax policy) takes bf16, the block
+pairs `blocks(d)` and the flag sets of `VARIANTS`. Any head dim up to 256 runs: q (prescaled first, with
+the true D's scale), k and v are zero-padded along D to the next compiled
+head dim (64 or 256, `flash_attention.padded_head_dim`) and the output is
+sliced back; zero columns change neither Q K^T nor the first D columns of
+P V. TMA reads q, k, v from their base addresses, so they must be 16-byte
+aligned. On a CUDA tensor anything else raises. On a CPU tensor the
+wrapper computes `flash_fwd_plain` at the true D. `LAUNCHES` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -32,14 +38,19 @@ import functools
 
 import torch
 
+from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 from f_lite_tpu_torch.ops.cuda.build import load
-from f_lite_tpu_torch.ops.cuda.flash_attention import LaunchCounter
 
 LOG2E = 1.4426950408889634
 # the TPU kernel's running-max start value (-0.7 * float32 max)
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (64, 256)
-BLOCKS = ((64, 64), (64, 128), (128, 64))
+# the compiled (block_q, block_k) pairs of each compiled head dim: 128
+# query rows a block (the mainloop's two consumer warpgroups), and key
+# tiles around the serving forward's (80 at D = 256, 32 at D = 64)
+BLOCKS = {256: ((128, 48), (128, 64), (128, 80)),
+          64: ((128, 32), (128, 64), (128, 128))}
+# the serving forward's pair (csrc/flash_attention_fwd.cu)
+SERVING_BLOCKS = {256: (128, 80), 64: (128, 32)}
 # the lab's rows, as tools/flash_variants.py main() runs them
 VARIANTS = {
     "base": dict(),
@@ -60,7 +71,7 @@ FLAG_TWINS = (("exp2", "prescale"), ("alphabf16", "prescale"),
 # the largest |flag_step - 1| a kernel's flag branch may show
 FLAG_STEP_TOLERANCE = 0.25
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = fa.LaunchCounter()
 
 
 def flag_step(got: torch.Tensor, own: torch.Tensor, twin: torch.Tensor) -> float:
@@ -84,6 +95,12 @@ def _flags(prescale=False, use_exp2=False, condmask=False, alpha_bf16=False) -> 
 
 
 COMPILED_FLAGS = frozenset(_flags(**kw) for kw in VARIANTS.values())
+
+
+def blocks(d: int) -> tuple:
+    """The compiled (block_q, block_k) pairs a head dim `d` runs at on the
+    card: those of `padded_head_dim(d)`. D > 256 raises ValueError."""
+    return BLOCKS[fa.padded_head_dim(d)]
 
 
 def prescale_q(q: torch.Tensor, scale: float, use_exp2: bool) -> torch.Tensor:
@@ -134,42 +151,51 @@ def flash_fwd_plain(q, k, v, *, scale=None, block_k=64, prescale=False,
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-@functools.cache
-def _entry():
-    """`flash_attention_variants(q, k, v, o, B, H, Lq, Lk, D, scale,
-    block_q, block_k, flags, stream)` (builds its library on first use)."""
-    fn = load("flash_attention_variants").flash_attention_variants
+def bind(lib: ctypes.CDLL):
+    """The typed entry point `flash_attention_variants(q, k, v, o, B, H, Lq,
+    Lk, D, scale, block_q, block_k, flags, stream)` of a loaded library of
+    csrc/flash_attention_variants.cu (this checkout's or another's)."""
+    fn = lib.flash_attention_variants
     fn.restype = _INT
     fn.argtypes = [_PTR] * 4 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 + [_PTR]
     return fn
 
 
+@functools.cache
+def _entry():
+    """This checkout's entry point (builds its library on first use)."""
+    return bind(load("flash_attention_variants"))
+
+
 def _check_cuda(q, k, v, block_q, block_k, flags):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: unsupported device {q.device}")
+    """Raise unless the kernel takes these arguments: shapes, head dim (up
+    to 256), dtype, a block pair of `blocks(d)`, a flag set of the lab's,
+    then a CUDA device."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError("flash_fwd: q, k, v must be (B, H, L, D)")
     b, h, _, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"flash_fwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          "do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not in {HEAD_DIMS}")
+    pairs = blocks(d)
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                         "the kernel takes bfloat16")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
-    if (block_q, block_k) not in BLOCKS:
-        raise ValueError(f"flash_fwd: blocks ({block_q}, {block_k}) not in {BLOCKS}")
+    if (block_q, block_k) not in pairs:
+        raise ValueError(f"flash_fwd: blocks ({block_q}, {block_k}) not in "
+                         f"{pairs} (head dim {d})")
     if flags not in COMPILED_FLAGS:
         raise ValueError(f"flash_fwd: flag set {flags} is none of the lab's "
                          f"variants {sorted(VARIANTS)}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash_fwd: empty query or key sequence")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError("flash_fwd: q, k, v on different devices")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd: unsupported device {q.device}")
 
 
-def flash_fwd(q, k, v, *, scale=None, block_q=64, block_k=64, prescale=False,
+def flash_fwd(q, k, v, *, scale=None, block_q=128, block_k=64, prescale=False,
               use_exp2=False, condmask=False, alpha_bf16=False):
     """The lab's forward (see the module docstring). CPU tensors take
     `flash_fwd_plain`; CUDA tensors launch the Hopper kernel or raise."""
@@ -181,17 +207,21 @@ def flash_fwd(q, k, v, *, scale=None, block_q=64, block_k=64, prescale=False,
         return flash_fwd_plain(q, k, v, scale=scale, block_k=block_k, **kw)
     flags = _flags(**kw)
     _check_cuda(q, k, v, block_q, block_k, flags)
+    d = q.shape[-1]
     if flags & 1:
         q = prescale_q(q, scale, use_exp2)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = fa.pad_head_dim(q), fa.pad_head_dim(k), fa.pad_head_dim(v)
+    fa.check_aligned(q, k, v)
     out = torch.empty_like(q)
-    b, h, lq, d = q.shape
+    b, h, lq, d_pad = q.shape
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-                 lq, k.shape[2], d, float(scale), block_q, block_k, flags, stream)
+                 lq, k.shape[2], d_pad, float(scale), block_q, block_k, flags,
+                 stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_variants launch failed: CUDA error {err}")
+        raise RuntimeError("flash_attention_variants launch failed: "
+                           f"{fa.LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
     LAUNCHES.count += 1
-    return out
+    return out[..., :d]

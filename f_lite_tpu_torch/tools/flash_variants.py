@@ -1,27 +1,50 @@
 """Forward-kernel variant sweep on the card (perf lab; counterpart of
 `tools/flash_variants.py` `main`).
 
-    python -m f_lite_tpu_torch.tools.flash_variants
+    python -m f_lite_tpu_torch.tools.flash_variants [--against DIR]
 
 Runs the lab's seven rows (base, prescale, exp2, condmask, condmask-e,
 alphabf16, all; `ops/cuda/flash_variants.VARIANTS`) of the variant kernel
-at the 7B serving shape B=2 H=10 L=4112 D=256 in bf16, for every compiled
-block pair (BQ, BK), and prints per row the mean ms over 20 launches (CUDA
-events), TF/s (4*B*H*L^2*D flops) and max|Δ| against `base` at the same
-blocks. `SHAPE=B,H,L,D` sets the shape; `BQ` and `BK` (both, or neither)
-pick one block pair. Runs on the card only: without one it raises.
+(the serving forward's TMA + wgmma mainloop with the lab's softmax policy)
+at the 7B serving shape B=2 H=10 L=4112 D=256 in bf16, for every block pair
+(BQ, BK) compiled for that head dim (`flash_variants.blocks(d)`), and
+prints per row the mean ms over 20 launches (CUDA events, through the
+wrapper), TF/s (4*B*H*L^2*D flops) and max|Δ| against `base` at the same
+blocks. `SHAPE=B,H,L,D` sets the shape (any D up to 256; other than 64 and
+256 it runs zero-padded); `BQ` and `BK` (both, or neither) pick one block
+pair.
+
+With `--against DIR` (DIR holds another checkout's `f_lite_tpu_torch/`,
+e.g. an unpacked `git archive` of an earlier commit) it then times, for
+each variant, this checkout's kernel at each of its block pairs and the
+earlier checkout's variant kernel at each pair that one compiled (found by
+asking its entry point), as raw launches on the same prepared inputs, in
+turns (a, b, ..., b, a) so that drift of the card's clock falls on all, and
+prints one JSON line per variant and last one {"against": [...]} line.
+
+Runs on the card only: without one it raises.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
+from pathlib import Path
 
 import torch
 
+from f_lite_tpu_torch.ops.cuda import build
+from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
 REPS = 20
 SHAPE = (2, 10, 4112, 256)
+# block pairs asked of an earlier checkout's entry point: the mma.sync
+# variant kernel compiled (64, 64), (64, 128) and (128, 64); this one
+# compiles BLOCKS
+PROBE_BLOCKS = tuple(sorted({(64, 64), (64, 128), (128, 64)}
+                            | {p for ps in fv.BLOCKS.values() for p in ps}))
 
 
 def lab_shape() -> tuple:
@@ -30,10 +53,10 @@ def lab_shape() -> tuple:
     return SHAPE
 
 
-def lab_blocks() -> tuple:
+def lab_blocks(d: int) -> tuple:
     if os.environ.get("BQ") or os.environ.get("BK"):
         return ((int(os.environ["BQ"]), int(os.environ["BK"])),)
-    return fv.BLOCKS
+    return fv.blocks(d)
 
 
 def mean_ms(fn, reps=REPS) -> float:
@@ -49,18 +72,22 @@ def mean_ms(fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _inputs(shape, seed):
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: the lab times the card")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(3))
+
+
 def sweep(shape=None, blocks=None, *, seed=0) -> list[dict]:
     """Every (block pair, variant) row at `shape` on the card: dicts of
     block_q, block_k, variant, ms, tflops, max_abs_delta (against base)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the lab times the card")
     b, h, l, d = shape or lab_shape()
-    gen = torch.Generator("cuda").manual_seed(seed)
-    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
-                           dtype=torch.bfloat16) for _ in range(3))
+    q, k, v = _inputs((b, h, l, d), seed)
     flops = 4.0 * b * h * l * l * d
     rows = []
-    for bq, bk in blocks or lab_blocks():
+    for bq, bk in blocks or lab_blocks(d):
         ref = None
         for name, kw in fv.VARIANTS.items():
             def run(kw=kw, bq=bq, bk=bk):
@@ -82,12 +109,70 @@ def format_row(r: dict) -> str:
             f"max|Δ|={r['max_abs_delta']:.4f}")
 
 
-def main() -> list[dict]:
-    """Print the sweep table; returns its rows."""
+def earlier_entry(against: Path):
+    """The variant kernel's entry point of the checkout under `against`."""
+    csrc = against / "f_lite_tpu_torch" / "csrc"
+    return fv.bind(build.load("flash_attention_variants", (), csrc))
+
+
+def against_sweep(against: Path, shape=None, *, seed=0) -> list[dict]:
+    """Per variant: this checkout's kernel at each pair of `blocks(d)` and
+    the earlier checkout's at each pair it compiled, raw launches timed in
+    turns on the same inputs (q prescaled and every input padded along D
+    once, outside the timed launches). Dicts of variant, ms {label: mean
+    ms}, ms_each {label: [ms, ms]}."""
+    b, h, l, d = shape or lab_shape()
+    q, k, v = _inputs((b, h, l, d), seed)
+    scale = d**-0.5
+    d_pad = fa.padded_head_dim(d)
+    k, v = fa.pad_head_dim(k), fa.pad_head_dim(v)
+    out = torch.empty((b, h, l, d_pad), device="cuda", dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {"this": fv._entry(), "earlier": earlier_entry(against)}
+    rows = []
+    for name, kw in fv.VARIANTS.items():
+        flags = fv._flags(**kw)
+        qp = fa.pad_head_dim(fv.prescale_q(q, scale, kw.get("use_exp2", False))
+                             if flags & 1 else q)
+
+        def launch(which, bq, bk):
+            return fns[which](qp.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), b, h, l, l, d_pad, scale, bq, bk,
+                              flags, stream)
+
+        pairs = {f"this {bq},{bk}": ("this", bq, bk) for bq, bk in fv.blocks(d)}
+        for bq, bk in PROBE_BLOCKS:
+            if launch("earlier", bq, bk) == 0:
+                pairs[f"earlier {bq},{bk}"] = ("earlier", bq, bk)
+        for label, args in pairs.items():
+            if launch(*args) != 0:
+                raise RuntimeError(f"flash_variants --against: {label} {name} "
+                                   "did not launch")
+        torch.cuda.synchronize()
+        times = {label: [] for label in pairs}
+        for label in list(pairs) + list(pairs)[::-1]:
+            times[label].append(mean_ms(lambda: launch(*pairs[label])))
+        row = dict(variant=name, shape=[b, h, l, d],
+                   ms={label: sum(t) / len(t) for label, t in times.items()},
+                   ms_each=times)
+        print("against", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def main(argv=None) -> list[dict]:
+    """Print the sweep table (and with --against the comparison in turns);
+    returns the sweep's rows."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="a checkout whose variant kernel is timed beside")
+    args = parser.parse_args(argv)
     print("shape B,H,L,D =", ",".join(map(str, lab_shape())), "bf16", flush=True)
     rows = sweep()
     for r in rows:
         print(format_row(r), flush=True)
+    if args.against is not None:
+        print(json.dumps({"against": against_sweep(args.against)}), flush=True)
     return rows
 
 

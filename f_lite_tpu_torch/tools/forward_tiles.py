@@ -12,11 +12,21 @@ shapes of the serving and training paths, the candidates in turns (a, b,
 ..., b, a) so that drift of the card's clock falls on all. With `--against
 DIR` the forward of another checkout (DIR holds its `f_lite_tpu_torch/`,
 e.g. an unpacked `git archive` of an earlier commit) joins every turn as
-"earlier". The package's wrapper always launches the shipped tiles (the
-source's defaults); none of these launches counts in its `LAUNCHES`.
+"earlier", and the shipped tile's output (`flash_variants.SERVING_BLOCKS`)
+is compared with the earlier forward's bit for bit at every shape: a
+change that means to leave the forward's arithmetic alone shows
+`"equal_to_earlier": true` on every shipped row; the SASS of the shipped
+tile's bf16 kernel is compared with the earlier library's too (`cuobjdump
+-sass`, instructions without addresses and encodings), one `sass` line a
+head dim. The package's wrapper
+always launches the shipped tiles (the source's defaults); none of these
+launches counts in its `LAUNCHES`.
 
 Prints the card's name and power limit, one JSON line per head dim,
-candidate and shape, and last one JSON line {"tiles": [...]} of every row.
+candidate and shape, one `bitwise` line per shape with --against, and last
+one JSON line {"tiles": [...]} of every row. Exits non-zero where a
+candidate is outside the tolerance or the shipped tile's output differs
+from the earlier forward's.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -32,6 +43,7 @@ import torch
 
 from f_lite_tpu_torch.ops.cuda import build
 from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 
 SOURCE = "flash_attention_fwd"
 CANDIDATES = {256: (64, 80), 64: (32, 64, 128)}
@@ -113,6 +125,32 @@ def build_all(source: str, builds) -> None:
                       f"{line.strip()[:160]}", flush=True)
 
 
+def sass(lib: Path, kernel: str) -> list[str]:
+    """The instructions of the function of library `lib` whose mangled name
+    holds `kernel` (`cuobjdump -sass`; addresses and encodings dropped)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for part in text.split("Function : ")[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            return re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", part)
+    raise ValueError(f"no function {kernel} in {lib}")
+
+
+def compare_sass(d: int, against: Path) -> dict:
+    """Whether the shipped tile's bf16 kernel at head dim `d` compiles to
+    the same instructions as the earlier checkout's, the same ones in
+    another order (registers named alike), and how many lines differ."""
+    kernel = f"flash_fwd_bf16_kernelILi{d}E"
+    ours, theirs = (sass(build.library_path(SOURCE, *b), kernel)
+                    for b in (candidates(d, None)[f"bk{fv.SERVING_BLOCKS[d][1]}"],
+                              candidates(d, against)["earlier"]))
+    return dict(d=d, equal_to_earlier=ours == theirs,
+                same_instructions_in_another_order=sorted(ours) == sorted(theirs),
+                lines_differing=sum(a != b for a, b in zip(ours, theirs)),
+                instructions=[len(ours), len(theirs)])
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -130,6 +168,11 @@ def main(argv=None) -> list[dict]:
     print("card:", card_line(), flush=True)
     build_all(SOURCE, [v for d in CANDIDATES
                        for v in candidates(d, args.against).values()])
+    sass_rows = []
+    if args.against is not None:
+        for d in CANDIDATES:
+            sass_rows.append(compare_sass(d, args.against))
+            print("sass", json.dumps(sass_rows[-1]), flush=True)
     rows = []
     gen = torch.Generator("cuda").manual_seed(0)
     for d in CANDIDATES:
@@ -143,11 +186,18 @@ def main(argv=None) -> list[dict]:
             ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), lens)
             tol = fa.tolerance(ref, torch.bfloat16)
             out = torch.empty_like(q)
-            errs = {}
+            errs, outs = {}, {}
             for label in labels:
                 launch(fns[label], q, k, v, lens, out)
                 torch.cuda.synchronize()
                 errs[label] = float((out.float() - ref).abs().max())
+                outs[label] = out.clone()
+            shipped = f"bk{fv.SERVING_BLOCKS[d][1]}"
+            equal = (torch.equal(outs[shipped], outs["earlier"])
+                     if "earlier" in outs else None)
+            if equal is not None:
+                print("bitwise", json.dumps(dict(d=d, shape=shape, candidate=shipped,
+                                                 equal_to_earlier=equal)), flush=True)
             times = time_in_turns(
                 labels, lambda label: launch(fns[label], q, k, v, lens, out))
             for label in labels:
@@ -156,13 +206,19 @@ def main(argv=None) -> list[dict]:
                            tolerance=tol, ok=errs[label] <= tol,
                            ms=sum(times[label]) / len(times[label]),
                            ms_each=times[label])
+                if label == shipped:
+                    row["equal_to_earlier"] = equal
                 print("tiles", json.dumps(row), flush=True)
                 rows.append(row)
-            del q, k, v, ref, out
-    print(json.dumps({"tiles": rows}), flush=True)
+            del q, k, v, ref, out, outs
+    print(json.dumps({"tiles": rows, "sass": sass_rows}), flush=True)
     bad = [(r["d"], r["candidate"], r["shape"]) for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"forward_tiles: outside the tolerance: {bad}")
+    differ = [(r["d"], r["shape"]) for r in rows if r.get("equal_to_earlier") is False]
+    if differ:
+        raise SystemExit(f"forward_tiles: the shipped tile differs from the earlier "
+                         f"forward: {differ}")
     return rows
 
 

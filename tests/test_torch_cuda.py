@@ -262,12 +262,13 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.parametrize("b,h,l,d", [(1, 2, 333, 64), (1, 2, 333, 256),
                                      (2, 1, 256, 64)])
 def test_variant_kernel_matches_plain(cuda_device, variant, b, h, l, d):
-    """Kernel #4 at every compiled block pair against `flash_fwd_plain` at
-    the same block_k (plain in fp32 on the same bf16 inputs), within
-    `flash_attention.tolerance`; ragged (333) and whole (256) key tiles."""
+    """Kernel #4 at every block pair compiled for its head dim
+    (`blocks(d)`) against `flash_fwd_plain` at the same block_k (plain in
+    fp32 on the same bf16 inputs), within `flash_attention.tolerance`;
+    ragged (333) and whole (256) key tiles."""
     kw = tfv.VARIANTS[variant]
     q, k, v = _qkv(b, h, l, l, d, cuda_device, torch.bfloat16, seed=7)
-    for bq, bk in tfv.BLOCKS:
+    for bq, bk in tfv.blocks(d):
         before = tfv.LAUNCHES.count
         got = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
         torch.cuda.synchronize()
@@ -280,14 +281,36 @@ def test_variant_kernel_matches_plain(cuda_device, variant, b, h, l, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_variant_padded_head_dims_match_plain(cuda_device, d):
+    """A head dim with no compiled instance runs zero-padded to the next
+    one (blocks of that one): every variant at every pair of `blocks(d)`
+    within `tolerance` of `flash_fwd_plain` at the true D, sliced back to
+    D, one launch each."""
+    q, k, v = _qkv(1, 2, 333, 333, d, cuda_device, torch.bfloat16, seed=13)
+    assert tfv.blocks(d) == tfv.BLOCKS[tfa.padded_head_dim(d)]
+    for bq, bk in tfv.blocks(d):
+        for name, kw in tfv.VARIANTS.items():
+            before = tfv.LAUNCHES.count
+            got = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
+            torch.cuda.synchronize()
+            assert tfv.LAUNCHES.count == before + 1
+            assert got.shape == q.shape and got.dtype == torch.bfloat16
+            want = tfv.flash_fwd_plain(q, k, v, block_k=bk,
+                                       out_dtype=torch.float32, **kw)
+            err = float((got.float() - want).abs().max())
+            assert err <= tfa.tolerance(want, torch.bfloat16), (bq, bk, name, err)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 256])
 def test_variant_flag_branches_round_as_named(cuda_device, d):
     """Each flag branch moves the kernel's output from the plain result of
     the twin without that flag to the plain result of its own variant
     (`flag_step` within FLAG_STEP_TOLERANCE of 1), at the ragged shape and
-    every compiled block pair."""
+    every block pair of `blocks(d)`."""
     q, k, v = _qkv(1, 2, 333, 333, d, cuda_device, torch.bfloat16, seed=9)
-    for bq, bk in tfv.BLOCKS:
+    for bq, bk in tfv.blocks(d):
         plain = {name: tfv.flash_fwd_plain(q, k, v, block_k=bk,
                                            out_dtype=torch.float32, **kw)
                  for name, kw in tfv.VARIANTS.items()}
@@ -299,26 +322,44 @@ def test_variant_flag_branches_round_as_named(cuda_device, d):
 
 @pytest.mark.cuda
 def test_variant_condmask_equals_its_twin(cuda_device):
-    q, k, v = _qkv(1, 2, 333, 333, 256, cuda_device, torch.bfloat16, seed=8)
-    for bq, bk in tfv.BLOCKS:
-        for twin, masked in (("base", "condmask-e"), ("exp2", "condmask")):
-            a = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **tfv.VARIANTS[twin])
-            c = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk, **tfv.VARIANTS[masked])
-            assert torch.equal(a, c), (bq, bk, twin)
+    """condmask (the mask on the straddling tile only) gives its twin's
+    bits, at both compiled head dims and every pair of `blocks(d)`."""
+    for d in (256, 64):
+        q, k, v = _qkv(1, 2, 333, 333, d, cuda_device, torch.bfloat16, seed=8)
+        for bq, bk in tfv.blocks(d):
+            for twin, masked in (("base", "condmask-e"), ("exp2", "condmask")):
+                a = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk,
+                                  **tfv.VARIANTS[twin])
+                c = tfv.flash_fwd(q, k, v, block_q=bq, block_k=bk,
+                                  **tfv.VARIANTS[masked])
+                assert torch.equal(a, c), (d, bq, bk, twin)
 
 
 @pytest.mark.cuda
 def test_variant_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    """fp32, a block pair not compiled for the head dim, a flag set that is
+    none of the lab's, D > 256 and a q that is not 16-byte aligned raise
+    before any launch. (D = 128 runs: the wrapper pads it to 256.)"""
+    before = tfv.LAUNCHES.count
     q = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         tfv.flash_fwd(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="blocks"):
-        tfv.flash_fwd(q, q, q, block_q=32, block_k=64)
+        tfv.flash_fwd(q, q, q, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="blocks"):
+        tfv.flash_fwd(q, q, q, block_q=128, block_k=80)
     with pytest.raises(ValueError, match="flag set"):
         tfv.flash_fwd(q, q, q, condmask=True, alpha_bf16=True)
-    q = torch.zeros(1, 1, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 8, 320, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         tfv.flash_fwd(q, q, q)
+    flat = torch.randn(2 + 2 * 2 * 64 * 64, device=cuda_device).to(torch.bfloat16)
+    q = flat[2:].view(2, 2, 64, 64)
+    k = torch.randn(2, 2, 64, 64, device=cuda_device).to(torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfv.flash_fwd(q, k, k)
+    assert tfv.LAUNCHES.count == before
 
 
 @pytest.mark.cuda

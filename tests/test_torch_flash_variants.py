@@ -167,3 +167,103 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         tfv.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"))
     assert tfv.COMPILED_FLAGS == {0, 1, 3, 7, 4, 9, 15}
+
+
+PADDED_DIMS = [32, 96, 128, 192]
+
+
+@pytest.fixture(scope="module")
+def d96_outputs():
+    """The exact variants at D = 96 through the interpreter (which pads D
+    to 128 lanes) and through the port (plain at the true D), fp32."""
+    arrs = _inputs((1, 2, 150, 96), seed=11)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrs)
+    res = {}
+    for name in EXACT:
+        kw = tfv.VARIANTS[name]
+        with pltpu.force_tpu_interpret_mode():
+            want = jfv.flash_fwd(jq, jk, jv, block_q=128, block_k=128, **kw)
+        got = tfv.flash_fwd(tq, tk, tv, block_k=128, **kw)
+        res[name] = (np.asarray(want), got.numpy())
+    return res
+
+
+@pytest.mark.parametrize("variant", EXACT)
+def test_padded_head_dim_matches_the_tpu_kernel(d96_outputs, variant):
+    """At a head dim with no compiled instance (96: the TPU lab pads it to
+    128 lanes, the card's wrapper to 256) the port's lab gives the TPU
+    kernel's numbers at the true D's scale, 1e-6 in fp32."""
+    want, got = d96_outputs[variant]
+    assert want.shape == got.shape == (1, 2, 150, 96)
+    assert float(np.abs(got - want).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_zero_padding_along_d_leaves_the_variants_unchanged(d):
+    """What the card's wrapper does at such a D: q, k and v zero-padded
+    along D to `padded_head_dim(d)`, the computation at the padded D with
+    the true D's scale, the output sliced back. fp32, every variant, against
+    `flash_fwd_plain` at the true D (1e-6); the padded columns come out
+    zero. The wrapper prescales q before padding it, which is the same as
+    prescaling the padded q (zeros stay zeros)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs((1, 2, 70, d), seed=12))
+    scale = d**-0.5
+    qp, kp, vp = (tfa.pad_head_dim(x) for x in (q, k, v))
+    assert qp.shape[-1] == tfa.padded_head_dim(d) > d
+    for use_exp2 in (False, True):
+        assert torch.equal(tfa.pad_head_dim(tfv.prescale_q(q, scale, use_exp2)),
+                           tfv.prescale_q(qp, scale, use_exp2))
+    for name, kw in tfv.VARIANTS.items():
+        want = tfv.flash_fwd_plain(q, k, v, block_k=32, **kw)
+        got = tfv.flash_fwd_plain(qp, kp, vp, scale=scale, block_k=32, **kw)
+        torch.testing.assert_close(got[..., :d], want, atol=1e-6, rtol=0,
+                                   msg=name)
+        assert not got[..., d:].any(), name
+
+
+def test_blocks_by_head_dim():
+    """`blocks(d)`: the pairs of the compiled head dim `d` is padded to, 128
+    query rows each, the serving forward's pair (the default tile of
+    csrc/flash_attention_fwd.cu) among them; D > 256 raises.
+    Each pair is what the kernel's source compiles for that head dim
+    (`launch_blocks<D, BK...>` in csrc/flash_attention_variants.cu), and
+    each BK has a wgmma instance in csrc/hopper.cuh."""
+    import re
+
+    from f_lite_tpu_torch.ops.cuda import build
+
+    for d in range(1, 257):
+        assert tfv.blocks(d) == tfv.BLOCKS[64 if d <= 64 else 256], d
+    with pytest.raises(ValueError, match="head dim"):
+        tfv.blocks(257)
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    src = (build.CSRC / "flash_attention_variants.cu").read_text()
+    compiled = {int(d): [int(x) for x in bks.split(",")]
+                for d, bks in re.findall(r"launch_blocks<(\d+), ([\d, ]+)>", src)}
+    assert compiled == {d: [bk for _, bk in pairs] for d, pairs in tfv.BLOCKS.items()}
+    assert "flash_attention_variants" in build.SOURCES
+    fwd = (build.CSRC / "flash_attention_fwd.cu").read_text()
+    for d, pairs in tfv.BLOCKS.items():
+        assert all(bq == 128 for bq, _ in pairs) and len(set(pairs)) == 3
+        assert tfv.SERVING_BLOCKS[d] in pairs
+        assert f"#define FLASH_FWD_BK_D{d} {tfv.SERVING_BLOCKS[d][1]}\n" in fwd
+        for _, bk in pairs:
+            assert f"wgmma_ss<{bk}>(float (&d)[{bk // 2}]" in hopper, bk
+
+
+def test_check_cuda_rejects_a_pair_not_compiled_for_the_head_dim():
+    """The wrapper's checks run before the device's: a pair of the other
+    head dim is refused (ValueError "blocks"), a pair of this one passes
+    them and meets the device check."""
+    q64 = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    q96 = torch.zeros(1, 1, 8, 96, dtype=torch.bfloat16)
+    for q, bad, good in ((q64, (128, 80), (128, 128)), (q64, (128, 48), (128, 32)),
+                         (q96, (128, 32), (128, 80)), (q96, (64, 64), (128, 48))):
+        with pytest.raises(ValueError, match="blocks"):
+            tfv._check_cuda(q, q, q, *bad, 0)
+        with pytest.raises(ValueError, match="unsupported device"):
+            tfv._check_cuda(q, q, q, *good, 0)
+    q320 = torch.zeros(1, 1, 8, 320, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tfv._check_cuda(q320, q320, q320, 128, 80, 0)
