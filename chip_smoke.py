@@ -42,12 +42,24 @@ Phases (any failed check raises and the run exits non-zero):
    compute, fp32 weights, 512 px, batch 4): every parameter and input
    gradient through the kernels within 2e-2 (relative norm) of the same
    block through the plain attention;
+6a. the int8 kernels (`csrc/int8_gemm.cu`: the per-token quantize and the
+   int8 product with its dequant epilogue) against their plain versions,
+   bit for bit, at every projection shape of the 7B's and the fixture's
+   int8 paths (bf16 and fp32 input, with and without bias, the int32
+   accumulators too), timed beside the plain versions, `torch._int_mm`
+   plus the dequant (a yardstick the port never calls), bf16 `F.linear`
+   at the same shape (what int8 replaces) and the bound; ptxas' lines of
+   both kernels, none of which may spill or have its wgmma serialised;
 7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
 8. the fixture again with limited-interval guidance (0.1, 0.9), both_acc
    >= 0.95, and at 15 steps with Euler and with ab2, each one's MSE to
    Euler@30 printed;
+8a. int8 serving, the fixture loaded with `quantize=True` (bf16), the
+   requests of phase 7: both_acc >= 0.95 and PSNR >= 30 dB against phase
+   7's bf16 images (10 log10(4 / MSE) on [-1, 1]); exactly 4 * 30 * 12
+   forward and 4 * 30 * 48 launches of each int8 kernel;
 9. serving, one 7B-width request (DiT f_lite_7b + Flux VAE, seeded random
    weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77 are
    real; finite output, exactly 30 * 56 forward launches;
@@ -56,6 +68,10 @@ Phases (any failed check raises and the run exits non-zero):
    (9 tiles each); finite output, exactly 15 * 56 forward launches, the
    kept region of the final latents equal to the encoded image's;
 11. strength 1.0 without a mask equals text to image bit for bit (256 px);
+11a. int8 serving at 7B width: the pipeline of phases 9-11 quantized in
+   place (`quant.quantize_dit`), the request of phase 9: finite output,
+   exactly 30 * 56 forward and 30 * 248 launches of each int8 kernel,
+   s/step, s/image, peak GB and a step profile beside phase 9's;
 12. training, the fixture's recipe from scratch through the port's trainer
    (`f_lite_tpu_torch.train`): a precomputed cache of 24 classes x 128
    shapes images (64 px, pixel space) written here, 300 steps at batch 32,
@@ -98,7 +114,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 # fixture classes (own copy of tools/make_shapes_dataset.py constants)
@@ -146,22 +162,27 @@ def log(*args):
 def reset_counts():
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
+    from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
 
-    for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fv.LAUNCHES):
+    for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fv.LAUNCHES,
+                    ig.QUANTIZE_LAUNCHES, ig.GEMM_LAUNCHES):
         counter.reset()
 
 
 def read_counts() -> dict:
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
+    from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
 
     return dict(fwd=fa.LAUNCHES.count, dq=fa.DQ_LAUNCHES.count,
-                dkv=fa.DKV_LAUNCHES.count, variants=fv.LAUNCHES.count)
+                dkv=fa.DKV_LAUNCHES.count, variants=fv.LAUNCHES.count,
+                quantize=ig.QUANTIZE_LAUNCHES.count, gemm=ig.GEMM_LAUNCHES.count)
 
 
-def launches(fwd=0, dq=0, dkv=0, variants=0) -> dict:
+def launches(fwd=0, dq=0, dkv=0, variants=0, quantize=0, gemm=0) -> dict:
     """The counts `read_counts` should give."""
-    return dict(fwd=fwd, dq=dq, dkv=dkv, variants=variants)
+    return dict(fwd=fwd, dq=dq, dkv=dkv, variants=variants, quantize=quantize,
+                gemm=gemm)
 
 
 def card_line() -> str:
@@ -645,6 +666,127 @@ def check_block_grads(batch=4, size=512, text_len=128) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6a: the int8 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (label, M, N, K): every projection of the int8 serving paths. 7B at 1024
+# px: M = 2 x 4112 tokens (CFG batch), context_kv over 2 x 128 text rows;
+# the fixture: M = 48 x 1040, context_kv over 48 x 32 rows.
+INT8_SHAPES = [
+    ("7b_qkv", 8224, 7680, 2560),
+    ("7b_proj_q", 8224, 2560, 2560),
+    ("7b_gate_up", 8224, 10240, 2560),
+    ("7b_down", 8224, 2560, 10240),
+    ("7b_context_kv", 256, 5120, 2560),
+    ("fixture_qkv", 49920, 768, 256),
+    ("fixture_proj_q", 49920, 256, 256),
+    ("fixture_gate_up", 49920, 1024, 256),
+    ("fixture_down", 49920, 256, 1024),
+    ("fixture_context_kv", 1536, 512, 256),
+]
+
+
+def int8_bounds_ms(m, n, k, item) -> dict:
+    """The least times on an H100 SXM: the quantize pass by bytes (x read
+    once in `item` bytes a value, x8 and sx written once), the product by
+    the larger of its int8 operations and its bytes (x8, w8, sx, scale read
+    once, the output written once in `item` bytes)."""
+    q_bytes = m * k * item + m * k + 4 * m
+    g_ops = 2.0 * m * n * k
+    g_bytes = m * k + n * k + 4 * (m + n) + m * n * item
+    t_ops = g_ops / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = g_bytes / PEAK_BYTES * 1e3
+    return dict(quantize=(q_bytes / PEAK_BYTES * 1e3, "bytes"),
+                gemm=(max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+
+
+def library_int8_ms(x8, sx, w8, scale, out_dtype):
+    """`torch._int_mm` (int32 out) plus the dequant as separate passes, a
+    yardstick the port never calls; (that, _int_mm alone), or Nones where
+    _int_mm refuses the shape."""
+    import torch
+
+    def lib():
+        acc = torch._int_mm(x8, w8.T)
+        return ((acc.float() * sx[:, None]) * scale).to(out_dtype)
+
+    try:
+        return time_ms(lib), time_ms(lambda: torch._int_mm(x8, w8.T))
+    except RuntimeError as err:
+        log(f"  _int_mm: none ({str(err).splitlines()[0][:120]})")
+        return None, None
+
+
+def check_int8() -> list[dict]:
+    """Both int8 kernels against their plain versions, bit for bit, at
+    every shape of INT8_SHAPES: bf16 input (the serving path's) with and
+    without bias, fp32 input, the int32 accumulators; a zero activation row
+    and two zero weight rows in each. Timed in bf16 beside the plain
+    versions, `_int_mm` + dequant, bf16 F.linear and the bounds. First,
+    ptxas' lines (no spill, no C7512)."""
+    import torch
+    import torch.nn.functional as F
+
+    from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+    from f_lite_tpu_torch.quant import quantize_weight
+
+    ptxas_check(("int8_gemm",), ("int8_gemm_kernel", "quantize_rows_kernel"), "int8")
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(15)
+    for label, m, n, k in INT8_SHAPES:
+        w = torch.randn((n, k), generator=gen, device="cuda") * k**-0.5
+        w[3] = 0.0
+        w[-1] = 0.0
+        w8, scale = quantize_weight(w.to(torch.bfloat16))
+        bias = torch.randn((n,), generator=gen, device="cuda") * 0.1
+        x32 = torch.randn((m, k), generator=gen, device="cuda") * 3
+        x32[m // 2] = 0.0
+        mismatches, max_err = [], 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            x8, sx = ig.quantize_rows(x)
+            acc = ig.int8_gemm_int32(x8, w8)
+            ys = {b: ig.int8_gemm_dequant(x8, sx, w8, scale, bias if b else None, dtype)
+                  for b in (False, True)}
+            torch.cuda.synchronize()
+            x8_want, sx_want = ig.quantize_rows_plain(x)
+            checks = {"x8": (x8, x8_want), "sx": (sx, sx_want),
+                      "acc": (acc, ig.int8_matmul_plain(x8, w8))}
+            for b, y in ys.items():
+                checks[f"y{'+bias' if b else ''}"] = (
+                    y, ig.int8_linear_plain(x8, sx, w8, scale, bias if b else None, dtype))
+            for what, (got, want) in checks.items():
+                err = float((got.double() - want.double()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got, want):
+                    mismatches.append(f"{what} {dtype}: max abs diff {err}")
+            del acc, ys, checks
+        if mismatches:
+            raise AssertionError(f"int8 {label}: kernels differ from plain: {mismatches}")
+        x = x32.to(torch.bfloat16)
+        del x32
+        x8, sx = ig.quantize_rows(x)
+        w_bf16 = w.to(torch.bfloat16)
+        lib_ms, int_mm_ms = library_int8_ms(x8, sx, w8, scale, torch.bfloat16)
+        bounds = int8_bounds_ms(m, n, k, 2)
+        row = dict(
+            shape=label, m=m, n=n, k=k, max_abs_err=max_err,
+            quantize_ms=time_ms(lambda: ig.quantize_rows(x)),
+            quantize_plain_ms=time_ms(lambda: ig.quantize_rows_plain(x)),
+            gemm_ms=time_ms(lambda: ig.int8_gemm_dequant(x8, sx, w8, scale)),
+            gemm_plain_ms=time_ms(lambda: ig.int8_linear_plain(x8, sx, w8, scale)),
+            library_ms=lib_ms, int_mm_ms=int_mm_ms,
+            bf16_linear_ms=time_ms(lambda: F.linear(x, w_bf16)),
+            quantize_bound_ms=bounds["quantize"][0], quantize_bound_by=bounds["quantize"][1],
+            gemm_bound_ms=bounds["gemm"][0], gemm_bound_by=bounds["gemm"][1])
+        log("int8", json.dumps(row))
+        rows.append(row)
+        del w, w8, scale, bias, x, x8, sx, w_bf16
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the fixture's training recipe through the port's trainer
 # ---------------------------------------------------------------------------
 
@@ -961,7 +1103,7 @@ def both_acc(images, classes) -> float:
     return hits / len(images)
 
 
-def load_fixture():
+def load_fixture(quantize=False):
     """(pipeline in bf16, its 24 captions' embeddings and mask, the
     classes, forward launches per step)."""
     import torch
@@ -969,7 +1111,8 @@ def load_fixture():
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 
-    pipe = FLitePipeline.from_pretrained(FIXTURE, dtype=torch.bfloat16)
+    pipe = FLitePipeline.from_pretrained(FIXTURE, dtype=torch.bfloat16,
+                                         quantize=quantize)
     cfg = pipe.dit.config
     classes = [(c, s) for c in COLORS for s in SHAPES]
     embeds, mask = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=32).encode(
@@ -1036,6 +1179,43 @@ def run_fixture_extras(full_images, n_requests=4, guidance=6.0) -> dict:
     return res
 
 
+def run_fixture_int8(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
+    """Phase 8a: the requests of phase 7 on the fixture loaded with
+    quantize=True: both_acc >= 0.95 (JAX int8 1.000, QUALITY_FIXTURE.json)
+    and PSNR >= 30 dB against phase 7's bf16 images (JAX 34.62 dB against
+    its full CFG run); exact launch counts."""
+    import numpy as np
+    import torch
+
+    pipe, embeds, mask, classes, n_blocks = load_fixture(quantize=True)
+    per_forward = int8_layers(pipe.dit)
+    expected = launches(fwd=n_requests * steps * n_blocks,
+                        quantize=n_requests * steps * per_forward,
+                        gemm=n_requests * steps * per_forward)
+    reset_counts()
+    images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+                                       num_inference_steps=steps,
+                                       guidance_scale=guidance)
+    counts = read_counts()
+    mse = float(np.mean((images - full_images) ** 2))
+    psnr = 10 * math.log10(4.0 / mse) if mse > 0 else math.inf
+    res = dict(requests=n_requests, images=len(images),
+               both_acc=both_acc(images, classes), psnr_vs_bf16_db=psnr,
+               mse_vs_bf16=mse, s_per_request=seconds, launches=counts,
+               expected_launches=expected, int8_layers=per_forward,
+               jax=dict(both_acc=1.0, psnr_db=34.62))
+    log("fixture_int8", json.dumps(res))
+    if counts != expected:
+        raise AssertionError(f"fixture int8: launches {counts}, expected {expected}")
+    if res["both_acc"] < 0.95:
+        raise AssertionError(f"fixture int8: both_acc {res['both_acc']} < 0.95")
+    if not psnr >= 30:
+        raise AssertionError(f"fixture int8: PSNR {psnr} dB < 30 against bf16")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases 9-11: serving at 7B width (DiT f_lite_7b + the Flux VAE, seeded
 # random weights)
@@ -1077,14 +1257,24 @@ def blocks_7b(pipe) -> int:
     return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
 
 
-def run_7b(pipe, steps=30, guidance=6.0, size=1024) -> dict:
-    """Phase 9: text to image at 1024 px, 30 steps, g=6."""
+def int8_layers(dit) -> int:
+    """The DiT's QuantDense layers: launches of each int8 kernel a forward."""
+    from f_lite_tpu_torch.models.dit import QuantDense
+
+    return sum(isinstance(m, QuantDense) for m in dit.modules())
+
+
+def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b") -> dict:
+    """Phase 9 (and 11a, on the quantized pipeline): text to image at 1024
+    px, 30 steps, g=6."""
     import numpy as np
     import torch
 
     vae = pipe.vae
     embeds, mask = text_7b(pipe)
-    expected = steps * blocks_7b(pipe)
+    expected = launches(fwd=steps * blocks_7b(pipe),
+                        quantize=steps * int8_layers(pipe.dit),
+                        gemm=steps * int8_layers(pipe.dit))
 
     marks = {}
     finite = []
@@ -1116,23 +1306,26 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024) -> dict:
 
     img = out.images
     denoise_s = marks["decode_start"] - t0
-    res = dict(params=sum(p.numel() for p in pipe.dit.parameters()),
+    # the int8 DiT holds its projections' weights as buffers (w8, scale)
+    res = dict(params=sum(t.numel() for t in (*pipe.dit.parameters(),
+                                               *pipe.dit.buffers())),
                image=list(img.shape), dtype=str(img.dtype),
                s_per_step=denoise_s / steps, decode_s=marks["decode_end"] - marks["decode_start"],
                s_per_image=total, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=counts["fwd"], counts=counts, expected_launches=expected,
                decoded_finite=finite == [True])
-    log("7b", json.dumps(res))
+    log(label, json.dumps(res))
     if img.shape != (1, size, size, 3) or img.dtype != np.uint8:
-        raise AssertionError(f"7B image {img.shape} {img.dtype}")
+        raise AssertionError(f"{label} image {img.shape} {img.dtype}")
     if finite != [True]:
-        raise AssertionError("7B decoded image holds NaN or Inf")
-    if counts != launches(fwd=expected):
-        raise AssertionError(f"7B: launches {counts}, expected {expected} forward only")
+        raise AssertionError(f"{label} decoded image holds NaN or Inf")
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected}")
     res["step_profile"] = profile_step(
         lambda: pipe(prompt_embeds=embeds, context_mask=mask, height=size,
                      width=size, num_inference_steps=1,
-                     guidance_scale=guidance, output_type="latent"))
+                     guidance_scale=guidance, output_type="latent"),
+        label=f"{label} step_profile")
     torch.cuda.empty_cache()
     return res
 
@@ -1258,7 +1451,7 @@ def run_strength_one(pipe, size=256, steps=3, guidance=6.0) -> dict:
     return res
 
 
-def profile_step(run_one_step) -> dict:
+def profile_step(run_one_step, label="step_profile") -> dict:
     """Device time of one denoise step by kernel class, from torch.profiler
     (launches here come after the counts were read)."""
     import torch
@@ -1271,7 +1464,7 @@ def profile_step(run_one_step) -> dict:
         run_one_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_summary(prof, wall_ms)
+    return profile_summary(prof, wall_ms, label)
 
 
 def profile_summary(prof, wall_ms, label="step_profile") -> dict:
@@ -1286,10 +1479,16 @@ def profile_summary(prof, wall_ms, label="step_profile") -> dict:
                        getattr(e, "self_cuda_time_total", 0.0)) / 1e3
     busy = sum(dev_ms(e) for e in kernels)
     classes = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
-               "flash_attention_bwd_dkv": 0.0, "matmul": 0.0, "other": 0.0}
+               "flash_attention_bwd_dkv": 0.0, "int8_gemm": 0.0,
+               "int8_quantize": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
-        if "flash_fwd" in n:
+        # the int8 kernels first: "gemm" would file them under matmul
+        if "int8_gemm_kernel" in n:
+            classes["int8_gemm"] += dev_ms(e)
+        elif "quantize_rows_kernel" in n:
+            classes["int8_quantize"] += dev_ms(e)
+        elif "flash_fwd" in n:
             classes["flash_attention_fwd"] += dev_ms(e)
         elif "flash_bwd_dq" in n:
             classes["flash_attention_bwd_dq"] += dev_ms(e)
@@ -1346,12 +1545,23 @@ def main() -> int:
     variant_rows = phase(check_variants)
     lab = phase(run_lab)
     block = phase(check_block_grads)
+    int8_rows = phase(check_int8)
     fixture, full_images = phase(run_fixture)
     fixture_extras = phase(run_fixture_extras, full_images)
+    fixture_int8 = phase(run_fixture_int8, full_images)
     pipe = build_7b_pipe()
     big = phase(run_7b, pipe)
     img2img = phase(run_img2img, pipe)
     strength_one = phase(run_strength_one, pipe)
+    from f_lite_tpu_torch.quant import quantize_dit
+
+    quantize_dit(pipe.dit)
+    big_int8 = phase(run_7b, pipe, 30, 6.0, 1024, "7b_int8")
+    log("7b_int8_vs_bf16", json.dumps({
+        **{key: dict(bf16=big[key], int8=big_int8[key])
+           for key in ("s_per_step", "s_per_image", "decode_s", "max_memory_allocated_gb")},
+        "step_by_class_ms": dict(bf16=big["step_profile"]["by_class_ms"],
+                                 int8=big_int8["step_profile"]["by_class_ms"])}))
     del pipe
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1440,14 +1650,42 @@ def main() -> int:
         sweep=[[r["block_q"], r["block_k"], r["variant"], r["ms"]] for r in lab["rows"]],
         shapes=variant_rows,
     )
-    kernels = [forward, *backward, variants]
+    int8_main = next(r for r in int8_rows if r["shape"] == "7b_qkv")
+    int8_common = dict(
+        route="cuda", source="f_lite_tpu_torch/csrc/int8_gemm.cu",
+        replaces="f_lite_tpu/quant.py:52",
+        replaces_function="quant_matmul",
+        replaces_note="lowered and fused by XLA; no Pallas kernel",
+        max_abs_err=max(r["max_abs_err"] for r in int8_rows),
+        at="7b_qkv (M 8224, N 7680, K 2560) bfloat16")
+    int8_kernels = []
+    for name, key, counter in (("int8_quantize_rows", "quantize", "quantize"),
+                               ("int8_gemm_dequant", "gemm", "gemm")):
+        int8_kernels.append(dict(
+            name=name, **int8_common,
+            launches=big_int8["counts"][counter],
+            launches_serving_fixture_int8=fixture_int8["launches"][counter],
+            ms=int8_main[f"{key}_ms"], plain_ms=int8_main[f"{key}_plain_ms"],
+            bound_ms=int8_main[f"{key}_bound_ms"],
+            bound_by=int8_main[f"{key}_bound_by"],
+            library_ms=int8_main["library_ms"] if key == "gemm" else None,
+            **(dict(library_covers="torch._int_mm + the dequant as separate passes",
+                    int_mm_ms=int8_main["int_mm_ms"],
+                    bf16_linear_ms=int8_main["bf16_linear_ms"]) if key == "gemm" else {}),
+            by_shape={r["shape"]: {f: r[f] for f in r if f.startswith(key) or (
+                key == "gemm" and f in ("library_ms", "int_mm_ms", "bf16_linear_ms"))}
+                for r in int8_rows},
+        ))
+    kernels = [forward, *backward, variants, *int8_kernels]
     for k in kernels:
         missing = [key for key in KERNEL_KEYS if key not in k]
         if missing:
             raise AssertionError(f"kernels line: {k['name']} lacks {missing}")
     log(json.dumps({"kernels": kernels,
                     "block_grads_max_rel": block["max_rel"],
-                    "backward_shapes": bwd_rows}))
+                    "backward_shapes": bwd_rows,
+                    "fixture_int8": dict(both_acc=fixture_int8["both_acc"],
+                                         psnr_vs_bf16_db=fixture_int8["psnr_vs_bf16_db"])}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

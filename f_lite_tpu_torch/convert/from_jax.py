@@ -15,7 +15,10 @@ them (e.g. `blocks_3.self_attn.qkv.kernel`), as numpy arrays. Layouts:
 - scan-stacked blocks (`blocks_front`/`blocks_rest`/`blocks_all`, leading
   layers axis) unstacked to `blocks_{i}`, block 0's inert `lambda_v`
   dropped; the pipeline-parallel layout (`<trunk>.pipe.stages.blocks`,
-  leading (stages, units per stage) axes) folded to the scan layout first.
+  leading (stages, units per stage) axes) folded to the scan layout first;
+- int8 projections (`quantize_dit_params`): w8 (in, *out) -> `QuantDense`
+  w8 (N, in) int8 as the kernel above, scale (*out) -> (N,) fp32, in all of
+  those layouts (a padded head's scale is 1 and its w8 zero).
 Every step is a transpose, reshape, slice of zeros or unstacking, so the
 conversion is exact.
 """
@@ -47,7 +50,11 @@ def _t(w) -> np.ndarray:
 
 
 def _dense(d, name, out) -> None:
-    out[f"{name}.weight"] = _t(d["kernel"])
+    if "w8" in d:
+        out[f"{name}.w8"] = _t(d["w8"])
+        out[f"{name}.scale"] = np.asarray(d["scale"])
+    else:
+        out[f"{name}.weight"] = _t(d["kernel"])
     if "bias" in d:
         out[f"{name}.bias"] = np.asarray(d["bias"])
 
@@ -63,18 +70,32 @@ def _unpadded(a: np.ndarray, axis: int, n: int, name: str) -> np.ndarray:
 
 
 def _head_dense(d, name, out, heads) -> None:
-    k = _unpadded(d["kernel"], -2, heads, name)  # (in, *split, H, D)
-    out[f"{name}.weight"] = _t(k.reshape(k.shape[0], -1))
+    if "w8" in d:
+        k = _unpadded(d["w8"], -2, heads, name)  # (in, *split, H, D)
+        out[f"{name}.w8"] = _t(k.reshape(k.shape[0], -1))
+        # padded heads quantize to scale 1: cut without the zero check
+        scale = np.take(np.asarray(d["scale"]), np.arange(heads), axis=-2)
+        out[f"{name}.scale"] = scale.reshape(-1)
+    else:
+        k = _unpadded(d["kernel"], -2, heads, name)  # (in, *split, H, D)
+        out[f"{name}.weight"] = _t(k.reshape(k.shape[0], -1))
     if "bias" in d:
         out[f"{name}.bias"] = _unpadded(d["bias"], -2, heads, name).reshape(-1)
 
 
 def _proj(d, name, out, rows) -> None:
-    out[f"{name}.weight"] = _t(_unpadded(d["kernel"], 0, rows, name))
+    if "w8" in d:
+        out[f"{name}.w8"] = _t(_unpadded(d["w8"], 0, rows, name))
+        out[f"{name}.scale"] = np.asarray(d["scale"])
+    else:
+        out[f"{name}.weight"] = _t(_unpadded(d["kernel"], 0, rows, name))
 
 
 def _to_torch(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    """fp32 tensors, int8 weights kept int8."""
+    return {k: torch.from_numpy(np.array(
+        v, np.int8 if np.asarray(v).dtype == np.int8 else np.float32))
+        for k, v in sd.items()}
 
 
 def _tree_map(fn, tree):
@@ -131,9 +152,10 @@ def _unstack_scan(p: dict, cfg) -> dict:
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray],
                         cfg) -> dict[str, torch.Tensor]:
-    """Flat JAX DiT params -> the port's `DiT` state dict (fp32; the caller
-    casts). Takes the unrolled, scan-stacked and pipeline-parallel layouts,
-    with or without padded heads."""
+    """Flat JAX DiT params -> the port's `DiT` state dict (fp32, int8
+    weights int8; the caller casts). Takes the unrolled, scan-stacked and
+    pipeline-parallel layouts, with or without padded heads, quantized or
+    not."""
     p = unflatten(flat_params)
     p = _fold_pipeline(p.get("params", p))
     if any(k in p for k in _SCAN_KEYS):

@@ -18,6 +18,11 @@ activations' dtype, as flax's `dtype` over `param_dtype` does (fp32 master
 weights computing in bf16); `gradient_checkpoint` recomputes the blocks from
 `gradient_checkpoint_from` on in the backward (`remat_policy` "full");
 `init_weights` draws the JAX initializers.
+
+Int8 serving (`quantized=True`, `f_lite_tpu_torch/quant.py`): the
+`QUANT_TARGETS` projections are `QuantDense` layers (int8 weights, fp32
+scales, per-token activation quantization; the Hopper int8 kernels on the
+card); every other layer stays as it is.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from f_lite_tpu_torch.ops.norms import rms_norm
 from f_lite_tpu_torch.ops.patching import patchify, unpatchify
 from f_lite_tpu_torch.ops.rope import apply_rotary, rope_2d_freqs
 from f_lite_tpu_torch.ops.timesteps import timestep_embedding
+from f_lite_tpu_torch.quant import QUANT_TARGETS, quant_matmul
 
 
 # `dit/config.json` fields that shape only the JAX program or the saved
@@ -46,8 +52,6 @@ _PROGRAM_ONLY = {"pipeline_microbatches": 1, "use_pallas_attention": None,
 # lecun_normal: a normal of variance 1/fan_in truncated at two standard
 # deviations, widened so that the truncated variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978
-# fields whose non-default values need code the port does not have yet
-_UNSUPPORTED = {"quantized": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +79,7 @@ class DiTConfig:
     gradient_checkpoint: bool = False
     gradient_checkpoint_from: int = 8  # recompute blocks >= this
     remat_policy: str = "full"  # "full": keep block inputs only
+    quantized: bool = False  # int8 W8A8 projections (inference)
     dtype: torch.dtype | None = None  # compute dtype; None = param dtype
 
     def __post_init__(self):
@@ -86,14 +91,9 @@ class DiTConfig:
     @classmethod
     def from_json_dict(cls, d: dict) -> "DiTConfig":
         """Parse a saved `dit/config.json`; the parameter layout fields are
-        accepted (the port runs unrolled blocks at `num_heads`), int8
-        refused."""
-        bad = {k: d[k] for k, default in _UNSUPPORTED.items()
-               if d.get(k, default) != default}
-        if bad:
-            raise ValueError(f"DiTConfig: {bad} not supported by the port yet")
+        accepted (the port runs unrolled blocks at `num_heads`)."""
         fields = {f.name for f in dataclasses.fields(cls)}
-        unknown = set(d) - fields - set(_UNSUPPORTED) - set(_PROGRAM_ONLY)
+        unknown = set(d) - fields - set(_PROGRAM_ONLY)
         if unknown:
             raise ValueError(f"DiTConfig: unknown fields {sorted(unknown)}")
         return cls(**{k: v for k, v in d.items() if k in fields})
@@ -104,7 +104,7 @@ class DiTConfig:
         defaults."""
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
              if f.name != "dtype"}
-        d.update(_UNSUPPORTED, **_PROGRAM_ONLY)
+        d.update(_PROGRAM_ONLY)
         return d
 
     @property
@@ -140,6 +140,49 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+class QuantDense(nn.Module):
+    """Int8 W8A8 Dense (`f_lite_tpu/models/dit.py` QuantDense / HeadProj):
+    buffers w8 (N, K) int8 and scale (N,) fp32, an optional bias; forward
+    is `quant.quant_matmul`, output in the input's dtype. The scales stay
+    fp32 through `.to(dtype)`. Made by `quant.quantize_dit` or loaded from
+    a quantized state dict; the zero weights here are placeholders."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.register_buffer(
+            "w8", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    @classmethod
+    def from_quantized(cls, w8, scale, bias=None) -> "QuantDense":
+        """A layer holding w8, scale and bias themselves (no copy)."""
+        with torch.device("meta"):
+            layer = cls(w8.shape[1], w8.shape[0], bias=False)
+        layer.w8, layer.scale, layer.bias = w8, scale, bias
+        return layer
+
+    def _apply(self, fn, recurse=True):
+        scale = self.scale
+        super()._apply(fn, recurse)
+        if self.scale.dtype != torch.float32:  # a cast: keep the fp32 scales
+            self.scale = scale.to(self.scale.device)
+        return self
+
+    def forward(self, x):
+        return quant_matmul(x, self.w8, self.scale, self.bias)
+
+
+def _linear(cfg: "DiTConfig", name: str, d_in: int, d_out: int,
+            bias: bool) -> nn.Module:
+    """The projection `name`: QuantDense where the config is quantized and
+    `name` is one of QUANT_TARGETS, else Dense."""
+    if cfg.quantized and name in QUANT_TARGETS:
+        return QuantDense(d_in, d_out, bias=bias)
+    return Dense(d_in, d_out, bias=bias)
+
+
 class RMSNormModule(nn.Module):
     """RMSNorm with a learnable weight, fp32 statistics."""
 
@@ -163,11 +206,11 @@ class Attention(nn.Module):
         self.is_self_attn = is_self_attn
         d, bias = cfg.hidden_size, cfg.train_bias_and_rms
         if is_self_attn:
-            self.qkv = Dense(d, 3 * d, bias=bias)
+            self.qkv = _linear(cfg, "qkv", d, 3 * d, bias)
         else:
-            self.q = Dense(d, d, bias=bias)
-            self.context_kv = Dense(d, 2 * d, bias=bias)
-        self.proj = Dense(d, d, bias=False)
+            self.q = _linear(cfg, "q", d, d, bias)
+            self.context_kv = _linear(cfg, "context_kv", d, 2 * d, bias)
+        self.proj = _linear(cfg, "proj", d, d, False)
         if has_lambda_v:
             self.lambda_v = nn.Parameter(torch.full((1,), 0.5))
 
@@ -214,9 +257,9 @@ class SwiGLUMLP(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         d, inter = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
-        self.gate_proj = Dense(d, inter, bias=False)
-        self.up_proj = Dense(d, inter, bias=False)
-        self.down_proj = Dense(inter, d, bias=False)
+        self.gate_proj = _linear(cfg, "gate_proj", d, inter, False)
+        self.up_proj = _linear(cfg, "up_proj", d, inter, False)
+        self.down_proj = _linear(cfg, "down_proj", inter, d, False)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

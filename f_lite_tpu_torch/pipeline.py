@@ -49,6 +49,7 @@ from f_lite_tpu_torch.models.vae import (
     resolve_memory_mode,
 )
 from f_lite_tpu_torch.ops.guidance import APGConfig
+from f_lite_tpu_torch.quant import quantize_dit
 from f_lite_tpu_torch.sampling.euler import (
     DenoiseSettings,
     denoise,
@@ -228,20 +229,31 @@ class FLitePipeline:
 
     @classmethod
     def from_pretrained(cls, path: str | Path, *, dtype=torch.bfloat16,
-                        device="cuda") -> "FLitePipeline":
+                        device="cuda", quantize: bool = False) -> "FLitePipeline":
         """Load a native pipeline directory. The DiT runs in `dtype`; the
-        VAE, as in the JAX package, in fp32."""
+        VAE, as in the JAX package, in fp32.
+
+        `quantize=True`: int8 W8A8 projections (`quant.quantize_dit`),
+        quantized from the weights after their cast to `dtype`, as the JAX
+        package does; the argument decides, whatever the saved config says.
+        A checkpoint saved with int8 weights loads only with it."""
         device = resolve_device(device)
         path = Path(path)
         json.loads((path / "model_index.json").read_text())
-        cfg = DiTConfig.from_json_dict(
+        flat = load_file(path / "dit" / "flax_params.safetensors")
+        saved_int8 = any(k.endswith(".w8") for k in flat)
+        if saved_int8 and not quantize:
+            raise ValueError(f"{path}: the DiT's weights are int8; load it "
+                             "with quantize=True")
+        cfg = dataclasses.replace(DiTConfig.from_json_dict(
             json.loads((path / "dit" / "config.json").read_text())
-        )
+        ), quantized=saved_int8)
         dit = DiT(cfg)
-        dit.load_state_dict(state_dict_from_jax(
-            load_file(path / "dit" / "flax_params.safetensors"), cfg
-        ))
+        dit.load_state_dict(state_dict_from_jax(flat, cfg))
+        del flat
         dit = dit.to(device=device, dtype=dtype).eval()
+        if quantize:
+            quantize_dit(dit)
         vae = None
         if (path / "vae" / "config.json").exists():
             vcfg = VAEConfig.from_json_dict(

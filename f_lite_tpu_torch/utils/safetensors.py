@@ -3,8 +3,8 @@
 Layout: an 8-byte little-endian header length N, N bytes of JSON
 ({name: {"dtype", "shape", "data_offsets": [begin, end]}, optional
 "__metadata__"}), then the tensor bytes, offsets relative to the end of the
-header. F32 and F16 load as such; BF16 widens exactly to float32 (numpy has
-no bfloat16). The writer stores float32 arrays, in name order.
+header. F32, F16 and I8 (int8 weights of a quantized DiT) load as such;
+BF16 widens exactly to float32 (numpy has no bfloat16). The writer stores float32 arrays, in name order.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
-_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16}
+_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
+           "I8": np.int8}
 
 
 def load_file(path: str | Path) -> dict[str, np.ndarray]:
