@@ -43,13 +43,18 @@ Phases (any failed check raises and the run exits non-zero):
    gradient through the kernels within 2e-2 (relative norm) of the same
    block through the plain attention;
 6a. the int8 kernels (`csrc/int8_gemm.cu`: the per-token quantize and the
-   int8 product with its dequant epilogue) against their plain versions,
-   bit for bit, at every projection shape of the 7B's and the fixture's
-   int8 paths (bf16 and fp32 input, with and without bias, the int32
-   accumulators too), timed beside the plain versions, `torch._int_mm`
-   plus the dequant (a yardstick the port never calls), bf16 `F.linear`
-   at the same shape (what int8 replaces) and the bound; ptxas' lines of
-   both kernels, none of which may spill or have its wgmma serialised;
+   persistent int8 product with its dequant epilogue) against their plain
+   versions, bit for bit, at every projection shape of the 7B's and the
+   fixture's int8 paths and at the product's grid edges (SMs - 1, SMs,
+   SMs + 1 m-tiles and a partial last round at K 144 and 2576,
+   `int8_tiles.edge_shapes`) (bf16 and fp32 input, with and without bias,
+   the int32 accumulators too); the path shapes timed beside the plain
+   versions, `torch._int_mm` plus the dequant (a yardstick the port never
+   calls), bf16 `F.linear` at the same shape (what int8 replaces) and the
+   bound; the product's fixed cost a 128 x 256 tile and cost a k-tile,
+   fitted to its times at M 8224, N 7680 and K 1024, 2560, 10240
+   (`int8_tiles.fit_k_sweep`); ptxas' lines of both kernels, none of
+   which may spill or have its wgmma serialised;
 7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
@@ -717,23 +722,52 @@ def library_int8_ms(x8, sx, w8, scale, out_dtype):
         return None, None
 
 
-def check_int8() -> list[dict]:
+def int8_k_fit(ks=(1024, 2560, 10240), m=8224, n=7680) -> dict:
+    """The product kernel's fixed cost a 128 x 256 tile and cost a k-tile
+    (`int8_tiles.fit_k_sweep`), fitted to its times through the wrapper at
+    (m, n) and each K of `ks` (where the tiles, not the output's bytes, set
+    the time), random int8 operands."""
+    import torch
+
+    from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+    from f_lite_tpu_torch.tools.int8_tiles import fit_k_sweep
+
+    gen = torch.Generator("cuda").manual_seed(16)
+    points = []
+    for k in ks:
+        x8, w8 = (torch.randint(-127, 128, (rows, k), generator=gen, device="cuda",
+                                dtype=torch.int8) for rows in (m, n))
+        sx = torch.rand((m,), generator=gen, device="cuda") + 0.5
+        scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+        points.append((k, time_ms(lambda: ig.int8_gemm_dequant(x8, sx, w8, scale))))
+        del x8, w8
+    fit = dict(fit_k_sweep(points, m, n, ig.num_sms(0)), m=m, n=n,
+               ms_by_k={k: ms for k, ms in points})
+    log("int8_k_fit", json.dumps(fit))
+    return fit
+
+
+def check_int8() -> tuple[list[dict], list[dict], dict]:
     """Both int8 kernels against their plain versions, bit for bit, at
-    every shape of INT8_SHAPES: bf16 input (the serving path's) with and
+    every shape of INT8_SHAPES and of the product's grid edges
+    (`int8_tiles.edge_shapes`): bf16 input (the serving path's) with and
     without bias, fp32 input, the int32 accumulators; a zero activation row
-    and two zero weight rows in each. Timed in bf16 beside the plain
-    versions, `_int_mm` + dequant, bf16 F.linear and the bounds. First,
-    ptxas' lines (no spill, no C7512)."""
+    and two zero weight rows in each. The INT8_SHAPES timed in bf16 beside
+    the plain versions, `_int_mm` + dequant, bf16 F.linear and the bounds;
+    then `int8_k_fit`. First, ptxas' lines (no spill, no C7512). Returns
+    (timed rows, edge rows, fit)."""
     import torch
     import torch.nn.functional as F
 
     from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
     from f_lite_tpu_torch.quant import quantize_weight
+    from f_lite_tpu_torch.tools.int8_tiles import edge_shapes
 
     ptxas_check(("int8_gemm",), ("int8_gemm_kernel", "quantize_rows_kernel"), "int8")
-    rows = []
+    rows, edge_rows = [], []
+    edges = edge_shapes(ig.num_sms(0))
     gen = torch.Generator("cuda").manual_seed(15)
-    for label, m, n, k in INT8_SHAPES:
+    for label, m, n, k in INT8_SHAPES + edges:
         w = torch.randn((n, k), generator=gen, device="cuda") * k**-0.5
         w[3] = 0.0
         w[-1] = 0.0
@@ -763,6 +797,11 @@ def check_int8() -> list[dict]:
             del acc, ys, checks
         if mismatches:
             raise AssertionError(f"int8 {label}: kernels differ from plain: {mismatches}")
+        if (label, m, n, k) in edges:  # checked, not timed
+            edge_rows.append(dict(shape=label, m=m, n=n, k=k, max_abs_err=max_err))
+            log("int8_edge", json.dumps(edge_rows[-1]))
+            del w, w8, scale, bias, x32
+            continue
         x = x32.to(torch.bfloat16)
         del x32
         x8, sx = ig.quantize_rows(x)
@@ -783,7 +822,9 @@ def check_int8() -> list[dict]:
         rows.append(row)
         del w, w8, scale, bias, x, x8, sx, w_bf16
     torch.cuda.empty_cache()
-    return rows
+    fit = int8_k_fit()
+    torch.cuda.empty_cache()
+    return rows, edge_rows, fit
 
 
 # ---------------------------------------------------------------------------
@@ -1545,7 +1586,7 @@ def main() -> int:
     variant_rows = phase(check_variants)
     lab = phase(run_lab)
     block = phase(check_block_grads)
-    int8_rows = phase(check_int8)
+    int8_rows, int8_edges, int8_fit = phase(check_int8)
     fixture, full_images = phase(run_fixture)
     fixture_extras = phase(run_fixture_extras, full_images)
     fixture_int8 = phase(run_fixture_int8, full_images)
@@ -1656,7 +1697,7 @@ def main() -> int:
         replaces="f_lite_tpu/quant.py:52",
         replaces_function="quant_matmul",
         replaces_note="lowered and fused by XLA; no Pallas kernel",
-        max_abs_err=max(r["max_abs_err"] for r in int8_rows),
+        max_abs_err=max(r["max_abs_err"] for r in int8_rows + int8_edges),
         at="7b_qkv (M 8224, N 7680, K 2560) bfloat16")
     int8_kernels = []
     for name, key, counter in (("int8_quantize_rows", "quantize", "quantize"),
@@ -1671,7 +1712,12 @@ def main() -> int:
             library_ms=int8_main["library_ms"] if key == "gemm" else None,
             **(dict(library_covers="torch._int_mm + the dequant as separate passes",
                     int_mm_ms=int8_main["int_mm_ms"],
-                    bf16_linear_ms=int8_main["bf16_linear_ms"]) if key == "gemm" else {}),
+                    bf16_linear_ms=int8_main["bf16_linear_ms"],
+                    fixed_us_per_tile=int8_fit["fixed_us_per_tile"],
+                    us_per_k_tile=int8_fit["us_per_k_tile"],
+                    k_fit=int8_fit,
+                    edge_shapes_checked=[r["shape"] for r in int8_edges])
+               if key == "gemm" else {}),
             by_shape={r["shape"]: {f: r[f] for f in r if f.startswith(key) or (
                 key == "gemm" and f in ("library_ms", "int_mm_ms", "bf16_linear_ms"))}
                 for r in int8_rows},

@@ -41,6 +41,33 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// Arrive on the barrier at offset `bar` of the cluster's CTA `cta` (this
+// CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every CTA of the cluster: what each wrote before (to
+// shared memory, barriers included) is visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
 // Wait until the barrier's phase of parity `parity` has completed. The
 // whole loop is one asm block: written as a C++ loop around try_wait (with
 // a timeout and a trap), it left ptxas allocating the consumers as if they
@@ -74,6 +101,54 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// tma_load_3d into every CTA of the cluster in `cta_mask`, each at the same
+// shared-memory offset `dst`, each counting the bytes on its own barrier at
+// offset `bar`.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+
+// One box of a 3-D tensor map from shared memory at `src` to global memory;
+// the parts of the box past the tensor's end are not written. Completion is
+// tracked by bulk groups (`bulk_commit`, `bulk_wait_read`, `bulk_wait`) of
+// the issuing thread.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -105,6 +180,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // multiple of 32.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at barrier `id` without waiting; `threads` counts the arriving and
+// the waiting (`named_barrier_sync`) threads together.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Byte offset of element (row, col) of a bf16 tile stored as TMA stores it

@@ -19,26 +19,51 @@
 //   operations at the serving shapes (2*M*N*K: 0.163 ms at the 7B's qkv,
 //   M 8224, N 7680, K 2560, against 1,979 TOP/s). No int32 tensor reaches
 //   device memory: the dequant runs on the accumulators in registers.
-//   Design, as the flash-attention forward's: a block of three
-//   warpgroups owns a 128 x 256 output tile. Warpgroup 0 is the producer:
-//   one thread issues TMA loads of 128-byte-swizzled K tiles (128 int8 a
-//   row) of x8 (128 rows) and w8 (256 rows) through a ring of kStages
-//   stages, each with a full and an empty mbarrier. Warpgroups 1 and 2 are
-//   the consumers, 64 rows each: wgmma.m64n256k32.s32.s8.s8 with both
-//   operands K-major in shared memory (the only layout 8-bit wgmma takes,
-//   which is why the weight stays in torch's (N, K) layout), four k-steps
-//   of 32 bytes a tile, one group in flight while the next tile's wait
-//   runs; a stage is released when the group that read it has completed.
-//   Rows past M, columns past N and K past its end arrive as TMA's zeros;
-//   stores are masked. The epilogue converts with __int2float_rn and
-//   multiplies with __fmul_rn (no contraction into an FMA), so the result
-//   equals the plain version's bit for bit. No persistent grid, no
-//   ping-pong between the consumers, no epilogue overlap.
+//   Design: persistent and warp-specialised. min(tiles, SMs) blocks of
+//   three warpgroups each walk their output tiles in a grouped raster
+//   order (`tile_coords`). Warpgroup 0 is the producer: one thread issues
+//   TMA loads of 128-byte-swizzled K tiles (128 int8 a row) of x8 and w8
+//   through a ring of kStages stages, each with a full and an empty
+//   mbarrier, and its stage and phase run on from tile to tile, so the
+//   next tile's loads overlap this one's end. Warpgroups 1 and 2 are the
+//   consumers: wgmma.mNk32.s32.s8.s8 with both operands K-major in shared
+//   memory (the only layout 8-bit wgmma takes, which is why the weight
+//   stays in torch's (N, K) layout), four k-steps of 32 bytes a K tile,
+//   one group in flight while the next K tile's wait runs; a stage is
+//   released when the group that read it has completed. Ping-pong (the
+//   default): each consumer owns every other 128 x 128 tile (two
+//   m64n128k32 a k-step, 128 int32 accumulators a thread) and the two
+//   mainloops take turns (named barriers), so one consumer's epilogue runs
+//   under the other's products. Cooperative (a trial option): both
+//   consumers share a 128 x 256 tile, 64 rows each. The epilogue stages
+//   the dequantized tile in shared memory (swizzled, bank-conflict free)
+//   and one thread TMA stores it; scale, bias and sx are loaded once a
+//   tile, before the mainloop. Rows past M, columns past N and K past its
+//   end arrive as TMA's zeros; the stores clip. The epilogue converts with
+//   __int2float_rn and multiplies with __fmul_rn (no contraction into an
+//   FMA), so the result equals the plain version's bit for bit. A cluster
+//   of two CTAs that multicast the shared weight tile is a trial option
+//   too (INT8_GEMM_CLUSTER).
+//
+//   Why these choices (`tools/int8_tiles.py`, NVIDIA H100 80GB HBM3 at
+//   700 W, the design's raw launches in turns): the earlier kernel, one
+//   block a tile, paid 9.7 us a 128 x 256 tile beside 0.80 us a k-tile;
+//   this one pays 0.56 us beside 0.78 (fits over K >= 1024). The k-tile's cost is set by
+//   power: under these loops the card draws 700 W at 1425-1680 MHz, where
+//   a 1024-cycle k-tile takes 0.61-0.72 us. Halving the L2 bytes with the
+//   cluster made every shape 2-10% slower, so it is off. Ping-pong beats
+//   the cooperative tile at the three K 2560 shapes of the 7B (0.2346 /
+//   0.0854 / 0.3307 ms against 0.2395 / 0.0829 / 0.3614 at qkv / proj_q /
+//   gate_up) and every fixture shape, and loses at down_proj (0.3149
+//   against 0.2699). Shared memory: ping-pong takes 4 stages of 32 KB
+//   beside 64 KB of staging (5 do not fit the 227 KB); the cooperative
+//   tile 3 of 48 KB.
 //
 // Entry points return cudaGetLastError() after the launch (0 on success)
 // or a kErr* code without launching. Dtype codes: 0 fp32, 1 bf16, 2 int32
-// (the gemm's output only). x, x8 and w8 must be 16-byte aligned, K a
-// multiple of 16 and N of 8 (the wrapper checks all of it).
+// (the gemm's output only). x, x8, w8 and the gemm's output must be
+// 16-byte aligned, K a multiple of 16 and N of 8 (the wrapper checks all
+// of it); the gemm takes the card's SM count, the persistent grid's size.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -137,28 +162,74 @@ int launch_quantize(const void* x, void* x8, float* sx, int M, int K,
 }
 
 // ---------------------------------------------------------------------------
-// int8_gemm: TMA + wgmma, warp-specialised
+// int8_gemm: persistent, TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128;       // output rows a block (two consumers of 64)
-constexpr int kBN = 256;       // output columns a block (one wgmma's N)
+// Build-time choices (the tile trial, `tools/int8_tiles.py`, builds each
+// candidate with -D; the package builds the defaults).
+#ifndef INT8_GEMM_PINGPONG
+#define INT8_GEMM_PINGPONG 1
+#endif
+#ifndef INT8_GEMM_STAGES
+#define INT8_GEMM_STAGES (INT8_GEMM_PINGPONG ? 4 : 3)
+#endif
+#ifndef INT8_GEMM_GROUP_M
+#define INT8_GEMM_GROUP_M 8
+#endif
+#ifndef INT8_GEMM_CLUSTER
+#define INT8_GEMM_CLUSTER 1
+#endif
+
+constexpr bool kPingPong = INT8_GEMM_PINGPONG != 0;
+constexpr int kBM = 128;                    // rows of an output tile
+constexpr int kBN = kPingPong ? 128 : 256;  // columns of an output tile
 constexpr int kBK = 128;       // int8 a K tile: one 128-byte swizzled row
-constexpr int kStages = 4;     // ring depth
+constexpr int kStages = INT8_GEMM_STAGES;   // ring depth
+constexpr int kGroupM = INT8_GEMM_GROUP_M;  // m-tiles a group of the raster
+// CTAs of a cluster: they take neighbouring m-tiles of one n-tile, and each
+// loads its share (kBSlice rows) of the weight tile for all of them with a
+// multicast TMA load
+constexpr int kCluster = INT8_GEMM_CLUSTER;
+static_assert(kCluster == 1 || kCluster == 2, "clusters of 1 or 2 CTAs");
+static_assert(kGroupM % kCluster == 0, "whole clusters in a raster group");
+constexpr int kBSlice = kBN / kCluster;
+// rows of a tile that one consumer computes: half of it (cooperative) or
+// all of it (ping-pong), in 64-row wgmma fragments
+constexpr int kCM = kPingPong ? kBM : kBM / 2;
+constexpr int kFrags = kCM / 64;
 constexpr int kWgThreads = 128;
 constexpr int kThreads = 3 * kWgThreads;  // producer + 2 consumers
 constexpr int kABytes = kBM * kBK;
 constexpr int kBBytes = kBN * kBK;
 constexpr int kStageBytes = kABytes + kBBytes;
+// a consumer's output staging: its part of a bf16 tile, or half of it in
+// 4-byte types
+constexpr int kOutBytes = kCM * kBN * 2;
+// a consumer's tile parameters (fp32): scale and bias of the tile's
+// columns, then sx of its rows
+constexpr int kParamFloats = 2 * kBN + kCM;
+// warps that read a stage, in all the CTAs its weight slices went to
+constexpr int kEmptyArrivals = (kPingPong ? 4 : 8) * kCluster;
 // 1024 bytes of slack to align the tiles for the 128-byte swizzle, the
-// ring, then a full and an empty barrier a stage
-constexpr int kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
+// ring, the staging, the parameters, then a full and an empty barrier a
+// stage
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kOutBytes +
+                      2 * 4 * kParamFloats + 16 * kStages;
 static_assert(kSmem <= 232448, "shared memory of one block");
 
-// d (64 x 256 int32, the wgmma accumulator layout) (+)= A (64 x 32 int8,
-// K-major, descriptor low word a) * B (32 x 256 int8, K-major, descriptor
+// d (64 x N int32, the wgmma accumulator layout) (+)= A (64 x 32 int8,
+// K-major, descriptor low word a) * B (32 x N int8, K-major, descriptor
 // low word b); scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_s8_n256(uint32_t (&d)[128], uint32_t a,
-                                              uint32_t b, int scale_d) {
+template <int N>
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[N / 2], uint32_t a,
+                                         uint32_t b, int scale_d);
+
+// one of the two widths is unused in each build
+#pragma nv_diag_suppress 177
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(uint32_t (&d)[128], uint32_t a,
+                                            uint32_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 da, db;\n"
       "setp.ne.b32 p, %131, 0;\n"
@@ -218,153 +289,356 @@ __device__ __forceinline__ void wgmma_s8_n256(uint32_t (&d)[128], uint32_t a,
       : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
 }
 
-template <int N>
-__device__ __forceinline__ void fence_acc(uint32_t (&r)[N]) {
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(uint32_t (&d)[64], uint32_t a,
+                                            uint32_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "mov.b64 da, {%64, %66};\n"
+      "mov.b64 db, {%65, %66};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
+}
+
+#pragma nv_diag_default 177
+
+template <int F, int N>
+__device__ __forceinline__ void fence_acc(uint32_t (&r)[F][N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// Stores of two adjacent output columns (n, n + 1) of one row.
-__device__ __forceinline__ void store2(float* out, float v0, float v1,
-                                       const float* bias, int n) {
-  if (bias != nullptr) {
-    v0 = __fadd_rn(v0, bias[n]);
-    v1 = __fadd_rn(v1, bias[n + 1]);
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[f][i])::"memory");
   }
-  *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* out, float v0, float v1,
-                                       const __nv_bfloat16* bias, int n) {
-  __nv_bfloat16 y0 = __float2bfloat16_rn(v0);
-  __nv_bfloat16 y1 = __float2bfloat16_rn(v1);
-  if (bias != nullptr) {
-    // the bias is added to the rounded output, in bf16 (one rounding)
-    y0 = __float2bfloat16_rn(
-        __fadd_rn(__bfloat162float(y0), __bfloat162float(bias[n])));
-    y1 = __float2bfloat16_rn(
-        __fadd_rn(__bfloat162float(y1), __bfloat162float(bias[n + 1])));
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(int32_t) { return 0.f; }
+
+// The output tile (mt, nt) of CTA `rank` of a cluster for the cluster's
+// linear work index u. A cluster's unit of work is kCluster neighbouring
+// m-tiles of one n-tile; the order walks groups of kGroupM m-tiles (the last
+// group may be shorter) and, inside a group, the m-tiles fastest: the
+// clusters that run at one time share the weight's n-tiles and a few
+// activation m-tiles in L2. mt may be past the last m-tile (an odd count's
+// last cluster): that CTA reads zeros and stores nothing. `tile_coords` and
+// `tile_schedule` of `ops/cuda/int8_gemm.py` are the same order.
+__device__ __forceinline__ void tile_coords(int u, int units_m, int tiles_n,
+                                            int rank, int& mt, int& nt) {
+  constexpr int kGroup = kGroupM / kCluster;  // units along M a group
+  const int per_group = kGroup * tiles_n;
+  const int group = u / per_group;
+  const int first = group * kGroup;
+  const int size = min(units_m - first, kGroup);
+  const int r = u - group * per_group;
+  mt = (first + r % size) * kCluster + rank;
+  nt = r / size;
+}
+
+// Release stage barrier `bar` (an empty barrier) in every CTA whose stage
+// holds this CTA's weight slice: each waits for all the readers.
+__device__ __forceinline__ void release_stage(uint32_t bar) {
+  if constexpr (kCluster == 1) {
+    mbar_arrive(bar);
+  } else {
+#pragma unroll
+    for (int cta = 0; cta < kCluster; ++cta) mbar_arrive_cluster(bar, cta);
   }
-  __nv_bfloat162 pair;
-  pair.x = y0;
-  pair.y = y1;
-  *reinterpret_cast<__nv_bfloat162*>(out) = pair;
 }
 
-// OutT: float or __nv_bfloat16 (dequantized output, bias of the same type)
-// or int32_t (the accumulators; sx, scale and bias unused).
+// OutT: __nv_bfloat16 (the serving path), float, or int32_t (the
+// accumulators; sx, scale and bias unused); bias, if not null, is of type
+// OutT. Each consumer stages its part of the tile in kOutBytes of shared
+// memory, as boxes of 128 bytes (64 bf16 or 32 4-byte columns) by kCM
+// rows with the 128-byte swizzle, and one thread TMA stores them; 4-byte
+// outputs go out in two passes of half the columns each.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __grid_constant__ CUtensorMap b_map,
+                     const __grid_constant__ CUtensorMap out_map,
                      const float* __restrict__ sx,
                      const float* __restrict__ scale,
                      const OutT* __restrict__ bias, OutT* __restrict__ out,
                      int M, int N, int K) {
+  constexpr bool kInt32 = std::is_same_v<OutT, int32_t>;
+  constexpr bool kBf16 = std::is_same_v<OutT, __nv_bfloat16>;
+  constexpr int kElem = sizeof(OutT);
+  constexpr int kPasses = kElem / 2;          // staging passes a tile
+  constexpr int kPassCols = kBN / kPasses;    // columns a pass
+  constexpr int kBoxCols = 128 / kElem;       // columns a 128-byte box
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t sA = (smem_u32(smem_raw) + 1023u) & ~1023u;  // kStages tiles
-  const uint32_t sB = sA + kStages * kABytes;                 // kStages tiles
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sA = (raw + 1023u) & ~1023u;   // kStages A tiles
+  const uint32_t sB = sA + kStages * kABytes;   // kStages B tiles
+  const uint32_t sOut = sB + kStages * kBBytes;  // two consumers' staging
+  const uint32_t sPar = sOut + 2 * kOutBytes;    // two consumers' parameters
   // per stage s: full at bars + 16 s, empty at bars + 16 s + 8
-  const uint32_t bars = sB + kStages * kBBytes;
+  const uint32_t bars = sPar + 2 * 4 * kParamFloats;
 
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int units_m = (M + kBM * kCluster - 1) / (kBM * kCluster);
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int units = units_m * tiles_n;  // the clusters' units of work
+  const int cluster = blockIdx.x / kCluster;
+  const int clusters = gridDim.x / kCluster;
+  const int rank = kCluster == 1 ? 0 : static_cast<int>(cluster_ctarank());
+  const int n_k = (K + kBK - 1) / kBK;
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
-  const int n_tiles = (K + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
     prefetch_tensor_map(&a_map);
     prefetch_tensor_map(&b_map);
+    prefetch_tensor_map(&out_map);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(bars + 16 * s, 1);      // full: the producer's expect_tx
-      mbar_init(bars + 16 * s + 8, 8);  // empty: each consumer warp
+      mbar_init(bars + 16 * s, 1);  // full: the producer's expect_tx
+      mbar_init(bars + 16 * s + 8, kEmptyArrivals);  // empty: reader warps
     }
     fence_barrier_init();
   }
   __syncthreads();
+  // the peer's barriers are initialised before any multicast or remote
+  // arrive reaches them
+  if constexpr (kCluster > 1) cluster_sync();
 
   if (wg == 0) {
-    // ---- producer: one thread keeps the TMA loads in flight ----
+    // ---- producer: one thread walks the block's tiles and their k-tiles
+    // through one ring. Its stage and phase run on across tiles, so the
+    // next tile's loads start while the consumers finish this one. A stage
+    // holds this CTA's activation rows and the whole weight tile, a slice
+    // from each CTA of the cluster. ----
     if (threadIdx.x == 0) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        // a stage's first use waits for nothing (the phase before 0)
-        const uint32_t parity = ((t / kStages) & 1) ^ 1;
-        mbar_wait(bars + 16 * s + 8, parity);
-        mbar_expect_tx(bars + 16 * s, kStageBytes);
-        tma_load_3d(sA + s * kABytes, &a_map, bars + 16 * s, t * kBK, m0, 0);
-        tma_load_3d(sB + s * kBBytes, &b_map, bars + 16 * s, t * kBK, n0, 0);
+      int g = 0;  // k-tiles loaded so far by this block
+      for (int u = cluster; u < units; u += clusters) {
+        int mt, nt;
+        tile_coords(u, units_m, tiles_n, rank, mt, nt);
+        for (int kt = 0; kt < n_k; ++kt, ++g) {
+          const int s = g % kStages;
+          // a stage's first use waits for nothing (the phase before 0)
+          mbar_wait(bars + 16 * s + 8, ((g / kStages) & 1) ^ 1);
+          mbar_expect_tx(bars + 16 * s, kStageBytes);
+          tma_load_3d(sA + s * kABytes, &a_map, bars + 16 * s, kt * kBK,
+                      mt * kBM, 0);
+          const uint32_t b_dst = sB + s * kBBytes + rank * kBSlice * kBK;
+          if constexpr (kCluster == 1) {
+            tma_load_3d(b_dst, &b_map, bars + 16 * s, kt * kBK, nt * kBN, 0);
+          } else {
+            tma_load_3d_multicast(b_dst, &b_map, bars + 16 * s, kt * kBK,
+                                  nt * kBN + rank * kBSlice, 0,
+                                  (1u << kCluster) - 1);
+          }
+        }
       }
     }
+    // no CTA of the cluster leaves while another may still arrive on its
+    // barriers
+    if constexpr (kCluster > 1) cluster_sync();
     return;
   }
 
-  // ---- consumers: 64 output rows each ----
-  const int cw = wg - 1;
+  // ---- consumers ----
+  const int c = wg - 1;
   const int tw = threadIdx.x - wg * kWgThreads;
   const int warp = tw >> 5;
   const int lane = tw & 31;
   const int g = lane >> 2;   // accumulator row group
   const int tig = lane & 3;  // thread in group
+  // par[0, kBN): scale of the tile's columns; par[kBN, 2 kBN): bias;
+  // par[2 kBN, 2 kBN + kCM): sx of the consumer's rows
+  float* par = reinterpret_cast<float*>(smem_raw + (sPar - raw)) +
+               c * kParamFloats;
+  const uint32_t staging = sOut + c * kOutBytes;
+  constexpr int kCols = kBN / kWgThreads;  // columns' parameters a thread loads
 
-  // acc[4j + 2i + e] is row 16 * warp + g + 8i, column 8j + 2 tig + e
-  uint32_t acc[kBN / 2];
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0u;
+  // acc[f][4j + 2i + e] is row 64 f + 16 warp + g + 8i, column 8j + 2 tig
+  // + e of the consumer's part of the tile
+  uint32_t acc[kFrags][kBN / 2];
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    const uint32_t a_desc = desc_lo(sA + s * kABytes + cw * 64 * kBK, 16);
-    const uint32_t b_desc = desc_lo(sB + s * kBBytes, 16);
-    mbar_wait(bars + 16 * s, (t / kStages) & 1);
-    fence_acc(acc);
-    wgmma_fence();
+  // The block's i-th tile is its part of the cluster's unit cluster + i
+  // clusters; the cooperative consumers take every tile (64 rows each), the
+  // ping-pong consumers every other one (all 128 rows), and its k-tiles
+  // are the ring's [i n_k, (i + 1) n_k).
+  for (int i = kPingPong ? c : 0; cluster + i * clusters < units;
+       i += kPingPong ? 2 : 1) {
+    int mt, nt;
+    tile_coords(cluster + i * clusters, units_m, tiles_n, rank, mt, nt);
+    const int m0 = mt * kBM + (kPingPong ? 0 : c * kCM);  // consumer's rows
+    const int n0 = nt * kBN;
+    // The tile's parameters are loaded now and stored to shared memory for
+    // the epilogue after the mainloop, so that their latency is hidden.
+    float p_scale[kCols], p_bias[kCols], p_sx = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk)
-      wgmma_s8_n256(acc, a_desc + ((kk * 32) >> 4), b_desc + ((kk * 32) >> 4),
-                    t > 0 || kk > 0);
-    wgmma_commit();
-    // the previous tile's group has completed: release its stage
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (t > 0 && lane == 0) mbar_arrive(bars + 16 * ((t - 1) % kStages) + 8);
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-
-  const int row0 = m0 + cw * 64 + warp * 16 + g;
-  float row_scale[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    row_scale[i] = 0.f;
-    if constexpr (!std::is_same_v<OutT, int32_t>) {
-      if (row < M) row_scale[i] = sx[row];
+    for (int e = 0; e < kCols; ++e) {
+      const int col = n0 + tw * kCols + e;
+      p_scale[e] = !kInt32 && col < N ? scale[col] : 0.f;
+      p_bias[e] = !kInt32 && bias != nullptr && col < N ? to_float(bias[col])
+                                                        : 0.f;
     }
-  }
+    if (!kInt32 && tw < kCM && m0 + tw < M) p_sx = sx[m0 + tw];
+
+    if constexpr (kPingPong) {
+      // The mainloops take turns: the other consumer's tile before this
+      // one has waited for all its stages (so every phase before this
+      // tile's has completed and the parity waits cannot alias) and has
+      // issued all its products.
+      if (i > 0) named_barrier_sync(4 - c, 2 * kWgThreads);
+    }
+    const int g0 = i * n_k;
+    const uint32_t a_rows = sA + (kPingPong ? 0 : c * 64 * kBK);
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int gk = g0 + kt;
+      const int s = gk % kStages;
+      const uint32_t a_desc = desc_lo(a_rows + s * kABytes, 16);
+      const uint32_t b_desc = desc_lo(sB + s * kBBytes, 16);
+      mbar_wait(bars + 16 * s, (gk / kStages) & 1);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * tig;
-    if (n >= N) continue;  // N % 8 == 0: n + 1 < N where n < N
+      for (int kk = 0; kk < kBK / 32; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + 8 * i;
-      if (row >= M) continue;
-      OutT* dst = out + static_cast<size_t>(row) * N + n;
-      const int a0 = static_cast<int>(acc[4 * j + 2 * i]);
-      const int a1 = static_cast<int>(acc[4 * j + 2 * i + 1]);
-      if constexpr (std::is_same_v<OutT, int32_t>) {
-        *reinterpret_cast<int2*>(dst) = make_int2(a0, a1);
-      } else {
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(a0), row_scale[i]),
-                                   scale[n]);
-        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(a1), row_scale[i]),
-                                   scale[n + 1]);
-        store2(dst, v0, v1, bias, n);
+        for (int f = 0; f < kFrags; ++f)
+          wgmma_s8<kBN>(acc[f], a_desc + ((f * 64 * kBK + kk * 32) >> 4),
+                        b_desc + ((kk * 32) >> 4), kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      // the previous k-tile's group has completed: release its stage
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (kt > 0 && lane == 0)
+        release_stage(bars + 16 * ((gk - 1) % kStages) + 8);
+    }
+    if constexpr (kPingPong) {
+      if (cluster + (i + 1) * clusters < units)
+        named_barrier_arrive(3 + c, 2 * kWgThreads);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) release_stage(bars + 16 * ((g0 + n_k - 1) % kStages) + 8);
+
+    // ---- epilogue ----
+    // the last tile's stores have read the staging, and every thread is
+    // done with the last tile's parameters
+    if (tw == 0) bulk_wait_read<0>();
+    named_barrier_sync(1 + c, kWgThreads);
+    if constexpr (!kInt32) {
+#pragma unroll
+      for (int e = 0; e < kCols; ++e) {
+        par[tw * kCols + e] = p_scale[e];
+        par[kBN + tw * kCols + e] = p_bias[e];
+      }
+      if (tw < kCM) par[2 * kBN + tw] = p_sx;
+      named_barrier_sync(1 + c, kWgThreads);
+    }
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      if (pass > 0) {  // the first pass's stores have read the staging
+        if (tw == 0) bulk_wait_read<0>();
+        named_barrier_sync(1 + c, kWgThreads);
+      }
+#pragma unroll
+      for (int f = 0; f < kFrags; ++f) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = f * 64 + warp * 16 + g + 8 * h;  // row in the part
+          const float rs = kInt32 ? 0.f : par[2 * kBN + r];
+#pragma unroll
+          for (int jj = 0; jj < kPassCols / 8; ++jj) {
+            const int j = pass * (kPassCols / 8) + jj;
+            const int col = 8 * j + 2 * tig;  // column in the tile
+            const int a0 = static_cast<int>(acc[f][4 * j + 2 * h]);
+            const int a1 = static_cast<int>(acc[f][4 * j + 2 * h + 1]);
+            // byte of the pair in the pass's row: its box, and its 16-byte
+            // chunk swizzled with r % 8 (= g)
+            const int byte = (8 * jj + 2 * tig) * kElem;
+            const uint32_t addr = staging + (byte / 128) * (kCM * 128) +
+                                  r * 128 +
+                                  ((((byte % 128) / 16) ^ (r % 8)) << 4) +
+                                  byte % 16;
+            if constexpr (kInt32) {
+              st_shared(addr, make_uint2(a0, a1));
+            } else {
+              const float2 sc = *reinterpret_cast<const float2*>(par + col);
+              const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(a0), rs), sc.x);
+              const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(a1), rs), sc.y);
+              const float2 bi =
+                  *reinterpret_cast<const float2*>(par + kBN + col);
+              if constexpr (kBf16) {
+                // both columns rounded to bf16 by one instruction (each
+                // round to nearest even, as two conversions would)
+                __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
+                if (bias != nullptr) {
+                  // the bias is added to the rounded output, in bf16 (one
+                  // rounding)
+                  const float2 yf = __bfloat1622float2(y);
+                  y = __floats2bfloat162_rn(__fadd_rn(yf.x, bi.x),
+                                            __fadd_rn(yf.y, bi.y));
+                }
+                st_shared(addr, *reinterpret_cast<const uint32_t*>(&y));
+              } else {
+                st_shared(addr, bias != nullptr
+                                    ? make_uint2(__float_as_uint(__fadd_rn(v0, bi.x)),
+                                                 __float_as_uint(__fadd_rn(v1, bi.y)))
+                                    : make_uint2(__float_as_uint(v0),
+                                                 __float_as_uint(v1)));
+              }
+            }
+          }
+        }
+      }
+      // the staging is written: one thread stores it, box by box; rows and
+      // columns past the matrix are not written
+      fence_proxy_async();
+      named_barrier_sync(1 + c, kWgThreads);
+      if (tw == 0 && m0 < M) {
+#pragma unroll
+        for (int b = 0; b < kPassCols / kBoxCols; ++b)
+          tma_store_3d(&out_map, staging + b * (kCM * 128),
+                       n0 + pass * kPassCols + b * kBoxCols, m0, 0);
+        bulk_commit();
       }
     }
   }
+  if (tw == 0) bulk_wait<0>();
+  if constexpr (kCluster > 1) cluster_sync();
 }
 
 // A 3-D map over a contiguous int8 matrix (rows, cols), read in boxes of
@@ -384,20 +658,59 @@ bool encode_i8_rows(CUtensorMap* map, const void* base, uint64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 3-D map over the (rows, cols) output of type OutT, written in boxes of
+// a consumer's rows by 128 bytes of columns with the 128-byte swizzle.
+template <typename OutT>
+bool encode_out_rows(CUtensorMap* map, void* base, uint64_t rows,
+                     uint64_t cols) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const CUtensorMapDataType type =
+      std::is_same_v<OutT, float>     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same_v<OutT, int32_t> ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t dims[3] = {cols, rows, 1};
+  const cuuint64_t strides[2] = {cols * sizeof(OutT),
+                                 rows * cols * sizeof(OutT)};  // bytes
+  const cuuint32_t box[3] = {128 / sizeof(OutT), kCM, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, type, 3, base, dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename OutT>
 int launch_gemm(const void* x8, const float* sx, const void* w8,
                 const float* scale, const void* bias, void* out, int M, int N,
-                int K, cudaStream_t stream) {
-  CUtensorMap a_map, b_map;
+                int K, int num_sms, cudaStream_t stream) {
+  CUtensorMap a_map, b_map, out_map;
   if (!encode_i8_rows(&a_map, x8, M, K, kBM) ||
-      !encode_i8_rows(&b_map, w8, N, K, kBN))
+      !encode_i8_rows(&b_map, w8, N, K, kBSlice))
     return kErrTensorMap;
+  if (!encode_out_rows<OutT>(&out_map, out, M, N)) return kErrTensorMap;
   const cudaError_t err = allow_smem(int8_gemm_kernel<OutT>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  int8_gemm_kernel<OutT><<<grid, kThreads, kSmem, stream>>>(
-      a_map, b_map, sx, scale, static_cast<const OutT*>(bias),
-      static_cast<OutT*>(out), M, N, K);
+  // persistent: one cluster for each of min(units, SMs / kCluster) units
+  const int units =
+      ((M + kBM * kCluster - 1) / (kBM * kCluster)) * ((N + kBN - 1) / kBN);
+  const int fit = num_sms / kCluster > 1 ? num_sms / kCluster : 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((units < fit ? units : fit) * kCluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster_dim;
+  cluster_dim.id = cudaLaunchAttributeClusterDimension;
+  cluster_dim.val.clusterDim.x = kCluster;
+  cluster_dim.val.clusterDim.y = 1;
+  cluster_dim.val.clusterDim.z = 1;
+  config.attrs = &cluster_dim;
+  config.numAttrs = kCluster > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, int8_gemm_kernel<OutT>, a_map, b_map, out_map, sx, scale,
+      static_cast<const OutT*>(bias), static_cast<OutT*>(out), M, N, K);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,15 +733,19 @@ extern "C" int quantize_rows(const void* x, void* x8, float* sx, int M, int K,
 extern "C" int int8_gemm_dequant(const void* x8, const float* sx,
                                  const void* w8, const float* scale,
                                  const void* bias, void* out, int M, int N,
-                                 int K, int out_dtype, void* stream) {
-  if (!aligned16(x8) || !aligned16(w8)) return kErrAlignment;
+                                 int K, int out_dtype, int num_sms,
+                                 void* stream) {
+  if (!aligned16(x8) || !aligned16(w8) || !aligned16(out)) return kErrAlignment;
+  if (num_sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
-    return launch_gemm<float>(x8, sx, w8, scale, bias, out, M, N, K, st);
+    return launch_gemm<float>(x8, sx, w8, scale, bias, out, M, N, K, num_sms,
+                              st);
   if (out_dtype == 1)
     return launch_gemm<__nv_bfloat16>(x8, sx, w8, scale, bias, out, M, N, K,
-                                      st);
+                                      num_sms, st);
   if (out_dtype == 2)
-    return launch_gemm<int32_t>(x8, sx, w8, scale, bias, out, M, N, K, st);
+    return launch_gemm<int32_t>(x8, sx, w8, scale, bias, out, M, N, K,
+                                num_sms, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ from f_lite_tpu_torch.ops.cuda import flash_variants as tfv
 from f_lite_tpu_torch.ops.cuda import int8_gemm as tig
 from f_lite_tpu_torch.pipeline import FLitePipeline
 from f_lite_tpu_torch.quant import quantize_weight
+from f_lite_tpu_torch.tools import int8_tiles
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 from f_lite_tpu_torch.train.optim import build_optimizer
 from f_lite_tpu_torch.train.step import TrainState, train_step
@@ -498,10 +499,11 @@ def test_fixture_pipeline_on_the_card_matches_the_cpu(cuda_device):
 
 
 # (N, K) of the int8 paths' projections: the 7B's qkv, proj and q, gate and
-# up, down, context_kv; the fixture's
+# up, down, context_kv; the fixture's; then one n-tile of the persistent
+# product kernel at the K of its grid-edge checks (not multiples of 128)
 INT8_NK = [(7680, 2560), (2560, 2560), (10240, 2560), (2560, 10240),
            (5120, 2560), (768, 256), (256, 256), (1024, 256), (256, 1024),
-           (512, 256)]
+           (512, 256)] + [(tig.BLOCK_N, k) for k in int8_tiles.EDGE_K]
 # one row, a ragged 17, and the 7B's CFG batch of 2 x 4112 tokens
 INT8_M = [1, 17, 8224]
 
@@ -524,10 +526,14 @@ def _int8_weight(n, k, seed):
 def test_int8_kernels_match_plain_bit_for_bit(cuda_device, dtype, n, k):
     """x8 and sx, the int32 accumulators and the dequantized output (with
     and without bias) equal the plain versions' bits, at M = 1, 17, 8224,
-    with a zero activation row; each call launches its kernel once."""
+    with a zero activation row; each call launches its kernel once. At the
+    grid-edge K, also at the M values that give the card's SMs - 1, SMs and
+    SMs + 1 m-tiles and a partial last round (`int8_tiles.grid_edge_ms`)."""
     w8, scale, bias = _int8_weight(n, k, seed=n + k)
     g = torch.Generator("cuda").manual_seed(k)
-    for m in INT8_M:
+    edges = (int8_tiles.grid_edge_ms(tig.num_sms(0))
+             if (n, k) in INT8_NK[-len(int8_tiles.EDGE_K):] else [])
+    for m in INT8_M + edges:
         x = (torch.randn((m, k), generator=g, device="cuda") * 3).to(dtype)
         if m > 1:
             x[m // 2] = 0.0

@@ -50,7 +50,8 @@ TRAINING_MODULES = (
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
-               "f_lite_tpu_torch.tools.backward_tiles")
+               "f_lite_tpu_torch.tools.backward_tiles",
+               "f_lite_tpu_torch.tools.int8_tiles")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -110,7 +111,7 @@ def test_lab_raises_without_a_card():
     assert "no CUDA device" in out.stderr, out.stderr
 
 
-@pytest.mark.parametrize("tool", ["forward_tiles", "backward_tiles"])
+@pytest.mark.parametrize("tool", ["forward_tiles", "backward_tiles", "int8_tiles"])
 def test_tile_trials_raise_without_a_card(tool):
     _skip_on_a_cuda_host()
     out = subprocess.run([sys.executable, "-m", f"f_lite_tpu_torch.tools.{tool}"],

@@ -13,7 +13,11 @@ Inputs come from numpy seeds and go to both. Bars:
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
+import hypothesis
+import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -372,3 +376,89 @@ def test_int8_dit_turns_tiny_input_changes_into_rounding_flips():
     print(f"int8 moved {moved[True]}, fp32 moved {moved[False]}, noise {noise}")
     assert moved[False] < 1e-12
     assert moved[True] > 0.1 * noise
+
+
+# ---------------------------------------------------------------------------
+# the persistent product kernel's tile order (`int8_gemm.tile_schedule`)
+# ---------------------------------------------------------------------------
+
+def _assert_schedule_covers_the_grid(m, n, num_sms, block_n, cluster_m):
+    """Every (m-tile, n-tile) exactly once and nothing outside the grid; no
+    more blocks than SMs (or than one cluster), in whole clusters; the
+    clusters' units of work differ in number by at most one."""
+    tiles_m, tiles_n = -(-m // 128), -(-n // block_n)
+    schedule = int8_gemm.tile_schedule(m, n, num_sms, block_n=block_n,
+                                       cluster_m=cluster_m)
+    assert len(schedule) % cluster_m == 0
+    assert len(schedule) <= max(num_sms, cluster_m)
+    assert sorted(t for block in schedule for t in block) == [
+        (i, j) for i in range(tiles_m) for j in range(tiles_n)]
+    units = [len(block) for block in schedule[::cluster_m]]  # rank 0 of each
+    assert max(units) - min(units) <= 1
+    if num_sms >= cluster_m * tiles_n * -(-tiles_m // cluster_m):
+        assert max(units) == 1  # fewer units than the SMs take: one each
+
+
+@pytest.mark.parametrize("block_n,cluster_m", [(128, 1), (256, 1), (128, 2), (256, 2)])
+@hypothesis.settings(max_examples=150, deadline=None)
+@hypothesis.given(m=st.integers(1, 50000), n=st.integers(1, 1280).map(lambda v: 8 * v),
+                  num_sms=st.integers(1, 132))
+@hypothesis.example(m=128 * 131, n=256, num_sms=132)      # SMs - 1 tiles
+@hypothesis.example(m=128 * 132 - 5, n=256, num_sms=132)  # SMs tiles, ragged rows
+@hypothesis.example(m=128 * 132 + 1, n=256, num_sms=132)  # SMs + 1
+@hypothesis.example(m=1000, n=1024, num_sms=132)          # fewer tiles than SMs
+@hypothesis.example(m=49920, n=10240, num_sms=132)
+def test_tile_schedule_covers_every_tile_once(block_n, cluster_m, m, n, num_sms):
+    _assert_schedule_covers_the_grid(m, n, num_sms, block_n, cluster_m)
+
+
+@pytest.mark.parametrize("tiles_m,tiles_n,group_m", [
+    (65, 30, 8), (391, 4, 8), (2, 20, 8), (13, 7, 4), (9, 1, 8), (33, 30, 4)])
+def test_tile_order_walks_groups_of_m_tiles(tiles_m, tiles_n, group_m):
+    """Inside a group the m-units vary fastest over the group's rows and
+    the n-tile stays; groups follow each other; the last may be short."""
+    order = [int8_gemm.tile_coords(t, tiles_m, tiles_n, group_m)
+             for t in range(tiles_m * tiles_n)]
+    t = 0
+    for first in range(0, tiles_m, group_m):
+        size = min(group_m, tiles_m - first)
+        for nt in range(tiles_n):
+            assert order[t:t + size] == [(first + i, nt) for i in range(size)]
+            t += size
+    assert t == len(order)
+
+
+def test_tile_schedule_matches_the_kernel_defaults():
+    """BLOCK_M, BLOCK_N, GROUP_M and CLUSTER_M are the kernel's kBM, kBN,
+    kGroupM and kCluster at the source's defaults, which the tile trial's
+    SHIPPED candidate names."""
+    from f_lite_tpu_torch.tools import int8_tiles
+
+    src = (Path(int8_gemm.__file__).resolve().parents[2] / "csrc" / "int8_gemm.cu").read_text()
+    defaults = dict(re.findall(r"#define (INT8_GEMM_\w+) (.+)\n", src))
+    pingpong = int(defaults["INT8_GEMM_PINGPONG"])
+    assert int8_gemm.BLOCK_M == 128 and "constexpr int kBM = 128;" in src
+    assert int8_gemm.BLOCK_N == (128 if pingpong else 256)
+    assert int8_gemm.GROUP_M == int(defaults["INT8_GEMM_GROUP_M"])
+    assert int8_gemm.CLUSTER_M == int(defaults["INT8_GEMM_CLUSTER"])
+    shipped = dict(d.split("=") for d in int8_tiles.CANDIDATES[int8_tiles.SHIPPED])
+    assert int(shipped["INT8_GEMM_PINGPONG"]) == pingpong
+    assert int(shipped["INT8_GEMM_CLUSTER"]) == int8_gemm.CLUSTER_M
+    assert int(shipped["INT8_GEMM_GROUP_M"]) == int8_gemm.GROUP_M
+    assert defaults["INT8_GEMM_STAGES"] == "(INT8_GEMM_PINGPONG ? 4 : 3)"
+    assert int(shipped["INT8_GEMM_STAGES"]) == (4 if pingpong else 3)
+
+
+@pytest.mark.parametrize("a,b", [(11.6, 0.71), (2.0, 0.6), (0.5, 0.9)])
+def test_k_sweep_fit_recovers_the_costs(a, b):
+    """`fit_k_sweep` returns the fixed cost a tile and the cost a k-tile
+    of times made from them (15 waves of 128 x 256 tiles at M 8224, N 7680
+    on 132 SMs)."""
+    from f_lite_tpu_torch.tools.int8_tiles import K_SWEEP, fit_k_sweep
+
+    points = [(k, 15 * (a + b * -(-k // 128)) / 1e3) for k in K_SWEEP]
+    fit = fit_k_sweep(points, 8224, 7680, 132)
+    assert fit["waves"] == 15
+    assert abs(fit["fixed_us_per_tile"] - a) < 1e-9
+    assert abs(fit["us_per_k_tile"] - b) < 1e-9
+    assert fit["max_rel_residual"] < 1e-9
