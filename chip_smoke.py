@@ -46,15 +46,16 @@ Phases (any failed check raises and the run exits non-zero):
    persistent int8 product with its dequant epilogue) against their plain
    versions, bit for bit, at every projection shape of the 7B's and the
    fixture's int8 paths and at the product's grid edges (SMs - 1, SMs,
-   SMs + 1 m-tiles and a partial last round at K 144 and 2576,
+   SMs + 1 m-tiles and a partial last round at K 144, 2576 and 5136,
    `int8_tiles.edge_shapes`) (bf16 and fp32 input, with and without bias,
    the int32 accumulators too); the path shapes timed beside the plain
    versions, `torch._int_mm` plus the dequant (a yardstick the port never
    calls), bf16 `F.linear` at the same shape (what int8 replaces) and the
-   bound; the product's fixed cost a 128 x 256 tile and cost a k-tile,
-   fitted to its times at M 8224, N 7680 and K 1024, 2560, 10240
-   (`int8_tiles.fit_k_sweep`); ptxas' lines of both kernels, none of
-   which may spill or have its wgmma serialised;
+   bound; for each of the product's two designs its fixed cost a tile and
+   cost a k-tile, fitted with their residual to its times at M 8224, N 7680
+   and three K at which the wrapper picks it (`int8_tiles.fit_k_sweep`);
+   ptxas' lines of both kernels, none of which may spill or have its wgmma
+   serialised;
 7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
@@ -722,29 +723,40 @@ def library_int8_ms(x8, sx, w8, scale, out_dtype):
         return None, None
 
 
-def int8_k_fit(ks=(1024, 2560, 10240), m=8224, n=7680) -> dict:
-    """The product kernel's fixed cost a 128 x 256 tile and cost a k-tile
-    (`int8_tiles.fit_k_sweep`), fitted to its times through the wrapper at
-    (m, n) and each K of `ks` (where the tiles, not the output's bytes, set
-    the time), random int8 operands."""
+# K of the in-script fit of each of the product's designs: three at which
+# the wrapper picks it (`int8_gemm.gemm_design`)
+INT8_FIT_K = {"pingpong": (1024, 2048, 3072), "cooperative": (4096, 6144, 10240)}
+
+
+def int8_k_fit(m=8224, n=7680) -> dict:
+    """{design: fit}: each design's fixed cost a tile and cost a k-tile in
+    its own tiles, with the fit's residual (`int8_tiles.fit_k_sweep`),
+    fitted to its times through the wrapper at (m, n) and each K of
+    INT8_FIT_K (where the tiles, not the output's bytes, set the time),
+    random int8 operands."""
     import torch
 
     from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
-    from f_lite_tpu_torch.tools.int8_tiles import fit_k_sweep
+    from f_lite_tpu_torch.tools.int8_tiles import DESIGNS, fit_k_sweep
 
     gen = torch.Generator("cuda").manual_seed(16)
-    points = []
-    for k in ks:
-        x8, w8 = (torch.randint(-127, 128, (rows, k), generator=gen, device="cuda",
-                                dtype=torch.int8) for rows in (m, n))
-        sx = torch.rand((m,), generator=gen, device="cuda") + 0.5
-        scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3
-        points.append((k, time_ms(lambda: ig.int8_gemm_dequant(x8, sx, w8, scale))))
-        del x8, w8
-    fit = dict(fit_k_sweep(points, m, n, ig.num_sms(0)), m=m, n=n,
-               ms_by_k={k: ms for k, ms in points})
-    log("int8_k_fit", json.dumps(fit))
-    return fit
+    fits = {}
+    for design, ks in INT8_FIT_K.items():
+        points = []
+        for k in ks:
+            if ig.gemm_design(k) != DESIGNS[design]:
+                raise AssertionError(f"int8 fit: the wrapper does not pick {design} at K {k}")
+            x8, w8 = (torch.randint(-127, 128, (rows, k), generator=gen, device="cuda",
+                                    dtype=torch.int8) for rows in (m, n))
+            sx = torch.rand((m,), generator=gen, device="cuda") + 0.5
+            scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+            points.append((k, time_ms(lambda: ig.int8_gemm_dequant(x8, sx, w8, scale))))
+            del x8, w8
+        fits[design] = dict(fit_k_sweep(points, m, n, ig.num_sms(0),
+                                        ig.BLOCK_N[DESIGNS[design]]),
+                            m=m, n=n, ms_by_k={k: ms for k, ms in points})
+        log("int8_k_fit", json.dumps(dict(design=design, **fits[design])))
+    return fits
 
 
 def check_int8() -> tuple[list[dict], list[dict], dict]:
@@ -761,7 +773,7 @@ def check_int8() -> tuple[list[dict], list[dict], dict]:
 
     from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
     from f_lite_tpu_torch.quant import quantize_weight
-    from f_lite_tpu_torch.tools.int8_tiles import edge_shapes
+    from f_lite_tpu_torch.tools.int8_tiles import DESIGNS, edge_shapes
 
     ptxas_check(("int8_gemm",), ("int8_gemm_kernel", "quantize_rows_kernel"), "int8")
     rows, edge_rows = [], []
@@ -812,6 +824,7 @@ def check_int8() -> tuple[list[dict], list[dict], dict]:
             shape=label, m=m, n=n, k=k, max_abs_err=max_err,
             quantize_ms=time_ms(lambda: ig.quantize_rows(x)),
             quantize_plain_ms=time_ms(lambda: ig.quantize_rows_plain(x)),
+            gemm_design=next(d for d, code in DESIGNS.items() if code == ig.gemm_design(k)),
             gemm_ms=time_ms(lambda: ig.int8_gemm_dequant(x8, sx, w8, scale)),
             gemm_plain_ms=time_ms(lambda: ig.int8_linear_plain(x8, sx, w8, scale)),
             library_ms=lib_ms, int_mm_ms=int_mm_ms,
@@ -1713,8 +1726,11 @@ def main() -> int:
             **(dict(library_covers="torch._int_mm + the dequant as separate passes",
                     int_mm_ms=int8_main["int_mm_ms"],
                     bf16_linear_ms=int8_main["bf16_linear_ms"],
-                    fixed_us_per_tile=int8_fit["fixed_us_per_tile"],
-                    us_per_k_tile=int8_fit["us_per_k_tile"],
+                    # the fit of the design at 7b_qkv, in its own tiles
+                    fixed_us_per_tile=int8_fit["pingpong"]["fixed_us_per_tile"],
+                    fixed_us_residual=int8_fit["pingpong"]["max_abs_residual_us"],
+                    us_per_k_tile=int8_fit["pingpong"]["us_per_k_tile"],
+                    fit_tile=int8_fit["pingpong"]["tile"],
                     k_fit=int8_fit,
                     edge_shapes_checked=[r["shape"] for r in int8_edges])
                if key == "gemm" else {}),

@@ -41,33 +41,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// Arrive on the barrier at offset `bar` of the cluster's CTA `cta` (this
-// CTA's own included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
-// This CTA's rank in its cluster.
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// Every thread of every CTA of the cluster: what each wrote before (to
-// shared memory, barriers included) is visible to all after.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::
-          : "memory");
-}
-
 // Wait until the barrier's phase of parity `parity` has completed. The
 // whole loop is one asm block: written as a C++ loop around try_wait (with
 // a timeout and a trap), it left ptxas allocating the consumers as if they
@@ -98,23 +71,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
-      : "memory");
-}
-
-// tma_load_3d into every CTA of the cluster in `cta_mask`, each at the same
-// shared-memory offset `dst`, each counting the bytes on its own barrier at
-// offset `bar`.
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
-                                                      const CUtensorMap* map,
-                                                      uint32_t bar, int c0,
-                                                      int c1, int c2,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "h"(cta_mask)
       : "memory");
 }
 

@@ -30,40 +30,44 @@
 //   memory (the only layout 8-bit wgmma takes, which is why the weight
 //   stays in torch's (N, K) layout), four k-steps of 32 bytes a K tile,
 //   one group in flight while the next K tile's wait runs; a stage is
-//   released when the group that read it has completed. Ping-pong (the
-//   default): each consumer owns every other 128 x 128 tile (two
-//   m64n128k32 a k-step, 128 int32 accumulators a thread) and the two
-//   mainloops take turns (named barriers), so one consumer's epilogue runs
-//   under the other's products. Cooperative (a trial option): both
-//   consumers share a 128 x 256 tile, 64 rows each. The epilogue stages
-//   the dequantized tile in shared memory (swizzled, bank-conflict free)
-//   and one thread TMA stores it; scale, bias and sx are loaded once a
-//   tile, before the mainloop. Rows past M, columns past N and K past its
-//   end arrive as TMA's zeros; the stores clip. The epilogue converts with
-//   __int2float_rn and multiplies with __fmul_rn (no contraction into an
-//   FMA), so the result equals the plain version's bit for bit. A cluster
-//   of two CTAs that multicast the shared weight tile is a trial option
-//   too (INT8_GEMM_CLUSTER).
+//   released when the group that read it has completed. Two designs, both
+//   compiled; the wrapper picks one from K (`gemm_design`):
+//   - ping-pong (K below 4096): each consumer owns every other 128 x 128
+//     tile (two m64n128k32 a k-step, 128 int32 accumulators a thread) and
+//     the two mainloops take turns (named barriers), so one consumer's
+//     epilogue runs under the other's products; 4 stages of 32 KB;
+//   - cooperative (K from 4096): both consumers share a 128 x 256 tile, 64
+//     rows each (one m64n256k32 a k-step); 3 stages of 48 KB.
+//   The epilogue stages the dequantized tile in shared memory (swizzled,
+//   bank-conflict free) and one thread TMA stores it; scale, bias and sx
+//   are loaded once a tile, before the mainloop. Rows past M, columns past
+//   N and K past its end arrive as TMA's zeros; the stores clip. The
+//   epilogue converts with __int2float_rn and multiplies with __fmul_rn
+//   (no contraction into an FMA), so the result equals the plain
+//   version's bit for bit.
 //
-//   Why these choices (`tools/int8_tiles.py`, NVIDIA H100 80GB HBM3 at
-//   700 W, the design's raw launches in turns): the earlier kernel, one
-//   block a tile, paid 9.7 us a 128 x 256 tile beside 0.80 us a k-tile;
-//   this one pays 0.56 us beside 0.78 (fits over K >= 1024). The k-tile's cost is set by
-//   power: under these loops the card draws 700 W at 1425-1680 MHz, where
-//   a 1024-cycle k-tile takes 0.61-0.72 us. Halving the L2 bytes with the
-//   cluster made every shape 2-10% slower, so it is off. Ping-pong beats
-//   the cooperative tile at the three K 2560 shapes of the 7B (0.2346 /
-//   0.0854 / 0.3307 ms against 0.2395 / 0.0829 / 0.3614 at qkv / proj_q /
-//   gate_up) and every fixture shape, and loses at down_proj (0.3149
-//   against 0.2699). Shared memory: ping-pong takes 4 stages of 32 KB
-//   beside 64 KB of staging (5 do not fit the 227 KB); the cooperative
-//   tile 3 of 48 KB.
+//   Why these choices (`tools/int8_tiles.py --k-sweep`, NVIDIA H100 80GB
+//   HBM3 at 700 W, both designs in turns at M 8224, N 7680): ping-pong
+//   hides the epilogue, so it leads where tiles are short (0.2354 ms
+//   against the cooperative tile's 0.2514 at K 2560, 0.1107 against
+//   0.1294 at K 1024), but its k-tiles cost more (0.79 us for 128 x 256
+//   outputs against 0.69, fits over K >= 1024; it reads a third more L2
+//   and a fifth more shared-memory bytes a product): from K 5120 the
+//   cooperative tile leads (0.428 against 0.455 ms; 0.877 against 0.959
+//   at K 10240, and 0.2797 against 0.3145 at the 7B's down_proj). The
+//   times cross near K 3500, hence 4096. Shared memory:
+//   ping-pong's 4 stages of 32 KB beside 64 KB of staging fit the 227 KB
+//   of a block, 5 do not; the cooperative tile fits 3 stages of 48 KB
+//   beside the same staging. A cluster of two CTAs that multicast the
+//   weight tile (half the L2 bytes) was 2-10% slower with either design,
+//   and raster groups of 4 or 16 m-tiles no faster than 8.
 //
 // Entry points return cudaGetLastError() after the launch (0 on success)
 // or a kErr* code without launching. Dtype codes: 0 fp32, 1 bf16, 2 int32
 // (the gemm's output only). x, x8, w8 and the gemm's output must be
 // 16-byte aligned, K a multiple of 16 and N of 8 (the wrapper checks all
-// of it); the gemm takes the card's SM count, the persistent grid's size.
+// of it); the gemm takes the card's SM count, the persistent grid's size,
+// and the design (0 ping-pong, 1 cooperative).
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -165,57 +169,39 @@ int launch_quantize(const void* x, void* x8, float* sx, int M, int K,
 // int8_gemm: persistent, TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-// Build-time choices (the tile trial, `tools/int8_tiles.py`, builds each
-// candidate with -D; the package builds the defaults).
-#ifndef INT8_GEMM_PINGPONG
-#define INT8_GEMM_PINGPONG 1
-#endif
-#ifndef INT8_GEMM_STAGES
-#define INT8_GEMM_STAGES (INT8_GEMM_PINGPONG ? 4 : 3)
-#endif
-#ifndef INT8_GEMM_GROUP_M
-#define INT8_GEMM_GROUP_M 8
-#endif
-#ifndef INT8_GEMM_CLUSTER
-#define INT8_GEMM_CLUSTER 1
-#endif
-
-constexpr bool kPingPong = INT8_GEMM_PINGPONG != 0;
-constexpr int kBM = 128;                    // rows of an output tile
-constexpr int kBN = kPingPong ? 128 : 256;  // columns of an output tile
-constexpr int kBK = 128;       // int8 a K tile: one 128-byte swizzled row
-constexpr int kStages = INT8_GEMM_STAGES;   // ring depth
-constexpr int kGroupM = INT8_GEMM_GROUP_M;  // m-tiles a group of the raster
-// CTAs of a cluster: they take neighbouring m-tiles of one n-tile, and each
-// loads its share (kBSlice rows) of the weight tile for all of them with a
-// multicast TMA load
-constexpr int kCluster = INT8_GEMM_CLUSTER;
-static_assert(kCluster == 1 || kCluster == 2, "clusters of 1 or 2 CTAs");
-static_assert(kGroupM % kCluster == 0, "whole clusters in a raster group");
-constexpr int kBSlice = kBN / kCluster;
-// rows of a tile that one consumer computes: half of it (cooperative) or
-// all of it (ping-pong), in 64-row wgmma fragments
-constexpr int kCM = kPingPong ? kBM : kBM / 2;
-constexpr int kFrags = kCM / 64;
+constexpr int kBM = 128;     // rows of an output tile
+constexpr int kBK = 128;     // int8 a K tile: one 128-byte swizzled row
+constexpr int kGroupM = 8;   // m-tiles a group of the raster order
 constexpr int kWgThreads = 128;
 constexpr int kThreads = 3 * kWgThreads;  // producer + 2 consumers
 constexpr int kABytes = kBM * kBK;
-constexpr int kBBytes = kBN * kBK;
-constexpr int kStageBytes = kABytes + kBBytes;
-// a consumer's output staging: its part of a bf16 tile, or half of it in
-// 4-byte types
-constexpr int kOutBytes = kCM * kBN * 2;
-// a consumer's tile parameters (fp32): scale and bias of the tile's
-// columns, then sx of its rows
-constexpr int kParamFloats = 2 * kBN + kCM;
-// warps that read a stage, in all the CTAs its weight slices went to
-constexpr int kEmptyArrivals = (kPingPong ? 4 : 8) * kCluster;
-// 1024 bytes of slack to align the tiles for the 128-byte swizzle, the
-// ring, the staging, the parameters, then a full and an empty barrier a
-// stage
-constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kOutBytes +
-                      2 * 4 * kParamFloats + 16 * kStages;
-static_assert(kSmem <= 232448, "shared memory of one block");
+
+// The two designs' tiles and shared memory.
+template <bool PingPong>
+struct Design {
+  static constexpr int kBN = PingPong ? 128 : 256;  // columns of a tile
+  static constexpr int kStages = PingPong ? 4 : 3;  // ring depth
+  // rows of a tile that one consumer computes: all of it (ping-pong) or
+  // half of it (cooperative), in 64-row wgmma fragments
+  static constexpr int kCM = PingPong ? kBM : kBM / 2;
+  static constexpr int kFrags = kCM / 64;
+  static constexpr int kBBytes = kBN * kBK;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // a consumer's output staging: its part of a bf16 tile, or half of it in
+  // 4-byte types
+  static constexpr int kOutBytes = kCM * kBN * 2;
+  // a consumer's tile parameters (fp32): scale and bias of the tile's
+  // columns, then sx of its rows
+  static constexpr int kParamFloats = 2 * kBN + kCM;
+  // warps that read a stage
+  static constexpr int kEmptyArrivals = PingPong ? 4 : 8;
+  // 1024 bytes of slack to align the tiles for the 128-byte swizzle, the
+  // ring, the staging, the parameters, then a full and an empty barrier a
+  // stage
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kOutBytes +
+                               2 * 4 * kParamFloats + 16 * kStages;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
 
 // d (64 x N int32, the wgmma accumulator layout) (+)= A (64 x 32 int8,
 // K-major, descriptor low word a) * B (32 x N int8, K-major, descriptor
@@ -223,9 +209,6 @@ static_assert(kSmem <= 232448, "shared memory of one block");
 template <int N>
 __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[N / 2], uint32_t a,
                                          uint32_t b, int scale_d);
-
-// one of the two widths is unused in each build
-#pragma nv_diag_suppress 177
 
 template <>
 __device__ __forceinline__ void wgmma_s8<256>(uint32_t (&d)[128], uint32_t a,
@@ -327,8 +310,6 @@ __device__ __forceinline__ void wgmma_s8<128>(uint32_t (&d)[64], uint32_t a,
       : "r"(a), "r"(b), "r"(kDescHi), "r"(scale_d));
 }
 
-#pragma nv_diag_default 177
-
 template <int F, int N>
 __device__ __forceinline__ void fence_acc(uint32_t (&r)[F][N]) {
 #pragma unroll
@@ -354,35 +335,21 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_float(int32_t) { return 0.f; }
 
-// The output tile (mt, nt) of CTA `rank` of a cluster for the cluster's
-// linear work index u. A cluster's unit of work is kCluster neighbouring
-// m-tiles of one n-tile; the order walks groups of kGroupM m-tiles (the last
-// group may be shorter) and, inside a group, the m-tiles fastest: the
-// clusters that run at one time share the weight's n-tiles and a few
-// activation m-tiles in L2. mt may be past the last m-tile (an odd count's
-// last cluster): that CTA reads zeros and stores nothing. `tile_coords` and
-// `tile_schedule` of `ops/cuda/int8_gemm.py` are the same order.
-__device__ __forceinline__ void tile_coords(int u, int units_m, int tiles_n,
-                                            int rank, int& mt, int& nt) {
-  constexpr int kGroup = kGroupM / kCluster;  // units along M a group
-  const int per_group = kGroup * tiles_n;
+// The output tile (mt, nt) of linear work index u over a tiles_m x tiles_n
+// grid: groups of kGroupM m-tiles (the last group may be shorter) and,
+// inside a group, the m-tiles fastest, so that the blocks that run at one
+// time share the weight's n-tiles and a few activation m-tiles in L2.
+// `tile_coords` and `tile_schedule` of `ops/cuda/int8_gemm.py` are the
+// same order.
+__device__ __forceinline__ void tile_coords(int u, int tiles_m, int tiles_n,
+                                            int& mt, int& nt) {
+  const int per_group = kGroupM * tiles_n;
   const int group = u / per_group;
-  const int first = group * kGroup;
-  const int size = min(units_m - first, kGroup);
+  const int first = group * kGroupM;
+  const int size = min(tiles_m - first, kGroupM);
   const int r = u - group * per_group;
-  mt = (first + r % size) * kCluster + rank;
+  mt = first + r % size;
   nt = r / size;
-}
-
-// Release stage barrier `bar` (an empty barrier) in every CTA whose stage
-// holds this CTA's weight slice: each waits for all the readers.
-__device__ __forceinline__ void release_stage(uint32_t bar) {
-  if constexpr (kCluster == 1) {
-    mbar_arrive(bar);
-  } else {
-#pragma unroll
-    for (int cta = 0; cta < kCluster; ++cta) mbar_arrive_cluster(bar, cta);
-  }
 }
 
 // OutT: __nv_bfloat16 (the serving path), float, or int32_t (the
@@ -391,7 +358,7 @@ __device__ __forceinline__ void release_stage(uint32_t bar) {
 // memory, as boxes of 128 bytes (64 bf16 or 32 4-byte columns) by kCM
 // rows with the 128-byte swizzle, and one thread TMA stores them; 4-byte
 // outputs go out in two passes of half the columns each.
-template <typename OutT>
+template <bool PingPong, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __grid_constant__ CUtensorMap b_map,
@@ -400,6 +367,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ scale,
                      const OutT* __restrict__ bias, OutT* __restrict__ out,
                      int M, int N, int K) {
+  using D = Design<PingPong>;
+  constexpr int kBN = D::kBN, kStages = D::kStages, kCM = D::kCM;
+  constexpr int kFrags = D::kFrags, kBBytes = D::kBBytes;
+  constexpr int kOutBytes = D::kOutBytes, kParamFloats = D::kParamFloats;
   constexpr bool kInt32 = std::is_same_v<OutT, int32_t>;
   constexpr bool kBf16 = std::is_same_v<OutT, __nv_bfloat16>;
   constexpr int kElem = sizeof(OutT);
@@ -415,12 +386,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // per stage s: full at bars + 16 s, empty at bars + 16 s + 8
   const uint32_t bars = sPar + 2 * 4 * kParamFloats;
 
-  const int units_m = (M + kBM * kCluster - 1) / (kBM * kCluster);
+  const int tiles_m = (M + kBM - 1) / kBM;
   const int tiles_n = (N + kBN - 1) / kBN;
-  const int units = units_m * tiles_n;  // the clusters' units of work
-  const int cluster = blockIdx.x / kCluster;
-  const int clusters = gridDim.x / kCluster;
-  const int rank = kCluster == 1 ? 0 : static_cast<int>(cluster_ctarank());
+  const int tiles = tiles_m * tiles_n;
+  const int block = blockIdx.x, blocks = gridDim.x;
   const int n_k = (K + kBK - 1) / kBK;
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
 
@@ -431,47 +400,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bars + 16 * s, 1);  // full: the producer's expect_tx
-      mbar_init(bars + 16 * s + 8, kEmptyArrivals);  // empty: reader warps
+      mbar_init(bars + 16 * s + 8, D::kEmptyArrivals);  // empty: readers
     }
     fence_barrier_init();
   }
   __syncthreads();
-  // the peer's barriers are initialised before any multicast or remote
-  // arrive reaches them
-  if constexpr (kCluster > 1) cluster_sync();
 
   if (wg == 0) {
     // ---- producer: one thread walks the block's tiles and their k-tiles
     // through one ring. Its stage and phase run on across tiles, so the
-    // next tile's loads start while the consumers finish this one. A stage
-    // holds this CTA's activation rows and the whole weight tile, a slice
-    // from each CTA of the cluster. ----
+    // next tile's loads start while the consumers finish this one. ----
     if (threadIdx.x == 0) {
       int g = 0;  // k-tiles loaded so far by this block
-      for (int u = cluster; u < units; u += clusters) {
+      for (int u = block; u < tiles; u += blocks) {
         int mt, nt;
-        tile_coords(u, units_m, tiles_n, rank, mt, nt);
+        tile_coords(u, tiles_m, tiles_n, mt, nt);
         for (int kt = 0; kt < n_k; ++kt, ++g) {
           const int s = g % kStages;
           // a stage's first use waits for nothing (the phase before 0)
           mbar_wait(bars + 16 * s + 8, ((g / kStages) & 1) ^ 1);
-          mbar_expect_tx(bars + 16 * s, kStageBytes);
+          mbar_expect_tx(bars + 16 * s, D::kStageBytes);
           tma_load_3d(sA + s * kABytes, &a_map, bars + 16 * s, kt * kBK,
                       mt * kBM, 0);
-          const uint32_t b_dst = sB + s * kBBytes + rank * kBSlice * kBK;
-          if constexpr (kCluster == 1) {
-            tma_load_3d(b_dst, &b_map, bars + 16 * s, kt * kBK, nt * kBN, 0);
-          } else {
-            tma_load_3d_multicast(b_dst, &b_map, bars + 16 * s, kt * kBK,
-                                  nt * kBN + rank * kBSlice, 0,
-                                  (1u << kCluster) - 1);
-          }
+          tma_load_3d(sB + s * kBBytes, &b_map, bars + 16 * s, kt * kBK,
+                      nt * kBN, 0);
         }
       }
     }
-    // no CTA of the cluster leaves while another may still arrive on its
-    // barriers
-    if constexpr (kCluster > 1) cluster_sync();
     return;
   }
 
@@ -493,15 +448,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // + e of the consumer's part of the tile
   uint32_t acc[kFrags][kBN / 2];
 
-  // The block's i-th tile is its part of the cluster's unit cluster + i
-  // clusters; the cooperative consumers take every tile (64 rows each), the
-  // ping-pong consumers every other one (all 128 rows), and its k-tiles
-  // are the ring's [i n_k, (i + 1) n_k).
-  for (int i = kPingPong ? c : 0; cluster + i * clusters < units;
-       i += kPingPong ? 2 : 1) {
+  // The block's i-th tile is tile block + i blocks; the cooperative
+  // consumers take every tile (64 rows each), the ping-pong consumers every
+  // other one (all 128 rows), and its k-tiles are the ring's [i n_k, (i +
+  // 1) n_k).
+  for (int i = PingPong ? c : 0; block + i * blocks < tiles;
+       i += PingPong ? 2 : 1) {
     int mt, nt;
-    tile_coords(cluster + i * clusters, units_m, tiles_n, rank, mt, nt);
-    const int m0 = mt * kBM + (kPingPong ? 0 : c * kCM);  // consumer's rows
+    tile_coords(block + i * blocks, tiles_m, tiles_n, mt, nt);
+    const int m0 = mt * kBM + (PingPong ? 0 : c * kCM);  // consumer's rows
     const int n0 = nt * kBN;
     // The tile's parameters are loaded now and stored to shared memory for
     // the epilogue after the mainloop, so that their latency is hidden.
@@ -515,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (!kInt32 && tw < kCM && m0 + tw < M) p_sx = sx[m0 + tw];
 
-    if constexpr (kPingPong) {
+    if constexpr (PingPong) {
       // The mainloops take turns: the other consumer's tile before this
       // one has waited for all its stages (so every phase before this
       // tile's has completed and the parity waits cannot alias) and has
@@ -523,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (i > 0) named_barrier_sync(4 - c, 2 * kWgThreads);
     }
     const int g0 = i * n_k;
-    const uint32_t a_rows = sA + (kPingPong ? 0 : c * 64 * kBK);
+    const uint32_t a_rows = sA + (PingPong ? 0 : c * 64 * kBK);
     for (int kt = 0; kt < n_k; ++kt) {
       const int gk = g0 + kt;
       const int s = gk % kStages;
@@ -544,15 +499,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<1>();
       fence_acc(acc);
       if (kt > 0 && lane == 0)
-        release_stage(bars + 16 * ((gk - 1) % kStages) + 8);
+        mbar_arrive(bars + 16 * ((gk - 1) % kStages) + 8);
     }
-    if constexpr (kPingPong) {
-      if (cluster + (i + 1) * clusters < units)
+    if constexpr (PingPong) {
+      if (block + (i + 1) * blocks < tiles)
         named_barrier_arrive(3 + c, 2 * kWgThreads);
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    if (lane == 0) release_stage(bars + 16 * ((g0 + n_k - 1) % kStages) + 8);
+    if (lane == 0) mbar_arrive(bars + 16 * ((g0 + n_k - 1) % kStages) + 8);
 
     // ---- epilogue ----
     // the last tile's stores have read the staging, and every thread is
@@ -638,7 +593,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (tw == 0) bulk_wait<0>();
-  if constexpr (kCluster > 1) cluster_sync();
 }
 
 // A 3-D map over a contiguous int8 matrix (rows, cols), read in boxes of
@@ -659,10 +613,11 @@ bool encode_i8_rows(CUtensorMap* map, const void* base, uint64_t rows,
 }
 
 // A 3-D map over the (rows, cols) output of type OutT, written in boxes of
-// a consumer's rows by 128 bytes of columns with the 128-byte swizzle.
+// `box_rows` rows (a consumer's) by 128 bytes of columns with the 128-byte
+// swizzle.
 template <typename OutT>
 bool encode_out_rows(CUtensorMap* map, void* base, uint64_t rows,
-                     uint64_t cols) {
+                     uint64_t cols, uint32_t box_rows) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const CUtensorMapDataType type =
@@ -672,7 +627,7 @@ bool encode_out_rows(CUtensorMap* map, void* base, uint64_t rows,
   const cuuint64_t dims[3] = {cols, rows, 1};
   const cuuint64_t strides[2] = {cols * sizeof(OutT),
                                  rows * cols * sizeof(OutT)};  // bytes
-  const cuuint32_t box[3] = {128 / sizeof(OutT), kCM, 1};
+  const cuuint32_t box[3] = {128 / sizeof(OutT), box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, type, 3, base, dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -680,38 +635,42 @@ bool encode_out_rows(CUtensorMap* map, void* base, uint64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename OutT>
+template <bool PingPong, typename OutT>
 int launch_gemm(const void* x8, const float* sx, const void* w8,
                 const float* scale, const void* bias, void* out, int M, int N,
                 int K, int num_sms, cudaStream_t stream) {
+  using D = Design<PingPong>;
   CUtensorMap a_map, b_map, out_map;
   if (!encode_i8_rows(&a_map, x8, M, K, kBM) ||
-      !encode_i8_rows(&b_map, w8, N, K, kBSlice))
+      !encode_i8_rows(&b_map, w8, N, K, D::kBN) ||
+      !encode_out_rows<OutT>(&out_map, out, M, N, D::kCM))
     return kErrTensorMap;
-  if (!encode_out_rows<OutT>(&out_map, out, M, N)) return kErrTensorMap;
-  const cudaError_t err = allow_smem(int8_gemm_kernel<OutT>, kSmem);
+  const cudaError_t err = allow_smem(int8_gemm_kernel<PingPong, OutT>, D::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // persistent: one cluster for each of min(units, SMs / kCluster) units
-  const int units =
-      ((M + kBM * kCluster - 1) / (kBM * kCluster)) * ((N + kBN - 1) / kBN);
-  const int fit = num_sms / kCluster > 1 ? num_sms / kCluster : 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((units < fit ? units : fit) * kCluster);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = kSmem;
-  config.stream = stream;
-  cudaLaunchAttribute cluster_dim;
-  cluster_dim.id = cudaLaunchAttributeClusterDimension;
-  cluster_dim.val.clusterDim.x = kCluster;
-  cluster_dim.val.clusterDim.y = 1;
-  cluster_dim.val.clusterDim.z = 1;
-  config.attrs = &cluster_dim;
-  config.numAttrs = kCluster > 1 ? 1 : 0;
-  const cudaError_t launched = cudaLaunchKernelEx(
-      &config, int8_gemm_kernel<OutT>, a_map, b_map, out_map, sx, scale,
-      static_cast<const OutT*>(bias), static_cast<OutT*>(out), M, N, K);
-  if (launched != cudaSuccess) return static_cast<int>(launched);
+  // persistent: one block for each of min(tiles, SMs) tiles
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + D::kBN - 1) / D::kBN);
+  int8_gemm_kernel<PingPong, OutT>
+      <<<tiles < num_sms ? tiles : num_sms, kThreads, D::kSmem, stream>>>(
+          a_map, b_map, out_map, sx, scale, static_cast<const OutT*>(bias),
+          static_cast<OutT*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PingPong>
+int launch_gemm_typed(const void* x8, const float* sx, const void* w8,
+                      const float* scale, const void* bias, void* out, int M,
+                      int N, int K, int out_dtype, int num_sms,
+                      cudaStream_t st) {
+  if (out_dtype == 0)
+    return launch_gemm<PingPong, float>(x8, sx, w8, scale, bias, out, M, N, K,
+                                        num_sms, st);
+  if (out_dtype == 1)
+    return launch_gemm<PingPong, __nv_bfloat16>(x8, sx, w8, scale, bias, out,
+                                                M, N, K, num_sms, st);
+  if (out_dtype == 2)
+    return launch_gemm<PingPong, int32_t>(x8, sx, w8, scale, bias, out, M, N,
+                                          K, num_sms, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool aligned16(const void* p) {
@@ -730,22 +689,24 @@ extern "C" int quantize_rows(const void* x, void* x8, float* sx, int M, int K,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The argument list of `int8_gemm_dequant`, for tools that bind the
+// library of another checkout: 1 = (..., out_dtype, stream), one block a
+// tile; 2 = (..., out_dtype, num_sms, design, stream).
+extern "C" const int int8_gemm_abi = 2;
+
 extern "C" int int8_gemm_dequant(const void* x8, const float* sx,
                                  const void* w8, const float* scale,
                                  const void* bias, void* out, int M, int N,
-                                 int K, int out_dtype, int num_sms,
+                                 int K, int out_dtype, int num_sms, int design,
                                  void* stream) {
   if (!aligned16(x8) || !aligned16(w8) || !aligned16(out)) return kErrAlignment;
   if (num_sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 0)
-    return launch_gemm<float>(x8, sx, w8, scale, bias, out, M, N, K, num_sms,
-                              st);
-  if (out_dtype == 1)
-    return launch_gemm<__nv_bfloat16>(x8, sx, w8, scale, bias, out, M, N, K,
-                                      num_sms, st);
-  if (out_dtype == 2)
-    return launch_gemm<int32_t>(x8, sx, w8, scale, bias, out, M, N, K,
-                                num_sms, st);
+  if (design == 0)
+    return launch_gemm_typed<true>(x8, sx, w8, scale, bias, out, M, N, K,
+                                   out_dtype, num_sms, st);
+  if (design == 1)
+    return launch_gemm_typed<false>(x8, sx, w8, scale, bias, out, M, N, K,
+                                    out_dtype, num_sms, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,9 @@ serving shapes (2*M*N*K).
 
 The product kernel is persistent: it launches min(tiles, SMs) blocks, and
 each walks its output tiles in the order of `tile_schedule` (grouped
-raster, `tile_coords`), a pure function the CPU tests check.
+raster, `tile_coords`), a pure function the CPU tests check. It has two
+designs, and `gemm_design` picks one from K: ping-pong 128 x 128 tiles
+below COOPERATIVE_MIN_K, a cooperative 128 x 256 tile from it.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. The plain product is exact int32 on the
@@ -47,9 +49,16 @@ GEMM_LAUNCHES = LaunchCounter()      # int8_gemm_dequant (and its int32 mode)
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-# the product kernel's output tile, raster group (in m-tiles) and cluster
-# (kBM, kBN, kGroupM, kCluster of csrc/int8_gemm.cu at its defaults)
-BLOCK_M, BLOCK_N, GROUP_M, CLUSTER_M = 128, 128, 8, 1
+# the product kernel's designs (`design` of its C entry) and their tile
+# widths (kBN of `Design` in csrc/int8_gemm.cu); its tile rows and raster
+# group in m-tiles (kBM, kGroupM)
+PINGPONG, COOPERATIVE = 0, 1
+BLOCK_N = {PINGPONG: 128, COOPERATIVE: 256}
+BLOCK_M, GROUP_M = 128, 8
+# K from which the cooperative tile is faster (`tools/int8_tiles.py
+# --k-sweep` on an H100: ping-pong leads at K 2560, the cooperative tile at
+# 5120; the times cross near 3500)
+COOPERATIVE_MIN_K = 4096
 # the kernels' own error codes (kErr* in csrc/int8_gemm.cu); any other
 # non-zero code is a cudaError_t
 LAUNCH_ERRORS = {
@@ -98,42 +107,35 @@ def int8_linear_plain(x8, sx, w8, scale, bias=None, out_dtype=torch.bfloat16):
 # the product kernel's tile order
 # ---------------------------------------------------------------------------
 
-def tile_coords(u: int, units_m: int, tiles_n: int, group: int):
-    """(m-unit, n-tile) of linear work index u over a units_m x tiles_n
-    grid: groups of `group` m-units (the last group may be shorter), the
-    m-units fastest inside a group, so that the clusters that run at one
-    time share the weight's n-tiles in L2. The kernel's `tile_coords`
-    computes the same."""
+def gemm_design(k: int) -> int:
+    """The product kernel's design for depth K: PINGPONG or COOPERATIVE."""
+    return COOPERATIVE if k >= COOPERATIVE_MIN_K else PINGPONG
+
+
+def tile_coords(u: int, tiles_m: int, tiles_n: int, group: int = GROUP_M):
+    """(m-tile, n-tile) of linear work index u over a tiles_m x tiles_n
+    grid: groups of `group` m-tiles (the last group may be shorter), the
+    m-tiles fastest inside a group, so that the blocks that run at one time
+    share the weight's n-tiles in L2. The kernel's `tile_coords` computes
+    the same."""
     per_group = group * tiles_n
     g, r = divmod(u, per_group)
     first = g * group
-    size = min(units_m - first, group)
+    size = min(tiles_m - first, group)
     return first + r % size, r // size
 
 
-def tile_schedule(m: int, n: int, num_sms: int, block_m: int = BLOCK_M,
-                  block_n: int = BLOCK_N, group_m: int = GROUP_M,
-                  cluster_m: int = CLUSTER_M):
+def tile_schedule(m: int, n: int, num_sms: int, block_n: int):
     """The output tiles [(m-tile, n-tile), ...] that each block of the
-    persistent product kernel computes, in its order. A cluster of
-    `cluster_m` blocks takes units of `cluster_m` neighbouring m-tiles of
-    one n-tile, block `rank` of it the m-tile unit * cluster_m + rank (none
-    where that is past the last m-tile); the grid has min(units, num_sms //
-    cluster_m) clusters (at least one), cluster c taking the units c, c +
-    clusters, ... in the grouped raster order (`tile_coords`, groups of
-    group_m m-tiles)."""
-    tiles_m, tiles_n = -(-m // block_m), -(-n // block_n)
-    units_m = -(-tiles_m // cluster_m)
-    units = units_m * tiles_n
-    clusters = min(units, max(1, num_sms // cluster_m))
-    schedule = []
-    for c in range(clusters):
-        work = [tile_coords(u, units_m, tiles_n, group_m // cluster_m)
-                for u in range(c, units, clusters)]
-        for rank in range(cluster_m):
-            schedule.append([(mu * cluster_m + rank, nt) for mu, nt in work
-                             if mu * cluster_m + rank < tiles_m])
-    return schedule
+    persistent product kernel computes, in its order, for tiles of BLOCK_M
+    x `block_n`: the grid has min(tiles, num_sms) blocks, block b taking
+    the tiles b, b + blocks, ... of the grouped raster order
+    (`tile_coords`)."""
+    tiles_m, tiles_n = -(-m // BLOCK_M), -(-n // block_n)
+    tiles = tiles_m * tiles_n
+    blocks = min(tiles, num_sms)
+    return [[tile_coords(u, tiles_m, tiles_n) for u in range(b, tiles, blocks)]
+            for b in range(blocks)]
 
 
 @functools.cache
@@ -242,7 +244,8 @@ def _gemm(x8, sx, w8, scale, bias, out_dtype):
     _call("int8_gemm_dequant",
           (x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), scale.data_ptr(),
            None if bias is None else bias.data_ptr(), out.data_ptr()),
-          (m, n, k, _OUT_CODES[out_dtype], num_sms(out.device.index)), x8.device)
+          (m, n, k, _OUT_CODES[out_dtype], num_sms(out.device.index),
+           gemm_design(k)), x8.device)
     GEMM_LAUNCHES.count += 1
     return out
 

@@ -10,8 +10,9 @@ each into its own library (`build.load(..., defines=...)`, all nvcc
 processes at once, with the forward trial's machinery), prints ptxas'
 register, spill and warning lines of each, checks each candidate's dq, dk
 and dv against `flash_attention_bwd_plain` within `grad_tolerance`, and
-times each kernel with CUDA events at the bf16 shapes of the training path,
-the candidates in turns (a, b, ..., b, a). With `--against DIR` the
+times each kernel at the bf16 shapes of the training path (replays of a
+CUDA graph of raw launches, `forward_tiles.time_ms`), the candidates in
+turns (a, b, ..., b, a). With `--against DIR` the
 backward of another checkout (DIR holds its `f_lite_tpu_torch/`, e.g. an
 unpacked `git archive` of an earlier commit) joins every turn as
 "earlier"; it takes lse and delta with Lq rows a head, where this tree's

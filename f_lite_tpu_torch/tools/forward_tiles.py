@@ -7,9 +7,10 @@ candidate number of keys per K/V tile (BK: 64 and 80 at head dim 256, 32,
 64 and 128 at head dim 64), each into its own library (`build.load(...,
 defines=...)`, all nvcc processes at once), prints ptxas' register and
 spill lines of each, checks each against `flash_attention_plain` within
-`flash_attention.tolerance`, and times each with CUDA events at the bf16
-shapes of the serving and training paths, the candidates in turns (a, b,
-..., b, a) so that drift of the card's clock falls on all. With `--against
+`flash_attention.tolerance`, and times each at the bf16 shapes of the
+serving and training paths (`time_ms`: replays of a CUDA graph of raw
+launches, timed with CUDA events), the candidates in turns (a, b, ..., b,
+a) so that drift of the card's clock falls on all. With `--against
 DIR` the forward of another checkout (DIR holds its `f_lite_tpu_torch/`,
 e.g. an unpacked `git archive` of an earlier commit) joins every turn as
 "earlier", and the shipped tile's output (`flash_variants.SERVING_BLOCKS`)
@@ -90,37 +91,48 @@ def launch(fn, q, k, v, lens, out) -> None:
 
 
 def time_ms(run) -> float:
+    """Device time of one `run()` in ms: REPS launches captured in a CUDA
+    graph, the replay timed with CUDA events, so that the host's cost of a
+    launch (the ctypes call, the tensor maps) does not count."""
     run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(REPS):
+            run()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
-        run()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
 
 
 def time_in_turns(labels, run) -> dict:
-    """{label: [ms, ms]}: `run(label)` timed for every label in turns (a,
-    b, ..., b, a), so that drift of the card's clock falls on all."""
+    """{label: [ms, ms]}: `run(label)` timed (`time_ms`) for every label in
+    turns (a, b, ..., b, a), so that drift of the card's clock falls on
+    all."""
     times = {label: [] for label in labels}
     for label in list(labels) + list(labels)[::-1]:
         times[label].append(time_ms(lambda: run(label)))
     return times
 
 
-def build_all(source: str, builds) -> None:
+def build_all(source: str, builds,
+              keep=("bf16", "spill", "Used", "warning")) -> None:
     """Build `source` for every (defines, csrc) of `builds`, all nvcc
-    processes at once, and print ptxas' register, spill and warning lines
-    of each."""
+    processes at once, and print the lines of each one's ptxas report that
+    hold one of `keep` (by default the bf16 kernels' names and the
+    register, spill and warning lines)."""
     builds = sorted(set(builds), key=str)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: build.build([source], *b), builds))
     for defines, csrc in builds:
         log = build.library_path(source, defines, csrc).with_suffix(".log")
         for line in log.read_text().splitlines():
-            if any(w in line for w in ("bf16", "spill", "Used", "warning")):
+            if any(w in line for w in keep):
                 print(f"  ptxas {csrc.parts[-3]} {' '.join(defines)}: "
                       f"{line.strip()[:160]}", flush=True)
 

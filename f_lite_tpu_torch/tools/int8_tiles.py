@@ -2,33 +2,29 @@
 
     python -m f_lite_tpu_torch.tools.int8_tiles [--against DIR] [--k-sweep]
 
-Builds the int8 product (`csrc/int8_gemm.cu` `int8_gemm_kernel`) once for
-each candidate design of `CANDIDATES` (the cooperative 128 x 256 tile and
-the ping-pong 128 x 128 tiles, each with and without a cluster of two that
-multicasts the weight tile; raster groups of 4, 8 and 16 m-tiles), each
-into its own library
-(`build.load(..., defines=...)`, all nvcc processes at once), and prints
-ptxas' register, spill and warning lines of each. At every shape of
-`chip_smoke.INT8_SHAPES` and of `edge_shapes` (the persistent grid's
-edges, ragged M and K; checked, not timed) it checks each candidate
-against the plain
-versions bit for bit in every output type (bf16 and fp32, each with and
-without bias, and the int32 accumulators) and times raw launches (bf16
-out, no bias; `graph_ms`: replays of a CUDA graph of them, timed with CUDA
-events), the candidates in turns (a, b, ..., b, a) beside bf16 `F.linear`
-at the same shape, and prints the shape's bound.
+Builds the int8 product (`csrc/int8_gemm.cu` `int8_gemm_kernel`) and
+prints ptxas' lines of its instances (`forward_tiles.build_all`). Both of
+its designs are launched, whatever `int8_gemm.gemm_design` would pick:
+"pingpong" (128 x 128 tiles) and "cooperative" (a 128 x 256 tile). At
+every shape of `chip_smoke.INT8_SHAPES` and of `edge_shapes` (the
+persistent grid's edges, ragged M and K; checked, not timed) it checks
+each design against the plain versions bit for bit in every output type
+(bf16 and fp32, each with and without bias, and the int32 accumulators)
+and times raw launches (bf16 out, no bias; `forward_tiles.time_ms`:
+replays of a CUDA graph of them, timed with CUDA events), the designs in
+turns (a, b, ..., b, a) beside bf16 `F.linear` at the same shape, and
+prints the shape's bound and which design the wrapper picks there.
 With `--against DIR` the product kernel of another checkout (DIR holds its
 `f_lite_tpu_torch/`, e.g. an unpacked `git archive` of an earlier commit)
-joins every turn as "earlier", and every candidate's output is compared
-with the earlier kernel's bit for bit in every output type. `--k-sweep`
-also times every kernel at M 8224, N 7680 and K = `K_SWEEP` and prints
-the fit t = waves * (a + b * k_tiles) of each (`fit_k_sweep`): a is the
-fixed cost of a 128 x 256 output tile, b the cost of one 128-deep k-tile
-of it (0.56 us at the int8 peak). The package's wrapper always launches
-the source's defaults (`SHIPPED`); none of these launches counts in its
+joins every turn as "earlier", and every design's output is compared with
+the earlier kernel's bit for bit in every output type. `--k-sweep` also
+times every kernel at M 8224, N 7680 and K = `K_SWEEP` and prints the fit
+t = waves * (a + b * k_tiles) of each (`fit_k_sweep`), in the kernel's
+own tiles: a is the fixed cost of an output tile, b the cost of one
+128-deep k-tile of it. None of these launches counts in the wrapper's
 `GEMM_LAUNCHES`.
 
-Prints the card's name and power limit, one JSON line per candidate and
+Prints the card's name and power limit, one JSON line per kernel and
 shape, one `equal` line per shape and output type, the sweep's lines and
 last one JSON line {"tiles": [...], "fits": [...]}. Exits non-zero
 without a card ("needs an NVIDIA GPU"), and where any output differs from
@@ -38,7 +34,6 @@ the plain version's or the earlier kernel's.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import ctypes
 import importlib.util
 import json
@@ -47,93 +42,71 @@ import statistics
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from f_lite_tpu_torch.ops.cuda import build
 from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
-from f_lite_tpu_torch.tools.forward_tiles import card_line
+from f_lite_tpu_torch.tools.forward_tiles import build_all, card_line, time_in_turns
 
 SOURCE = "int8_gemm"
 ROOT = Path(__file__).resolve().parents[2]
-CANDIDATES = {
-    f"{design}_c{cluster}_s{stages}_g{group}": (
-        f"INT8_GEMM_PINGPONG={int(design == 'pingpong')}",
-        f"INT8_GEMM_STAGES={stages}", f"INT8_GEMM_CLUSTER={cluster}",
-        f"INT8_GEMM_GROUP_M={group}")
-    for design, stages, cluster, group in (
-        ("coop", 3, 2, 8), ("coop", 3, 1, 8), ("pingpong", 4, 2, 8),
-        ("pingpong", 4, 1, 8), ("pingpong", 4, 1, 4), ("pingpong", 4, 1, 16))
-}
-SHIPPED = "pingpong_c1_s4_g8"  # the source's defaults
-K_SWEEP = (128, 256, 512, 1024, 2560, 5120, 10240)
-# K of the grid-edge checks: 16 past a whole 128-deep k-tile, short and long
-EDGE_K = (144, 2576)
+DESIGNS = {"pingpong": ig.PINGPONG, "cooperative": ig.COOPERATIVE}
+K_SWEEP = (128, 256, 512, 1024, 2560, 4096, 5120, 10240)
+# K of the grid-edge checks, 16 past a whole 128-deep k-tile: short and long
+# under COOPERATIVE_MIN_K, and one above it
+EDGE_K = (144, 2576, 5136)
 SWEEP_MN = (8224, 7680)
 # (label, output dtype, with bias)
 MODES = (("bf16", torch.bfloat16, False), ("bf16+bias", torch.bfloat16, True),
          ("fp32", torch.float32, False), ("fp32+bias", torch.float32, True),
          ("int32", torch.int32, False))
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the C entry's int arguments after (M, N, K, out_dtype) by its
+# `int8_gemm_abi`: none (one block a tile), or the SM count and the design
+_ABI_INTS = {1: 4, 2: 6}
 
 
-REPS = 20
+class Kernel(NamedTuple):
+    """A library's `int8_gemm_dequant`, its argument list (`int8_gemm_abi`,
+    1 where the library has none), the design it is launched with (None:
+    the one `gemm_design` picks for K, or none in ABI 1) and the width of
+    its tiles (None where that follows K)."""
+    fn: object
+    abi: int
+    design: int | None
+    block_n: int | None
 
 
-def graph_ms(run) -> float:
-    """Device time of one `run()` in ms: REPS launches captured in a CUDA
-    graph, the replay timed with CUDA events, so that the host's cost of a
-    launch (the ctypes call, the tensor maps) does not count."""
-    run()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(REPS):
-            run()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
-
-
-def time_in_turns(labels, run) -> dict:
-    """{label: [ms, ms]}: `run(label)` timed (`graph_ms`) for every label in
-    turns (a, b, ..., b, a), so that drift of the card's clock falls on
-    all."""
-    times = {label: [] for label in labels}
-    for label in list(labels) + list(labels)[::-1]:
-        times[label].append(graph_ms(lambda: run(label)))
-    return times
-
-
-def fit_k_sweep(points, m: int, n: int, num_sms: int) -> dict:
+def fit_k_sweep(points, m: int, n: int, num_sms: int, block_n: int) -> dict:
     """Least-squares fit of t = waves * (a + b * k_tiles) to `points`
-    [(K, ms), ...] at one (m, n): waves = ceil(128 x 256 tiles / num_sms),
-    k_tiles = ceil(K / 128). a (`fixed_us_per_tile`) is the fixed cost of a
-    128 x 256 output tile, b (`us_per_k_tile`) the cost of a k-tile, both
-    in us; kernels of other tiles are counted in 128 x 256 tiles' worth."""
-    waves = math.ceil(math.ceil(m / 128) * math.ceil(n / 256) / num_sms)
+    [(K, ms), ...] at one (m, n) for tiles of 128 x `block_n`: waves =
+    ceil(tiles / num_sms), k_tiles = ceil(K / 128). a (`fixed_us_per_tile`)
+    is the fixed cost of an output tile, b (`us_per_k_tile`) the cost of
+    one of its k-tiles, both in us; `max_abs_residual_us` is the largest
+    distance of a point from the line in the same unit, and a is resolved
+    only where it is larger than that."""
+    waves = math.ceil(math.ceil(m / 128) * math.ceil(n / block_n) / num_sms)
     xs = [math.ceil(k / 128) for k, _ in points]
     ys = [ms * 1e3 / waves for _, ms in points]
     mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
     b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
          / sum((x - mx) ** 2 for x in xs))
     a = my - b * mx
-    worst = max(abs(a + b * x - y) / y for x, y in zip(xs, ys))
-    return dict(fixed_us_per_tile=a, us_per_k_tile=b, waves=waves,
-                max_rel_residual=worst)
+    residuals = [abs(a + b * x - y) for x, y in zip(xs, ys)]
+    return dict(tile=f"128x{block_n}", fixed_us_per_tile=a, us_per_k_tile=b,
+                waves=waves, max_abs_residual_us=max(residuals),
+                max_rel_residual=max(r / y for r, y in zip(residuals, ys)),
+                fixed_cost_resolved=abs(a) > max(residuals))
 
 
 def grid_edge_ms(num_sms: int) -> list[int]:
-    """M values at which a product with one n-tile (N = BLOCK_N) meets the
-    persistent grid's edges on `num_sms` SMs: SMs - 1 m-tiles (the last of
-    77 rows), SMs (whole), SMs + 1 (the last of one row) and a partial
-    last round (SMs + SMs // 3 m-tiles, the last of 64 rows)."""
+    """M values at which a product with one n-tile meets the persistent
+    grid's edges on `num_sms` SMs: SMs - 1 m-tiles (the last of 77 rows),
+    SMs (whole), SMs + 1 (the last of one row) and a partial last round
+    (SMs + SMs // 3 m-tiles, the last of 64 rows)."""
     return [ig.BLOCK_M * (tiles - 1) + last
             for tiles, last in ((num_sms - 1, 77), (num_sms, ig.BLOCK_M),
                                 (num_sms + 1, 1), (num_sms + num_sms // 3, 64))]
@@ -141,8 +114,8 @@ def grid_edge_ms(num_sms: int) -> list[int]:
 
 def edge_shapes(num_sms: int) -> list[tuple]:
     """(label, M, N, K) of the grid-edge checks: every M of `grid_edge_ms`
-    at N = BLOCK_N and each K of EDGE_K."""
-    return [(f"edge_m{m}_k{k}", m, ig.BLOCK_N, k)
+    at each K of EDGE_K, N one tile of the design the wrapper picks there."""
+    return [(f"edge_m{m}_k{k}", m, ig.BLOCK_N[ig.gemm_design(k)], k)
             for k in EDGE_K for m in grid_edge_ms(num_sms)]
 
 
@@ -154,51 +127,41 @@ def smoke_module():
     return smoke
 
 
-def build_and_report(builds, smoke) -> None:
-    """Build every (defines, csrc) of `builds`, all nvcc processes at once,
-    and print ptxas' register, spill and warning lines of each instance of
-    the product kernel."""
-    builds = list(builds)
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda b: build.build([SOURCE], *b), builds))
-    for defines, csrc in builds:
-        log = build.library_path(SOURCE, defines, csrc).with_suffix(".log")
-        kernel = None
-        for line in map(str.strip, log.read_text().splitlines()):
-            if "Compiling entry" in line:
-                kernel = ("int8_gemm_kernel" in line
-                          and smoke.kernel_label(line, "int8_gemm_kernel"))
-            elif "warning" in line or (kernel and ("registers" in line or "spill" in line)):
-                print(f"  ptxas {csrc.parts[-3]} {' '.join(defines)} {kernel or ''}: "
-                      f"{line[:160]}", flush=True)
-
-
-def candidates(against: Path | None) -> dict:
-    """{label: (defines, source dir)}."""
-    out = {label: (defines, build.CSRC) for label, defines in CANDIDATES.items()}
+def kernels_of(against: Path | None) -> dict:
+    """{label: Kernel}: this checkout's designs, and the earlier
+    checkout's kernel with `against`; every library built first."""
+    builds = {"this": ((), build.CSRC)}
     if against is not None:
-        out["earlier"] = ((), against / "f_lite_tpu_torch" / "csrc")
+        builds["earlier"] = ((), against / "f_lite_tpu_torch" / "csrc")
+    build_all(SOURCE, builds.values(), keep=("Compiling entry", "spill", "Used", "warning"))
+
+    def bind(defines, csrc):
+        lib = build.load(SOURCE, defines, csrc)
+        abi = (ctypes.c_int.in_dll(lib, "int8_gemm_abi").value
+               if hasattr(lib, "int8_gemm_abi") else 1)
+        fn = lib.int8_gemm_dequant
+        fn.restype = _INT
+        fn.argtypes = [_PTR] * 6 + [_INT] * _ABI_INTS[abi] + [_PTR]
+        return fn, abi
+
+    fn, abi = bind(*builds["this"])
+    out = {label: Kernel(fn, abi, design, ig.BLOCK_N[design])
+           for label, design in DESIGNS.items()}
+    if against is not None:
+        fn, abi = bind(*builds["earlier"])
+        out["earlier"] = Kernel(fn, abi, None, 256 if abi == 1 else None)
     return out
 
 
-def entry(defines, csrc):
-    """(the library's `int8_gemm_dequant`, whether it takes the SM count:
-    the persistent kernel does, the earlier one-block-a-tile kernel does
-    not)."""
-    fn = build.load(SOURCE, defines, csrc).int8_gemm_dequant
-    persistent = "num_sms" in (Path(csrc) / f"{SOURCE}.cu").read_text()
-    fn.restype = _INT
-    fn.argtypes = [_PTR] * 6 + [_INT] * (5 if persistent else 4) + [_PTR]
-    return fn, persistent
-
-
-def launch(kernel, x8, sx, w8, scale, bias, out, num_sms) -> None:
-    fn, persistent = kernel
+def launch(kernel: Kernel, x8, sx, w8, scale, bias, out, num_sms) -> None:
     (m, k), n = x8.shape, w8.shape[0]
-    ints = (m, n, k, ig._OUT_CODES[out.dtype]) + ((num_sms,) if persistent else ())
-    err = fn(x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(), *ints,
-             torch.cuda.current_stream().cuda_stream)
+    ints = (m, n, k, ig._OUT_CODES[out.dtype])
+    if kernel.abi == 2:
+        design = ig.gemm_design(k) if kernel.design is None else kernel.design
+        ints += (num_sms, design)
+    err = kernel.fn(x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+                    None if bias is None else bias.data_ptr(), out.data_ptr(), *ints,
+                    torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{SOURCE} launch failed: "
                            f"{ig.LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
@@ -275,7 +238,7 @@ def clocks_during(run, seconds: float = 1.5) -> dict:
 def k_sweep(kernels, num_sms, gen) -> list[dict]:
     """Every kernel at M 8224, N 7680 and each K of K_SWEEP (bf16 out, in
     turns), and the card's clock and power under each at K 2560 and 10240;
-    one fit a kernel."""
+    one fit a kernel of a fixed tile."""
     m, n = SWEEP_MN
     points = {label: [] for label in kernels}
     for k in K_SWEEP:
@@ -292,7 +255,8 @@ def k_sweep(kernels, num_sms, gen) -> list[dict]:
             ms = sum(times[label]) / len(times[label])
             points[label].append((k, ms))
             row = dict(candidate=label, m=m, n=n, k=k, k_tiles=math.ceil(k / 128),
-                       ms=ms, ms_each=times[label])
+                       ms=ms, ms_each=times[label],
+                       picked=DESIGNS.get(label) == ig.gemm_design(k))
             print("ksweep", json.dumps(row), flush=True)
         if k in (2560, 10240):
             for label in kernels:
@@ -303,10 +267,14 @@ def k_sweep(kernels, num_sms, gen) -> list[dict]:
         del x8, w8, out
     fits = []
     for label, pts in points.items():
+        block_n = kernels[label].block_n
+        if block_n is None:  # its tile follows K: no one line
+            continue
         # every K, then the K >= 1024 alone: below it the output's bytes,
         # not the tiles, set the time
-        fit = dict(candidate=label, **fit_k_sweep(pts, m, n, num_sms),
-                   k1024=fit_k_sweep([p for p in pts if p[0] >= 1024], m, n, num_sms))
+        fit = dict(candidate=label, **fit_k_sweep(pts, m, n, num_sms, block_n),
+                   k1024=fit_k_sweep([p for p in pts if p[0] >= 1024], m, n,
+                                     num_sms, block_n))
         print("fit", json.dumps(fit), flush=True)
         fits.append(fit)
     return fits
@@ -323,10 +291,8 @@ def main(argv=None) -> list[dict]:
         raise SystemExit("int8_tiles: needs an NVIDIA GPU")
     print("card:", card_line(), flush=True)
     smoke = smoke_module()
-    builds = candidates(args.against)
-    build_and_report(builds.values(), smoke)
-    kernels = {label: entry(*b) for label, b in builds.items()}
-    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = kernels_of(args.against)
+    num_sms = ig.num_sms(0)
     gen = torch.Generator("cuda").manual_seed(15)
     rows, bad, differ = [], [], []
     edges = edge_shapes(num_sms)
@@ -337,8 +303,8 @@ def main(argv=None) -> list[dict]:
             print("equal", json.dumps(dict(shape=shape, mode=mode,
                                            equal_to_earlier=eq)), flush=True)
             differ += [(shape, mode, label) for label, e in eq.items() if not e]
+        bad += [(shape, label, mode) for label in kernels for mode in wrong[label]]
         if (shape, m, n, k) in edges:  # checked, not timed
-            bad += [(shape, label, mode) for label in kernels for mode in wrong[label]]
             print("edge", json.dumps(dict(shape=shape, m=m, n=n, k=k, differs_from_plain={
                 label: wrong[label] for label in kernels})), flush=True)
             continue
@@ -360,11 +326,11 @@ def main(argv=None) -> list[dict]:
                        ms_each=times[label], bound_ms=bound, bound_by=bound_by,
                        share_of_bound=bound / ms)
             if label in kernels:
+                row["picked"] = DESIGNS.get(label) == ig.gemm_design(k)
                 row["equal_to_plain"] = not wrong[label]
                 row["differs_from_plain_in"] = wrong[label]
                 if args.against is not None and label != "earlier":
                     row["equal_to_earlier"] = all(eq[label] for eq in equal.values())
-                bad += [(shape, label, mode) for mode in wrong[label]]
             print("tiles", json.dumps(row), flush=True)
             rows.append(row)
         del x8, sx, w8, scale, bias, w, x, out

@@ -500,10 +500,12 @@ def test_fixture_pipeline_on_the_card_matches_the_cpu(cuda_device):
 
 # (N, K) of the int8 paths' projections: the 7B's qkv, proj and q, gate and
 # up, down, context_kv; the fixture's; then one n-tile of the persistent
-# product kernel at the K of its grid-edge checks (not multiples of 128)
+# product kernel's design at the K of its grid-edge checks (not multiples
+# of 128; both designs)
 INT8_NK = [(7680, 2560), (2560, 2560), (10240, 2560), (2560, 10240),
            (5120, 2560), (768, 256), (256, 256), (1024, 256), (256, 1024),
-           (512, 256)] + [(tig.BLOCK_N, k) for k in int8_tiles.EDGE_K]
+           (512, 256)] + [(tig.BLOCK_N[tig.gemm_design(k)], k)
+                          for k in int8_tiles.EDGE_K]
 # one row, a ragged 17, and the 7B's CFG batch of 2 x 4112 tokens
 INT8_M = [1, 17, 8224]
 

@@ -16,8 +16,6 @@ import dataclasses
 import re
 from pathlib import Path
 
-import hypothesis
-import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -382,40 +380,53 @@ def test_int8_dit_turns_tiny_input_changes_into_rounding_flips():
 # the persistent product kernel's tile order (`int8_gemm.tile_schedule`)
 # ---------------------------------------------------------------------------
 
-def _assert_schedule_covers_the_grid(m, n, num_sms, block_n, cluster_m):
+def _assert_schedule_covers_the_grid(m, n, num_sms, block_n):
     """Every (m-tile, n-tile) exactly once and nothing outside the grid; no
-    more blocks than SMs (or than one cluster), in whole clusters; the
-    clusters' units of work differ in number by at most one."""
+    more blocks than SMs or tiles; the blocks' tile counts differ by at
+    most one."""
     tiles_m, tiles_n = -(-m // 128), -(-n // block_n)
-    schedule = int8_gemm.tile_schedule(m, n, num_sms, block_n=block_n,
-                                       cluster_m=cluster_m)
-    assert len(schedule) % cluster_m == 0
-    assert len(schedule) <= max(num_sms, cluster_m)
+    schedule = int8_gemm.tile_schedule(m, n, num_sms, block_n)
+    assert len(schedule) == min(num_sms, tiles_m * tiles_n)
     assert sorted(t for block in schedule for t in block) == [
         (i, j) for i in range(tiles_m) for j in range(tiles_n)]
-    units = [len(block) for block in schedule[::cluster_m]]  # rank 0 of each
-    assert max(units) - min(units) <= 1
-    if num_sms >= cluster_m * tiles_n * -(-tiles_m // cluster_m):
-        assert max(units) == 1  # fewer units than the SMs take: one each
+    counts = [len(block) for block in schedule]
+    assert max(counts) - min(counts) <= 1
+    if num_sms >= tiles_m * tiles_n:
+        assert max(counts) == 1  # fewer tiles than SMs: one each
 
 
-@pytest.mark.parametrize("block_n,cluster_m", [(128, 1), (256, 1), (128, 2), (256, 2)])
-@hypothesis.settings(max_examples=150, deadline=None)
-@hypothesis.given(m=st.integers(1, 50000), n=st.integers(1, 1280).map(lambda v: 8 * v),
-                  num_sms=st.integers(1, 132))
-@hypothesis.example(m=128 * 131, n=256, num_sms=132)      # SMs - 1 tiles
-@hypothesis.example(m=128 * 132 - 5, n=256, num_sms=132)  # SMs tiles, ragged rows
-@hypothesis.example(m=128 * 132 + 1, n=256, num_sms=132)  # SMs + 1
-@hypothesis.example(m=1000, n=1024, num_sms=132)          # fewer tiles than SMs
-@hypothesis.example(m=49920, n=10240, num_sms=132)
-def test_tile_schedule_covers_every_tile_once(block_n, cluster_m, m, n, num_sms):
-    _assert_schedule_covers_the_grid(m, n, num_sms, block_n, cluster_m)
+# (M, N, SMs): the grid's edges on 132 SMs at one n-tile of either width,
+# fewer tiles than SMs, the fixture's widest, one SM, one row and column
+SCHEDULE_CASES = [
+    (128 * 131, 128, 132), (128 * 131, 256, 132),       # SMs - 1 tiles
+    (128 * 132 - 5, 128, 132), (128 * 132 - 5, 256, 132),  # SMs, ragged rows
+    (128 * 132 + 1, 128, 132), (128 * 132 + 1, 256, 132),  # SMs + 1
+    (128 * 176 - 64, 256, 132),                         # a partial last round
+    (1000, 1024, 132), (49920, 10240, 132), (50000, 10240, 131),
+    (8224, 7680, 1), (1, 8, 132), (1, 10240, 7), (50000, 8, 2),
+]
+
+
+@pytest.mark.parametrize("block_n", [128, 256])
+@pytest.mark.parametrize("m,n,num_sms", SCHEDULE_CASES)
+def test_tile_schedule_covers_every_tile_once(block_n, m, n, num_sms):
+    _assert_schedule_covers_the_grid(m, n, num_sms, block_n)
+
+
+@pytest.mark.parametrize("block_n", [128, 256])
+def test_tile_schedule_covers_every_tile_once_over_a_seeded_sweep(block_n):
+    """200 seeded draws of M in 1-50000, N a multiple of 8 up to 10240 and
+    1-132 SMs."""
+    rs = np.random.RandomState(block_n)
+    for m, n8, num_sms in zip(rs.randint(1, 50001, 200), rs.randint(1, 1281, 200),
+                              rs.randint(1, 133, 200)):
+        _assert_schedule_covers_the_grid(int(m), 8 * int(n8), int(num_sms), block_n)
 
 
 @pytest.mark.parametrize("tiles_m,tiles_n,group_m", [
     (65, 30, 8), (391, 4, 8), (2, 20, 8), (13, 7, 4), (9, 1, 8), (33, 30, 4)])
 def test_tile_order_walks_groups_of_m_tiles(tiles_m, tiles_n, group_m):
-    """Inside a group the m-units vary fastest over the group's rows and
+    """Inside a group the m-tiles vary fastest over the group's rows and
     the n-tile stays; groups follow each other; the last may be short."""
     order = [int8_gemm.tile_coords(t, tiles_m, tiles_n, group_m)
              for t in range(tiles_m * tiles_n)]
@@ -429,36 +440,71 @@ def test_tile_order_walks_groups_of_m_tiles(tiles_m, tiles_n, group_m):
 
 
 def test_tile_schedule_matches_the_kernel_defaults():
-    """BLOCK_M, BLOCK_N, GROUP_M and CLUSTER_M are the kernel's kBM, kBN,
-    kGroupM and kCluster at the source's defaults, which the tile trial's
-    SHIPPED candidate names."""
-    from f_lite_tpu_torch.tools import int8_tiles
-
+    """BLOCK_M, GROUP_M and each design's BLOCK_N are the kernel's kBM,
+    kGroupM and `Design<PingPong>::kBN`, and the designs' codes those of
+    its C entry."""
     src = (Path(int8_gemm.__file__).resolve().parents[2] / "csrc" / "int8_gemm.cu").read_text()
-    defaults = dict(re.findall(r"#define (INT8_GEMM_\w+) (.+)\n", src))
-    pingpong = int(defaults["INT8_GEMM_PINGPONG"])
-    assert int8_gemm.BLOCK_M == 128 and "constexpr int kBM = 128;" in src
-    assert int8_gemm.BLOCK_N == (128 if pingpong else 256)
-    assert int8_gemm.GROUP_M == int(defaults["INT8_GEMM_GROUP_M"])
-    assert int8_gemm.CLUSTER_M == int(defaults["INT8_GEMM_CLUSTER"])
-    shipped = dict(d.split("=") for d in int8_tiles.CANDIDATES[int8_tiles.SHIPPED])
-    assert int(shipped["INT8_GEMM_PINGPONG"]) == pingpong
-    assert int(shipped["INT8_GEMM_CLUSTER"]) == int8_gemm.CLUSTER_M
-    assert int(shipped["INT8_GEMM_GROUP_M"]) == int8_gemm.GROUP_M
-    assert defaults["INT8_GEMM_STAGES"] == "(INT8_GEMM_PINGPONG ? 4 : 3)"
-    assert int(shipped["INT8_GEMM_STAGES"]) == (4 if pingpong else 3)
+    assert f"constexpr int kBM = {int8_gemm.BLOCK_M};" in src
+    assert f"constexpr int kGroupM = {int8_gemm.GROUP_M};" in src
+    kbn = re.search(r"kBN = PingPong \? (\d+) : (\d+);", src).groups()
+    assert tuple(map(int, kbn)) == (int8_gemm.BLOCK_N[int8_gemm.PINGPONG],
+                                    int8_gemm.BLOCK_N[int8_gemm.COOPERATIVE])
+    assert f"if (design == {int8_gemm.PINGPONG})\n    return launch_gemm_typed<true>" in src
+    assert f"if (design == {int8_gemm.COOPERATIVE})\n    return launch_gemm_typed<false>" in src
 
 
-@pytest.mark.parametrize("a,b", [(11.6, 0.71), (2.0, 0.6), (0.5, 0.9)])
-def test_k_sweep_fit_recovers_the_costs(a, b):
+@pytest.mark.parametrize("k,design", [
+    (16, "PINGPONG"), (2560, "PINGPONG"), (4080, "PINGPONG"),
+    (4096, "COOPERATIVE"), (10240, "COOPERATIVE")])
+def test_gemm_design_switches_at_cooperative_min_k(k, design):
+    assert int8_gemm.COOPERATIVE_MIN_K == 4096
+    assert int8_gemm.gemm_design(k) == getattr(int8_gemm, design)
+
+
+def test_edge_shapes_meet_the_grid_edges():
+    """`int8_tiles.edge_shapes` gives, at each K, one n-tile of the design
+    the wrapper picks and SMs - 1, SMs, SMs + 1 tiles and a partial last
+    round."""
+    from f_lite_tpu_torch.tools.int8_tiles import EDGE_K, edge_shapes
+
+    shapes = edge_shapes(132)
+    assert len(shapes) == 4 * len(EDGE_K)
+    assert {int8_gemm.gemm_design(k) for k in EDGE_K} == {
+        int8_gemm.PINGPONG, int8_gemm.COOPERATIVE}
+    for i, (_, m, n, k) in enumerate(shapes):
+        assert k % 128 == 16 and n == int8_gemm.BLOCK_N[int8_gemm.gemm_design(k)]
+        schedule = int8_gemm.tile_schedule(m, n, 132, n)
+        tiles = sum(map(len, schedule))
+        assert tiles == (131, 132, 133, 176)[i % 4]
+        assert len(schedule) == min(tiles, 132)
+
+
+@pytest.mark.parametrize("a,b,block_n", [(11.6, 0.71, 256), (2.0, 0.6, 256),
+                                         (0.5, 0.9, 128)])
+def test_k_sweep_fit_recovers_the_costs(a, b, block_n):
     """`fit_k_sweep` returns the fixed cost a tile and the cost a k-tile
-    of times made from them (15 waves of 128 x 256 tiles at M 8224, N 7680
-    on 132 SMs)."""
+    of times made from them, in the kernel's own tiles (15 waves of 128 x
+    256 tiles or 30 of 128 x 128 at M 8224, N 7680 on 132 SMs), with no
+    residual."""
     from f_lite_tpu_torch.tools.int8_tiles import K_SWEEP, fit_k_sweep
 
-    points = [(k, 15 * (a + b * -(-k // 128)) / 1e3) for k in K_SWEEP]
-    fit = fit_k_sweep(points, 8224, 7680, 132)
-    assert fit["waves"] == 15
+    waves = 15 if block_n == 256 else 30
+    points = [(k, waves * (a + b * -(-k // 128)) / 1e3) for k in K_SWEEP]
+    fit = fit_k_sweep(points, 8224, 7680, 132, block_n)
+    assert fit["waves"] == waves and fit["tile"] == f"128x{block_n}"
     assert abs(fit["fixed_us_per_tile"] - a) < 1e-9
     assert abs(fit["us_per_k_tile"] - b) < 1e-9
-    assert fit["max_rel_residual"] < 1e-9
+    assert fit["max_rel_residual"] < 1e-9 and fit["max_abs_residual_us"] < 1e-9
+    assert fit["fixed_cost_resolved"]
+
+
+def test_k_sweep_fit_flags_an_unresolved_fixed_cost():
+    """A fixed cost smaller than the points' scatter about the line is
+    reported as not resolved."""
+    from f_lite_tpu_torch.tools.int8_tiles import fit_k_sweep
+
+    ks, noise = (1024, 2560, 4096, 10240), (1.0, -1.0, 1.0, -1.0)
+    points = [(k, 30 * (0.2 + 0.8 * (k // 128) + e) / 1e3) for k, e in zip(ks, noise)]
+    fit = fit_k_sweep(points, 8224, 7680, 132, 128)
+    assert fit["max_abs_residual_us"] > abs(fit["fixed_us_per_tile"])
+    assert not fit["fixed_cost_resolved"]
