@@ -66,6 +66,32 @@ Phases (any failed check raises and the run exits non-zero):
    requests of phase 7: both_acc >= 0.95 and PSNR >= 30 dB against phase
    7's bf16 images (10 log10(4 / MSE) on [-1, 1]); exactly 4 * 30 * 12
    forward and 4 * 30 * 48 launches of each int8 kernel;
+8b. the fixture from prompts: phase 7's requests as `pipe(prompt=
+   captions)` with the port's `ZeroTextEncoder(64, seq_len=32)` attached:
+   images equal to phase 7's bit for bit, both_acc >= 0.95, exactly
+   4 * 30 * 12 forward launches;
+9a. T5-XXL at full width and depth (`T5Config()`: 24 blocks, d_model
+   4096, 64 heads x 64, d_ff 10240, gated-gelu), seeded bf16 weights, at
+   return_index -8 (blocks 0-16): one prompt of 77 seeded ids padded to
+   80, and a batch of lengths 5, 40, 77 and 300 padded to 304. Shapes
+   (B, S, 4096), finite, no kernel of the port launched; within
+   `flash_attention.tolerance` (5% of the fp32 result's rms) of the same
+   weights in fp32 (TF32 off) on the real rows, and the 77 real rows
+   padded to 80 and to 128 within it of each other (the largest err/tol
+   printed); encode ms (CUDA events, median of 10) beside the bound (the
+   17 blocks' bf16 weights over 3.35 TB/s against their FLOPs over 989
+   TFLOP/s) and peak GB. The fp32 copy is freed before the DiT is built;
+9b. the Qwen2.5-VL-7B language tower (`Qwen2Config()`: 28 layers, hidden
+   3584, 28 / 4 kv heads, intermediate 18944), the checks and figures of
+   9a on 160 seeded ids (padded to 160 and to 192) and a batch of lengths
+   5, 40, 160 and 300, with nothing else resident (it runs first);
+9c. phase 9's pipeline with the phase-9a T5-XXL attached through a
+   tokenizer defined here (`WordTokenizer`: words to seeded ids):
+   `pipe(prompt=...)` without and then with a negative prompt, 1024 px,
+   30 steps, g=6; finite images and exactly 30 * 56 forward launches
+   each; s/image with the encode's share, peak GB with T5 resident.
+   Phases 9b, 9a and 9c run in that order before phase 9, whose figures
+   are taken with T5 freed again;
 9. serving, one 7B-width request (DiT f_lite_7b + Flux VAE, seeded random
    weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77 are
    real; finite output, exactly 30 * 56 forward launches;
@@ -1128,24 +1154,24 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
 # phases 7-8: serving, the trained fixture
 # ---------------------------------------------------------------------------
 
-def fixture_requests(pipe, embeds, mask, n_requests, **kw):
-    """The fixture's requests (one per seed, 24 captions each, numpy
-    latents of that seed): (images (n*24, 64, 64, 3), host s per request)."""
+def fixture_requests(pipe, batch, n_requests, **kw):
+    """The fixture's requests (one per seed, `batch` = 24 captions each,
+    given as `kw`, numpy latents of that seed): (images (n*24, 64, 64, 3),
+    host s per request)."""
     import numpy as np
     import torch
 
     images, seconds = [], []
     for seed in range(n_requests):
         latents = np.random.RandomState(seed).randn(
-            embeds.shape[0], 64, 64, pipe.dit.config.in_channels).astype(np.float32)
+            batch, 64, 64, pipe.dit.config.in_channels).astype(np.float32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(prompt_embeds=embeds, context_mask=mask, latents=latents,
-                   output_type="np", **kw)
+        out = pipe(latents=latents, output_type="np", **kw)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         imgs = out.images
-        if imgs.shape != (embeds.shape[0], 64, 64, 3) or not np.isfinite(imgs).all():
+        if imgs.shape != (batch, 64, 64, 3) or not np.isfinite(imgs).all():
             raise AssertionError(f"fixture images: shape {imgs.shape} or non-finite")
         images.append(imgs)
     return np.concatenate(images), seconds
@@ -1155,6 +1181,10 @@ def both_acc(images, classes) -> float:
     hits = sum(classify(img) == cls
                for img, cls in zip(images, classes * (len(images) // len(classes))))
     return hits / len(images)
+
+
+def fixture_captions(classes) -> list[str]:
+    return [f"a {c} {s}" for c, s in classes]
 
 
 def load_fixture(quantize=False):
@@ -1170,8 +1200,7 @@ def load_fixture(quantize=False):
     cfg = pipe.dit.config
     classes = [(c, s) for c in COLORS for s in SHAPES]
     embeds, mask = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=32).encode(
-        [f"a {c} {s}" for c, s in classes]
-    )
+        fixture_captions(classes))
     n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
     return pipe, embeds, mask, classes, n_blocks
 
@@ -1183,7 +1212,8 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> tuple:
     pipe, embeds, mask, classes, n_blocks = load_fixture()
     expected = n_requests * steps * n_blocks
     reset_counts()
-    images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+    images, seconds = fixture_requests(pipe, len(embeds), n_requests,
+                                       prompt_embeds=embeds, context_mask=mask,
                                        num_inference_steps=steps,
                                        guidance_scale=guidance)
     counts = read_counts()
@@ -1216,7 +1246,8 @@ def run_fixture_extras(full_images, n_requests=4, guidance=6.0) -> dict:
     res = {}
     reset_counts()
     for name, kw in runs.items():
-        images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+        images, seconds = fixture_requests(pipe, len(embeds), n_requests,
+                                           prompt_embeds=embeds, context_mask=mask,
                                            guidance_scale=guidance, **kw)
         res[name] = dict(both_acc=both_acc(images, classes), s_per_request=seconds,
                          mse_vs_euler30=float(np.mean((images - full_images) ** 2)))
@@ -1247,7 +1278,8 @@ def run_fixture_int8(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
                         quantize=n_requests * steps * per_forward,
                         gemm=n_requests * steps * per_forward)
     reset_counts()
-    images, seconds = fixture_requests(pipe, embeds, mask, n_requests,
+    images, seconds = fixture_requests(pipe, len(embeds), n_requests,
+                                       prompt_embeds=embeds, context_mask=mask,
                                        num_inference_steps=steps,
                                        guidance_scale=guidance)
     counts = read_counts()
@@ -1265,6 +1297,43 @@ def run_fixture_int8(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
         raise AssertionError(f"fixture int8: both_acc {res['both_acc']} < 0.95")
     if not psnr >= 30:
         raise AssertionError(f"fixture int8: PSNR {psnr} dB < 30 against bf16")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_fixture_prompts(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
+    """Phase 8b: the requests of phase 7 from prompts, `pipe(prompt=
+    captions)` with the port's ZeroTextEncoder attached: the same
+    embeddings and all-ones masks on both sides, so the images equal phase
+    7's bit for bit; exactly 4 * 30 * 12 forward launches."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+
+    pipe, _, _, classes, n_blocks = load_fixture()
+    pipe.text_encoder = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size,
+                                        seq_len=32)
+    captions = fixture_captions(classes)
+    expected = n_requests * steps * n_blocks
+    reset_counts()
+    images, seconds = fixture_requests(pipe, len(captions), n_requests,
+                                       prompt=captions, num_inference_steps=steps,
+                                       guidance_scale=guidance)
+    counts = read_counts()
+    res = dict(requests=n_requests, images=len(images),
+               both_acc=both_acc(images, classes),
+               equal_to_phase_7=bool(np.array_equal(images, full_images)),
+               max_abs_diff_to_phase_7=float(np.abs(images - full_images).max()),
+               s_per_request=seconds, launches=counts, expected_launches=expected)
+    log("fixture_prompts", json.dumps(res))
+    if counts != launches(fwd=expected):
+        raise AssertionError(f"fixture prompts: launches {counts}, expected {expected}")
+    if not res["equal_to_phase_7"]:
+        raise AssertionError("fixture prompts: images differ from phase 7's")
+    if res["both_acc"] < 0.95:
+        raise AssertionError(f"fixture prompts: both_acc {res['both_acc']} < 0.95")
     del pipe
     torch.cuda.empty_cache()
     return res
@@ -1381,6 +1450,216 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b") -> dict:
                      guidance_scale=guidance, output_type="latent"),
         label=f"{label} step_profile")
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9a-9c: the text towers at full width (seeded weights, token ids
+# made here: the card's machine has no tokenizer), and a 7B-width request
+# from a prompt
+# ---------------------------------------------------------------------------
+
+class WordTokenizer:
+    """Whitespace words -> seeded ids in [2, vocab), then the end id 1,
+    right-padded with 0: the subset of the HF tokenizer call the port's
+    text encoders make (`padding="longest"`, `pad_to_multiple_of`,
+    `max_length`, `truncation`, `return_tensors="np"`)."""
+
+    def __init__(self, vocab_size: int, seed: int = 0):
+        self.vocab_size, self.seed = vocab_size, seed
+
+    def word_id(self, word: str) -> int:
+        import hashlib
+
+        h = int(hashlib.md5(f"{self.seed}:{word}".encode()).hexdigest()[:8], 16)
+        return 2 + h % (self.vocab_size - 2)
+
+    def __call__(self, texts, padding="longest", pad_to_multiple_of=None,
+                 max_length=None, truncation=False, return_tensors=None):
+        from f_lite_tpu_torch.text.encoder import _pad_to_multiple
+
+        if padding not in ("longest", True) or return_tensors != "np":
+            raise ValueError("WordTokenizer pads to the longest and returns numpy")
+        seqs = [[self.word_id(w) for w in t.split()] + [1] for t in texts]
+        if max_length is not None and not truncation and max(map(len, seqs)) > max_length:
+            raise ValueError("a text is longer than max_length")
+        ids, mask = _pad_to_multiple(seqs, 0, pad_to_multiple_of or 1,
+                                     max_length or max(map(len, seqs)))
+        return {"input_ids": ids.astype("int64"), "attention_mask": mask.astype("int64")}
+
+
+def tower_bound_ms(stack, n_run, tokens) -> tuple:
+    """(bound ms, what bounds it) of an encode that runs the first `n_run`
+    blocks over `tokens` (B, S): their bf16 weights read once at 3.35 TB/s
+    against their products at 989 TFLOP/s (2 flops a weight a token, and
+    the score and value products, 4 S x inner a token a block)."""
+    blocks = (stack.encoder.block if hasattr(stack, "encoder") else stack.layers)[:n_run]
+    weights = sum(p.numel() for blk in blocks for p in blk.parameters() if p.dim() == 2)
+    cfg = stack.config
+    inner = (cfg.num_heads * cfg.d_kv if hasattr(cfg, "d_kv")
+             else cfg.num_attention_heads * cfg.head_dim_)
+    b, s = tokens
+    flops = 2 * weights * b * s + n_run * 4 * b * s * s * inner
+    t_bytes = 2 * weights / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def run_text_tower(kind, return_index=-8) -> tuple:
+    """Phase 9a (kind "t5": T5-XXL, `T5Config()`) or 9b ("qwen2": the
+    Qwen2.5-VL-7B language tower, `Qwen2Config()`): the tower with seeded
+    bf16 weights on the card, and the same weights in fp32 (TF32 off;
+    `text_precision.tower_pair`).
+    On every input, at return_index -8: shape (B, S, width), finite, the
+    bf16 weights' result within `flash_attention.tolerance` (5% of the fp32
+    result's rms) of the fp32 one on the real rows; the single prompt's
+    real rows within that bar of themselves padded further; no kernel of
+    the port launched. Encode ms (CUDA events, median of 10) of the single
+    prompt and of the batch beside the bound, and peak GB. Returns
+    (result, the bf16 tower)."""
+    import torch
+
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.text.layers import resolve_index
+    from f_lite_tpu_torch.tools.text_precision import (
+        SINGLE,
+        median_ms,
+        seeded_ids,
+        tower_pair,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stack, ref = tower_pair(kind, "cuda")
+    cfg = stack.config
+    depth = cfg.num_layers if kind == "t5" else cfg.num_hidden_layers
+    width, vocab = stack.embed_dim, cfg.vocab_size
+    n_run = resolve_index(return_index, depth + 1)
+    single = SINGLE[kind]
+    longer = 128 if kind == "t5" else 192  # the single prompt padded further
+    batch_lens = (5, 40, single, 300)
+    inputs = {"single": seeded_ids([single], vocab, 8),
+              "single_padded": seeded_ids([single], vocab, 8, multiple=longer),
+              "batch": seeded_ids(list(batch_lens), vocab, 9)}
+    inputs = {k: (torch.from_numpy(i).long().cuda(), torch.from_numpy(m).cuda())
+              for k, (i, m) in inputs.items()}
+    rows, outs = {}, {}
+    reset_counts()
+    with torch.no_grad():
+        for label, (ids, mask) in inputs.items():
+            got = stack(ids, mask, return_index=return_index)
+            want = ref(ids, mask, return_index=return_index)
+            if tuple(got.shape) != (*ids.shape, width) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kind} {label}: shape {tuple(got.shape)} or non-finite")
+            err = float((got - want)[mask].abs().max())
+            tol = fa.tolerance(want[mask], torch.bfloat16)
+            rows[label] = dict(shape=list(got.shape), real_rows=int(mask.sum()),
+                               max_abs_err=err, tolerance=tol, err_over_tol=err / tol)
+            outs[label] = (got, tol)
+        (a, tol), (b, _) = outs["single"], outs["single_padded"]
+        pad_err = float((a[0, :single] - b[0, :single]).abs().max())
+        rows["padding"] = dict(max_abs_diff=pad_err, tolerance=tol, err_over_tol=pad_err / tol,
+                               padded_to=[a.shape[1], b.shape[1]])
+        counts = read_counts()
+        del ref, outs, a, b
+        ms = {label: median_ms(lambda i=ids, m=mask: stack(i, m, return_index=return_index))
+              for label, (ids, mask) in inputs.items() if label != "single_padded"}
+    bounds = {label: tower_bound_ms(stack, n_run, tuple(inputs[label][0].shape))
+              for label in ms}
+    res = dict(tower=kind, depth=depth, blocks_run=n_run, width=width,
+               params=sum(p.numel() for p in stack.parameters()), checks=rows,
+               max_err_over_tol=max(r["err_over_tol"] for r in rows.values()),
+               encode_ms=ms, bound_ms={k: v[0] for k, v in bounds.items()},
+               bound_by={k: v[1] for k, v in bounds.items()},
+               peak_gb_with_fp32_copy=torch.cuda.max_memory_allocated() / 1e9,
+               bf16_weights_gb=sum(p.numel() * p.element_size()
+                                   for p in stack.parameters()) / 1e9,
+               launches=counts)
+    log(f"text_tower_{kind}", json.dumps(res))
+    if counts != launches():
+        raise AssertionError(f"{kind}: kernel launches {counts}, expected none")
+    if res["max_err_over_tol"] > 1.0:
+        raise AssertionError(f"{kind}: err/tol {res['max_err_over_tol']} > 1")
+    torch.cuda.empty_cache()
+    return res, stack
+
+
+class TimedEncoder:
+    """A text encoder whose `encode` calls are timed (host clock around a
+    synchronised call)."""
+
+    def __init__(self, inner):
+        self.inner, self.embed_dim, self.seconds = inner, inner.embed_dim, []
+
+    def encode(self, prompts):
+        import torch
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.inner.encode(prompts)
+        self.seconds.append(time.perf_counter() - t)
+        return out
+
+
+PROMPT = ("a red fox sitting in the snow at dawn, soft golden light, "
+          "shallow depth of field, detailed fur, photograph")
+NEGATIVE_PROMPT = "blurry, low quality, watermark"
+
+
+def run_7b_prompt(pipe, t5_stack, steps=30, guidance=6.0, size=1024) -> dict:
+    """Phase 9c: phase 9's pipeline with the phase-9a T5-XXL attached
+    through `WordTokenizer`: `pipe(prompt=...)` without, then with, a
+    negative prompt at 1024 px, 30 steps, g=6. Each: a finite image and
+    exactly 30 * 56 forward launches; s/image with the encode's share, and
+    peak GB with T5 resident."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.text.encoder import T5TextEncoder
+
+    te = TimedEncoder(T5TextEncoder.from_stack(
+        t5_stack, WordTokenizer(t5_stack.config.vocab_size, seed=5)))
+    encode_s = te.seconds
+    pipe.text_encoder = te
+    finite = []
+    hook = pipe.vae.decoder.register_forward_hook(
+        lambda _m, _i, out: finite.append(bool(torch.isfinite(out).all())))
+    expected = launches(fwd=steps * blocks_7b(pipe))
+    res = {}
+    try:
+        for label, negative in (("no_negative", None), ("negative", NEGATIVE_PROMPT)):
+            encode_s.clear()
+            finite.clear()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = pipe(prompt=PROMPT, negative_prompt=negative, height=size, width=size,
+                       num_inference_steps=steps, guidance_scale=guidance,
+                       generator=torch.Generator("cuda").manual_seed(4),
+                       output_type="uint8")
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = read_counts()
+            img = out.images
+            res[label] = dict(image=list(img.shape), s_per_image=total,
+                              encode_s=sum(encode_s), encodes=len(encode_s),
+                              encode_share=sum(encode_s) / total,
+                              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              launches=counts, expected_launches=expected,
+                              decoded_finite=finite == [True])
+            if img.shape != (1, size, size, 3) or img.dtype != np.uint8:
+                raise AssertionError(f"7b prompt {label}: image {img.shape} {img.dtype}")
+            if finite != [True]:
+                raise AssertionError(f"7b prompt {label}: decoded image holds NaN or Inf")
+            if counts != expected:
+                raise AssertionError(f"7b prompt {label}: launches {counts}, expected {expected}")
+    finally:
+        hook.remove()
+        pipe.text_encoder = None
+    res["t5_resident_gb"] = sum(p.numel() * p.element_size()
+                                for p in t5_stack.parameters()) / 1e9
+    log("7b_prompt", json.dumps(res))
     return res
 
 
@@ -1603,7 +1882,13 @@ def main() -> int:
     fixture, full_images = phase(run_fixture)
     fixture_extras = phase(run_fixture_extras, full_images)
     fixture_int8 = phase(run_fixture_int8, full_images)
+    fixture_prompts = phase(run_fixture_prompts, full_images)
+    qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
+    t5_res, t5_stack = phase(run_text_tower, "t5")
     pipe = build_7b_pipe()
+    prompt_7b = phase(run_7b_prompt, pipe, t5_stack)
+    del t5_stack
+    torch.cuda.empty_cache()
     big = phase(run_7b, pipe)
     img2img = phase(run_img2img, pipe)
     strength_one = phase(run_strength_one, pipe)
@@ -1634,6 +1919,9 @@ def main() -> int:
         launches_serving_7b_image=big["launches"],
         launches_serving_7b_img2img_1280=img2img["launches"]["fwd"],
         launches_serving_fixture=fixture["launches"],
+        launches_serving_fixture_prompts=fixture_prompts["launches"]["fwd"],
+        launches_serving_7b_prompt=[prompt_7b[k]["launches"]["fwd"]
+                                    for k in ("no_negative", "negative")],
         launches_serving_fixture_extras=fixture_extras["launches"]["fwd"],
         launches_lab=lab["launches"]["fwd"],
         launches_fixture_train=fixture_train["launches"]["fwd"],
@@ -1747,7 +2035,12 @@ def main() -> int:
                     "block_grads_max_rel": block["max_rel"],
                     "backward_shapes": bwd_rows,
                     "fixture_int8": dict(both_acc=fixture_int8["both_acc"],
-                                         psnr_vs_bf16_db=fixture_int8["psnr_vs_bf16_db"])}))
+                                         psnr_vs_bf16_db=fixture_int8["psnr_vs_bf16_db"]),
+                    "text_towers": {r["tower"]: {k: r[k] for k in (
+                        "max_err_over_tol", "encode_ms", "bound_ms", "bound_by",
+                        "peak_gb_with_fp32_copy", "launches")} for r in (t5_res, qwen)},
+                    "serving_7b_prompt": {k: prompt_7b[k]["s_per_image"]
+                                          for k in ("no_negative", "negative")}}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """JAX parameters -> the port's state dicts (own copy of the maps in
 `f_lite_tpu/convert/jax_to_torch.py`: `invert_dit_params` with
 `from_scan_layout`, `invert_vae_params`; and of `pipeline_to_scan_params`
-in `f_lite_tpu/parallel/pipeline.py`).
+in `f_lite_tpu/parallel/pipeline.py`), and the text towers' trees of
+`convert_t5_state_dict` / `convert_qwen2_state_dict` carried to HF's names
+(`t5_state_dict_from_jax`, `qwen2_state_dict_from_jax`).
 
 Input: the dot-flattened keys exactly as `flax_params.safetensors` stores
 them (e.g. `blocks_3.self_attn.qkv.kernel`), as numpy arrays. Layouts:
@@ -274,4 +276,46 @@ def vae_state_dict_from_jax(flat_params: Mapping[str, np.ndarray],
                   f"decoder.up_blocks.{i}.upsamplers.0.conv", sd)
     _groupnorm(dec["conv_norm_out"], "decoder.conv_norm_out", sd)
     _conv(dec["conv_out"], "decoder.conv_out", sd)
+    return _to_torch(sd)
+
+
+def t5_state_dict_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """JAX `T5EncoderStack` params (nested or dot-flattened) -> the port's
+    `T5EncoderStack` state dict (HF `T5EncoderModel` names), fp32."""
+    p = unflatten(params)
+    p = p.get("params", p)
+    sd: dict[str, np.ndarray] = {
+        "shared.weight": p["embed_tokens"],
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+            p["relative_attention_bias"],
+        "encoder.final_layer_norm.weight": p["final_layer_norm"],
+    }
+    ff = ("wi_0", "wi_1") if cfg.is_gated else ("wi",)
+    for i in range(cfg.num_layers):
+        blk = p[f"blocks_{i}"]
+        a, f = f"encoder.block.{i}.layer.0", f"encoder.block.{i}.layer.1"
+        sd[f"{a}.layer_norm.weight"] = blk["attn_layer_norm"]
+        sd[f"{f}.layer_norm.weight"] = blk["ff_layer_norm"]
+        for name in ("q", "k", "v", "o"):
+            _dense(blk[name], f"{a}.SelfAttention.{name}", sd)
+        for name in (*ff, "wo"):
+            _dense(blk[name], f"{f}.DenseReluDense.{name}", sd)
+    return _to_torch(sd)
+
+
+def qwen2_state_dict_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """JAX `Qwen2Encoder` params (nested or dot-flattened) -> the port's
+    `Qwen2Encoder` state dict (HF `Qwen2Model` names), fp32."""
+    p = unflatten(params)
+    p = p.get("params", p)
+    sd: dict[str, np.ndarray] = {"embed_tokens.weight": p["embed_tokens"],
+                                 "norm.weight": p["norm"]}
+    for i in range(cfg.num_hidden_layers):
+        layer, base = p[f"layers_{i}"], f"layers.{i}"
+        sd[f"{base}.input_layernorm.weight"] = layer["input_layernorm"]
+        sd[f"{base}.post_attention_layernorm.weight"] = layer["post_attention_layernorm"]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _dense(layer[name], f"{base}.self_attn.{name}", sd)
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _dense(layer[name], f"{base}.mlp.{name}", sd)
     return _to_torch(sd)

@@ -1,18 +1,22 @@
 """FLitePipeline in PyTorch (counterpart of `f_lite_tpu/pipeline.py`).
 
-Serving path: load a native pipeline directory, take text embeddings, run
-the CFG-batched trajectory (Euler or ab2, optionally with limited-interval
-guidance) through the DiT, decode with the VAE and return images; with an
-input image, encode it and start part-way (image to image), optionally
-repainting only a masked region (inpainting).
+Serving path: load a native pipeline directory, encode prompts (or take
+text embeddings), run the CFG-batched trajectory (Euler or ab2, optionally
+with limited-interval guidance) through the DiT, decode with the VAE and
+return images; with an input image, encode it and start part-way (image to
+image), optionally repainting only a masked region (inpainting).
 
 Directory layout (as written by the JAX package's `save_pretrained`):
-  {root}/model_index.json
+  {root}/model_index.json  (optional `text_encoder_type`: "t5" by default,
+      "qwen2", or any other for `TorchTextEncoder`; `return_index`, -8)
   {root}/dit/config.json + flax_params.safetensors  (unrolled, scan-stacked
       or pipeline-parallel layout, heads padded or not)
   {root}/vae/config.json + flax_params.safetensors  (optional)
+  {root}/text_encoder/ (HF folder, optional), {root}/tokenizer/ (optional;
+      the tokenizer is read from text_encoder/ without it)
 With no `vae/` the pipeline runs in pixel space (`IdentityVAE`), and
-height/width are the DiT's own input size.
+height/width are the DiT's own input size. Tokenizing runs on the host and
+needs `transformers`; the text tower runs on the pipeline's device.
 
 Images and masks given as arrays go through numpy; PIL is imported only for
 a PIL input, a mask that needs resizing, or `output_type="pil"`.
@@ -55,6 +59,7 @@ from f_lite_tpu_torch.sampling.euler import (
     denoise,
     schedule_start_time,
 )
+from f_lite_tpu_torch.utils.device import resolve_device
 from f_lite_tpu_torch.utils.safetensors import load_file
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "pil")
@@ -63,16 +68,6 @@ OUTPUT_TYPES = ("latent", "np", "uint8", "pil")
 @dataclasses.dataclass
 class FLitePipelineOutput:
     images: Any
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _pad_seq(emb: np.ndarray, mask: np.ndarray, target: int):
@@ -184,10 +179,38 @@ def to_uint8(images: torch.Tensor) -> torch.Tensor:
     return torch.round(x).to(torch.uint8)
 
 
+def text_encoder_from_dir(path: Path, index: dict, device: torch.device):
+    """The text encoder of a pipeline directory's `text_encoder/` (bf16 for
+    the port's T5 and Qwen2 stacks, fp32 for `TorchTextEncoder`, as the JAX
+    package loads them), or None without one."""
+    te_dir = path / "text_encoder"
+    if not (te_dir / "config.json").exists():
+        return None
+    te_type = index.get("text_encoder_type", "t5")
+    return_index = index.get("return_index", -8)
+    tok_dir = path / "tokenizer"
+    tokenizer = str(tok_dir if tok_dir.exists() else te_dir)
+    if te_type == "t5":
+        from f_lite_tpu_torch.text.encoder import T5TextEncoder
+
+        return T5TextEncoder(str(te_dir), tokenizer, return_index=return_index,
+                             device=device)
+    if te_type == "qwen2":
+        from f_lite_tpu_torch.text.qwen2 import Qwen2TextEncoder
+
+        return Qwen2TextEncoder(str(te_dir), tokenizer,
+                                return_index=return_index, device=device)
+    from f_lite_tpu_torch.text.encoder import TorchTextEncoder
+
+    return TorchTextEncoder(str(te_dir), return_index=return_index, device=device)
+
+
 class FLitePipeline:
-    def __init__(self, dit: DiT, vae: AutoencoderKL | None = None):
+    def __init__(self, dit: DiT, vae: AutoencoderKL | None = None,
+                 text_encoder=None):
         self.dit = dit
         self.vae = vae if vae is not None else IdentityVAE()
+        self.text_encoder = text_encoder
         self.vae_scale_factor = self.vae.config.spatial_scale
         # VAE memory mode (models.vae.MEMORY_MODES): "auto" encodes and
         # decodes whole up to AUTO_TILE_LATENTS latents and tiled past them
@@ -229,17 +252,23 @@ class FLitePipeline:
 
     @classmethod
     def from_pretrained(cls, path: str | Path, *, dtype=torch.bfloat16,
-                        device="cuda", quantize: bool = False) -> "FLitePipeline":
+                        device="cuda", quantize: bool = False,
+                        text_encoder=None,
+                        load_text_encoder: bool = True) -> "FLitePipeline":
         """Load a native pipeline directory. The DiT runs in `dtype`; the
         VAE, as in the JAX package, in fp32.
 
         `quantize=True`: int8 W8A8 projections (`quant.quantize_dit`),
         quantized from the weights after their cast to `dtype`, as the JAX
         package does; the argument decides, whatever the saved config says.
-        A checkpoint saved with int8 weights loads only with it."""
+        A checkpoint saved with int8 weights loads only with it.
+
+        `text_encoder`: used as given; otherwise, with `load_text_encoder`,
+        the directory's `text_encoder/` is loaded
+        (`text_encoder_from_dir`), on `device`."""
         device = resolve_device(device)
         path = Path(path)
-        json.loads((path / "model_index.json").read_text())
+        index = json.loads((path / "model_index.json").read_text())
         flat = load_file(path / "dit" / "flax_params.safetensors")
         saved_int8 = any(k.endswith(".w8") for k in flat)
         if saved_int8 and not quantize:
@@ -264,7 +293,29 @@ class FLitePipeline:
                 load_file(path / "vae" / "flax_params.safetensors"), vcfg
             ))
             vae = vae.to(device).eval()
-        return cls(dit, vae)
+        if text_encoder is None and load_text_encoder:
+            text_encoder = text_encoder_from_dir(path, index, device)
+        return cls(dit, vae, text_encoder)
+
+    def encode_prompt(self, prompt, negative_prompt=None):
+        """Prompt(s) -> (embeds, neg, mask, neg_mask) as numpy through the
+        text encoder. With no negative prompt the negative is zeros with an
+        all-ones mask (the reference's unconditional context); with one, the
+        two are right-padded to the longer length."""
+        if isinstance(prompt, str):
+            prompt = [prompt]
+        if self.text_encoder is None:
+            raise ValueError("pipeline has no text encoder; pass prompt_embeds instead")
+        embeds, mask = self.text_encoder.encode(prompt)
+        if negative_prompt is None:
+            return embeds, np.zeros_like(embeds), mask, np.ones_like(mask)
+        if isinstance(negative_prompt, str):
+            negative_prompt = [negative_prompt]
+        neg, neg_mask = self.text_encoder.encode(negative_prompt)
+        s = max(embeds.shape[1], neg.shape[1])
+        embeds, mask = _pad_seq(embeds, mask, s)
+        neg, neg_mask = _pad_seq(neg, neg_mask, s)
+        return embeds, neg, mask, neg_mask
 
     @staticmethod
     def _context(prompt_embeds, negative_embeds, context_mask,
@@ -292,15 +343,17 @@ class FLitePipeline:
     @torch.no_grad()
     def __call__(
         self,
-        prompt_embeds,
+        prompt=None,
         height: int = 1024,
         width: int = 1024,
         num_inference_steps: int = 30,
         guidance_scale: float = 6.0,
+        negative_prompt=None,
         num_images_per_prompt: int = 1,
         generator: torch.Generator | None = None,
         alpha: float | None = None,
         apg_config: APGConfig | None = None,
+        prompt_embeds=None,
         negative_embeds=None,
         context_mask=None,
         negative_context_mask=None,
@@ -313,9 +366,11 @@ class FLitePipeline:
         guidance_interval: tuple | None = None,
         sampler: str = "euler",
     ) -> FLitePipelineOutput:
-        """Generate images (B, height, width, 3) from text embeddings
-        `prompt_embeds` (B, S, C), with `context_mask` (B, S) bool (True =
-        real token; default all real).
+        """Generate images (B, height, width, 3) from `prompt` (a string or
+        a list) and `negative_prompt` through the text encoder
+        (`encode_prompt`), or from text embeddings `prompt_embeds` (B, S, C)
+        with `context_mask` (B, S) bool (True = real token; default all
+        real) and optionally `negative_embeds`.
 
         `latents` (B, h, w, C) NHWC replaces the starting noise; otherwise
         it is drawn from `generator` (a seed-0 generator when None) in the
@@ -345,10 +400,15 @@ class FLitePipeline:
         dtype = self.dit.dtype
         apg = apg_config if (apg_config and apg_config.enabled) else None
 
-        embeds, neg, mask, neg_mask = self._context(
-            prompt_embeds, negative_embeds, context_mask,
-            negative_context_mask,
-        )
+        if prompt_embeds is not None:
+            embeds, neg, mask, neg_mask = self._context(
+                prompt_embeds, negative_embeds, context_mask,
+                negative_context_mask,
+            )
+        elif prompt is not None:
+            embeds, neg, mask, neg_mask = self.encode_prompt(prompt, negative_prompt)
+        else:
+            raise ValueError("pass prompt or prompt_embeds")
         if pad_context_to:
             t = -(-embeds.shape[1] // pad_context_to) * pad_context_to
             embeds, mask = _pad_seq(embeds, mask, t)

@@ -251,9 +251,9 @@ def train(args, on_step=None) -> dict:
     tensors)."""
     from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
     from f_lite_tpu_torch.models.dit import DiT
-    from f_lite_tpu_torch.pipeline import resolve_device
     from f_lite_tpu_torch.train.optim import build_lr_schedule, build_optimizer
     from f_lite_tpu_torch.train.step import TrainState, train_step
+    from f_lite_tpu_torch.utils.device import resolve_device
 
     t_start = time.time()
     check_ported(args)

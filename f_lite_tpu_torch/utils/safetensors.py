@@ -4,7 +4,10 @@ Layout: an 8-byte little-endian header length N, N bytes of JSON
 ({name: {"dtype", "shape", "data_offsets": [begin, end]}, optional
 "__metadata__"}), then the tensor bytes, offsets relative to the end of the
 header. F32, F16 and I8 (int8 weights of a quantized DiT) load as such;
-BF16 widens exactly to float32 (numpy has no bfloat16). The writer stores float32 arrays, in name order.
+BF16 widens exactly to float32 (numpy has no bfloat16). `raw_arrays` yields
+each tensor as a view of a map of the file (BF16 as its uint16 bits), so a
+caller can take one tensor at a time without reading the whole file. The
+writer stores float32 arrays, in name order.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 
@@ -19,25 +23,36 @@ _DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
            "I8": np.int8}
 
 
-def load_file(path: str | Path) -> dict[str, np.ndarray]:
-    data = Path(path).read_bytes()
-    (n,) = struct.unpack("<Q", data[:8])
-    header = json.loads(data[8 : 8 + n])
-    base = 8 + n
-    out = {}
+def read_header(path: str | Path) -> tuple[dict, int]:
+    """({name: info} without "__metadata__", offset of the tensor bytes)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+def raw_arrays(path: str | Path) -> Iterator[tuple[str, str, np.ndarray]]:
+    """(name, safetensors dtype, array) for every tensor of the file. The
+    arrays are views of a copy-on-write map of the file, BF16 as uint16
+    bits: a tensor's bytes are read when it is used."""
+    header, base = read_header(path)
+    data = np.memmap(path, np.uint8, mode="c")
     for name, info in header.items():
-        if name == "__metadata__":
-            continue
         dt = info["dtype"]
         if dt not in _DTYPES:
             raise ValueError(f"{path}: tensor {name} has unsupported dtype {dt}")
         begin, end = info["data_offsets"]
-        arr = np.frombuffer(data, _DTYPES[dt], (end - begin)
-                            // np.dtype(_DTYPES[dt]).itemsize, base + begin)
-        arr = arr.reshape(info["shape"])
+        arr = data[base + begin : base + end].view(_DTYPES[dt])
+        yield name, dt, arr.reshape(info["shape"])
+
+
+def load_file(path: str | Path) -> dict[str, np.ndarray]:
+    out = {}
+    for name, dt, arr in raw_arrays(path):
         if dt == "BF16":
             arr = (arr.astype(np.uint32) << 16).view(np.float32)
-        out[name] = arr.copy()
+        out[name] = np.array(arr)
     return out
 
 

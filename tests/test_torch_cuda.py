@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the Hopper kernels (forward,
 dq, dkv, the lab's variants, the int8 quantize and product) against their
-plain versions, and the DiT's gradients, a training step and the pipeline
-(bf16 and int8) on the card against the same code on the CPU. They skip
+plain versions, and the DiT's gradients, a training step, the pipeline
+(bf16 and int8) and the T5 and Qwen2 text stacks (bf16) on the card against
+the same code on the CPU. They skip
 without a card. This file imports no JAX, so it also runs
 on a GPU host without it:
 
@@ -21,6 +22,7 @@ from f_lite_tpu_torch.ops.cuda import int8_gemm as tig
 from f_lite_tpu_torch.pipeline import FLitePipeline
 from f_lite_tpu_torch.quant import quantize_weight
 from f_lite_tpu_torch.tools import int8_tiles
+from f_lite_tpu_torch.text import qwen2, t5
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 from f_lite_tpu_torch.train.optim import build_optimizer
 from f_lite_tpu_torch.train.step import TrainState, train_step
@@ -634,3 +636,45 @@ def test_quantized_fixture_dit_on_the_card_matches_the_cpu(cuda_device, monkeypa
     print(f"card int8 vs cpu int8 MSE {diff}, cpu int8 vs fp32 {noise}, "
           f"card fp32 vs cpu fp32 {fp32_diff}")
     assert 0 < noise and diff <= noise
+
+
+def _counts():
+    return (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count,
+            tfv.LAUNCHES.count, tig.QUANTIZE_LAUNCHES.count, tig.GEMM_LAUNCHES.count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["t5", "qwen2"])
+def test_text_stack_bf16_on_the_card_matches_fp32_cpu(cuda_device, kind):
+    """A small T5 (gated-gelu, 6 blocks) and Qwen2 tower (GQA 8/2, 6 layers)
+    with bf16 weights on the card (bf16 products into fp32 activations),
+    with padding, within 5% of the rms of the same weights in fp32 on the
+    CPU on the real rows (`tolerance`), at return_index -2 and -1; no
+    hand-written kernel is launched."""
+    if kind == "t5":
+        cpu = t5.T5EncoderStack(t5.T5Config(
+            vocab_size=100, d_model=256, d_kv=32, d_ff=512, num_layers=6,
+            num_heads=8))
+    else:
+        cpu = qwen2.Qwen2Encoder(qwen2.Qwen2Config(
+            vocab_size=128, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=6, num_attention_heads=8, num_key_value_heads=2))
+    cpu = randomize_(cpu, seed=0).eval()
+    gpu = type(cpu)(cpu.config).to(cuda_device, torch.bfloat16).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.load_state_dict(gpu.state_dict())  # the bf16-rounded weights in fp32
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, 100, (3, 40)))
+    mask = torch.from_numpy(np.arange(40)[None] < np.array([[40], [17], [5]]))
+    before = _counts()
+    for return_index in (-2, -1):
+        with torch.no_grad():
+            want = cpu(ids, mask, return_index=return_index)
+            got = gpu(ids.to(cuda_device), mask.to(cuda_device),
+                      return_index=return_index)
+        assert got.dtype == torch.float32 and got.shape == want.shape == (3, 40, 256)
+        err = float((got.cpu() - want)[mask].abs().max())
+        tol = tfa.tolerance(want[mask], torch.bfloat16)
+        print(f"{kind} return_index {return_index}: err {err:.4g} tol {tol:.4g}")
+        assert err <= tol
+    assert _counts() == before

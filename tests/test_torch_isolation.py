@@ -1,8 +1,11 @@
 """The port stands alone: with `jax`, `flax`, `optax` and `f_lite_tpu`
 blocked by an import hook, every module of `f_lite_tpu_torch` (the training
-path's included) and `chip_smoke.py` import (and do no work at import
-time), and the entry points' default device is the card: without one,
-`from_pretrained` and the trainer raise instead of falling back."""
+path's and the text encoders' included) and `chip_smoke.py` import (and do
+no work at import time); with `transformers`, `tokenizers` and
+`safetensors` blocked too, every text module imports and the text stacks
+build, load an HF folder and run. The entry points' default device is the
+card: without one, `from_pretrained`, the text encoders and the trainer
+raise instead of falling back."""
 
 import subprocess
 import sys
@@ -47,6 +50,11 @@ TRAINING_MODULES = (
     "f_lite_tpu_torch.train.step", "f_lite_tpu_torch.data.precomputed",
     "f_lite_tpu_torch.data.samplers", "f_lite_tpu_torch.convert.to_jax",
 )
+TEXT_MODULES = ("f_lite_tpu_torch.text.encoder", "f_lite_tpu_torch.text.t5",
+                "f_lite_tpu_torch.text.qwen2", "f_lite_tpu_torch.text.templates",
+                "f_lite_tpu_torch.convert.hf_weights",
+                "f_lite_tpu_torch.text.layers", "f_lite_tpu_torch.utils.device",
+                "f_lite_tpu_torch.tools.text_precision")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -66,10 +74,67 @@ def test_port_imports_without_jax_or_reference_package():
     out = _run(BLOCKED_IMPORTS.replace("BUILT_BEFORE", str(before)))
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
-    assert set(TRAINING_MODULES + LAB_MODULES) <= set(names.split()), names
+    assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 26, out.stdout
+    assert n_modules >= 34, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
+
+
+TEXT_WITHOUT_HF = textwrap.dedent("""
+    import importlib, importlib.abc, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "flax", "f_lite_tpu", "transformers", "tokenizers",
+               "safetensors")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    for name in TEXT_MODULES + ("f_lite_tpu_torch.text", "f_lite_tpu_torch.pipeline"):
+        importlib.import_module(name)
+    from f_lite_tpu_torch.text import qwen2, t5
+    from f_lite_tpu_torch.text.encoder import T5TextEncoder
+    from f_lite_tpu_torch.utils.random_weights import randomize_
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    class Words:
+        def __call__(self, texts, **kw):
+            from f_lite_tpu_torch.text.encoder import _pad_to_multiple
+            ids, mask = _pad_to_multiple([[len(w) for w in t.split()] for t in texts],
+                                         0, kw["pad_to_multiple_of"], kw["max_length"])
+            return {"input_ids": ids, "attention_mask": mask.astype("int64")}
+
+    cfg = t5.T5Config(vocab_size=32, d_model=16, d_kv=8, d_ff=32, num_layers=2,
+                      num_heads=2)
+    stack = randomize_(t5.T5EncoderStack(cfg), seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        save_file({k: v.numpy() for k, v in stack.state_dict().items()},
+                  Path(d) / "model.safetensors")
+        (Path(d) / "config.json").write_text(__import__("json").dumps(
+            {**cfg.__dict__}))
+        loaded = t5.load_t5_encoder(d, dtype=torch.float32, device="cpu")
+    emb, mask = T5TextEncoder.from_stack(loaded, Words(), return_index=-1).encode(
+        ["a red circle", "blue"])
+    assert emb.shape == (2, 8, 16) and mask.sum() == 4, (emb.shape, mask)
+    q = randomize_(qwen2.Qwen2Encoder(qwen2.Qwen2Config(
+        vocab_size=32, hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=1)), seed=1)
+    assert q(torch.zeros(1, 5, dtype=torch.long), return_index=-1).shape == (1, 5, 16)
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_text_modules_import_and_run_without_hf_packages():
+    out = _run(TEXT_WITHOUT_HF.replace("TEXT_MODULES", repr(TEXT_MODULES)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
 
 
 def _skip_on_a_cuda_host():
@@ -93,6 +158,18 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     assert "no CUDA device" in out.stdout
 
 
+def test_text_encoders_default_to_cuda_and_raise_without_a_card(tmp_path):
+    _skip_on_a_cuda_host()
+    from f_lite_tpu_torch.text.encoder import T5TextEncoder, TorchTextEncoder
+    from f_lite_tpu_torch.text.qwen2 import Qwen2TextEncoder, load_qwen2_encoder
+    from f_lite_tpu_torch.text.t5 import load_t5_encoder
+
+    for build in (T5TextEncoder, Qwen2TextEncoder, TorchTextEncoder,
+                  load_t5_encoder, load_qwen2_encoder):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(str(tmp_path))
+
+
 def test_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
     _skip_on_a_cuda_host()
     out = subprocess.run(
@@ -111,7 +188,8 @@ def test_lab_raises_without_a_card():
     assert "no CUDA device" in out.stderr, out.stderr
 
 
-@pytest.mark.parametrize("tool", ["forward_tiles", "backward_tiles", "int8_tiles"])
+@pytest.mark.parametrize("tool", ["forward_tiles", "backward_tiles", "int8_tiles",
+                                  "text_precision"])
 def test_tile_trials_raise_without_a_card(tool):
     _skip_on_a_cuda_host()
     out = subprocess.run([sys.executable, "-m", f"f_lite_tpu_torch.tools.{tool}"],
