@@ -70,6 +70,20 @@ Phases (any failed check raises and the run exits non-zero):
    captions)` with the port's `ZeroTextEncoder(64, seq_len=32)` attached:
    images equal to phase 7's bit for bit, both_acc >= 0.95, exactly
    4 * 30 * 12 forward launches;
+8c. the fixture with a LoRA merged at load (`from_pretrained(lora_path=)`):
+   seeded rank-4 factors on every qkv, q, context_kv and proj, written
+   here in the framework's safetensors form (the port's writer) and in
+   the peft `.pt` form; at lora_scale 0 phase 7's images bit for bit; at
+   scale 1 the two forms give equal images, finite and not phase 7's
+   (both_acc printed, no bar: the factors are random); exactly
+   4 * 30 * 12 forward launches in each run, and with quantize=True
+   4 * 30 * 48 launches of each int8 kernel;
+8d. `save_pretrained` of the bf16 fixture and `from_pretrained` of the
+   result; a diffusers-layout snapshot of the fixture written here
+   (reference key names under `dit_model/`) through `from_pretrained`
+   twice, the first load converting and caching, the second taking the
+   cache: each gives phase 7's images bit for bit, with exact launch
+   counts; the save, convert and cached-load seconds printed;
 9a. T5-XXL at full width and depth (`T5Config()`: 24 blocks, d_model
    4096, 64 heads x 64, d_ff 10240, gated-gelu), seeded bf16 weights, at
    return_index -8 (blocks 0-16): one prompt of 77 seeded ids padded to
@@ -100,6 +114,12 @@ Phases (any failed check raises and the run exits non-zero):
    (9 tiles each); finite output, exactly 15 * 56 forward launches, the
    kept region of the final latents equal to the encoded image's;
 11. strength 1.0 without a mask equals text to image bit for bit (256 px);
+9d. phase 9's request with a seeded rank-64 LoRA on every target
+   (`train.lora.apply_lora`, what `from_pretrained` merges with) merged
+   into a copy of phase 9's DiT, the original parked on the host: finite,
+   exactly 30 * 56 forward launches, merge s, s/image and peak GB beside
+   phase 9's; `return_latents=True` equal to `output_type="latent"` bit
+   for bit (2 steps);
 11a. int8 serving at 7B width: the pipeline of phases 9-11 quantized in
    place (`quant.quantize_dit`), the request of phase 9: finite output,
    exactly 30 * 56 forward and 30 * 248 launches of each int8 kernel,
@@ -1187,16 +1207,17 @@ def fixture_captions(classes) -> list[str]:
     return [f"a {c} {s}" for c, s in classes]
 
 
-def load_fixture(quantize=False):
+def load_fixture(quantize=False, path=FIXTURE, **load_kw):
     """(pipeline in bf16, its 24 captions' embeddings and mask, the
-    classes, forward launches per step)."""
+    classes, forward launches per step); `load_kw` go to
+    `from_pretrained` (a LoRA)."""
     import torch
 
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 
-    pipe = FLitePipeline.from_pretrained(FIXTURE, dtype=torch.bfloat16,
-                                         quantize=quantize)
+    pipe = FLitePipeline.from_pretrained(path, dtype=torch.bfloat16,
+                                         quantize=quantize, **load_kw)
     cfg = pipe.dit.config
     classes = [(c, s) for c in COLORS for s in SHAPES]
     embeds, mask = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=32).encode(
@@ -1340,6 +1361,190 @@ def run_fixture_prompts(full_images, n_requests=4, steps=30, guidance=6.0) -> di
 
 
 # ---------------------------------------------------------------------------
+# phases 8c-8d: the fixture with a LoRA merged at load; saved, reloaded and
+# ingested from a diffusers-layout snapshot
+# ---------------------------------------------------------------------------
+
+def seeded_lora(cfg, rank, seed, device) -> dict:
+    """Seeded factors on every qkv, q, context_kv and proj of a DiT of
+    config `cfg` (the framework's tree, fp32 on `device`): a ~ N(0, 1/in),
+    b ~ N(0, 0.01/rank), so a delta is about a fifth of a seeded weight."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    d = cfg.hidden_size
+    out = {"qkv": 3 * d, "q": d, "context_kv": 2 * d, "proj": d}
+    tree = {}
+    for i in range(cfg.depth):
+        attns = {"self_attn": ("qkv", "proj")}
+        if cfg.block_has_cross_attn(i):
+            attns["cross_attn"] = ("q", "context_kv", "proj")
+        tree[f"blocks_{i}"] = {attn: {t: {
+            "lora_a": torch.randn(d, rank, generator=g, device=device) / math.sqrt(d),
+            "lora_b": torch.randn(rank, out[t], generator=g, device=device)
+            * (0.1 / math.sqrt(rank))} for t in targets}
+            for attn, targets in attns.items()}
+    return tree
+
+
+def lora_targets(tree) -> int:
+    return sum(len(targets) for blk in tree.values() for targets in blk.values())
+
+
+def write_lora(tree, root: Path) -> tuple[Path, Path]:
+    """The adapter in the framework's safetensors form (the port's writer)
+    and in the peft `.pt` form (`torch.save`): (st dir, pt file)."""
+    import torch
+
+    from f_lite_tpu_torch.convert.lora_torch import lora_to_peft_state_dict
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    (root / "st").mkdir(parents=True)
+    save_file({f"{b}.{attn}.{t}.{k}": v.cpu() for b, blk in tree.items()
+               for attn, targets in blk.items() for t, f in targets.items()
+               for k, v in f.items()}, root / "st" / "lora_weights.safetensors")
+    cpu = {b: {attn: {t: {k: v.cpu().numpy() for k, v in f.items()}
+                      for t, f in targets.items()} for attn, targets in blk.items()}
+           for b, blk in tree.items()}
+    torch.save({k: torch.from_numpy(v) for k, v in lora_to_peft_state_dict(cpu).items()},
+               root / "lora_weights.pt")
+    return root / "st", root / "lora_weights.pt"
+
+
+def fixture_config():
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    return DiTConfig.from_json_dict(json.loads((FIXTURE / "dit" / "config.json").read_text()))
+
+
+def run_fixture_lora(full_images, tmp: Path, n_requests=4, steps=30,
+                     guidance=6.0) -> dict:
+    """Phase 8c: the requests of phase 7 on the fixture with a seeded rank-4
+    LoRA on every target merged at load: at lora_scale 0 phase 7's images
+    bit for bit; at scale 1 the safetensors and the peft forms give equal
+    images, finite and not phase 7's (both_acc printed, no bar: the
+    factors are random); then with quantize=True. Exact launch counts in
+    each run."""
+    import numpy as np
+    import torch
+
+    tree = seeded_lora(fixture_config(), rank=4, seed=5, device="cpu")
+    st, pt = write_lora(tree, tmp / "fixture_lora")
+    runs = {"scale_0": dict(lora_path=st, lora_scale=0.0),
+            "safetensors": dict(lora_path=st), "peft_pt": dict(lora_path=pt),
+            "int8": dict(lora_path=st, quantize=True)}
+    res, images = {}, {}
+    for name, kw in runs.items():
+        pipe, embeds, mask, classes, n_blocks = load_fixture(**kw)
+        per_forward = int8_layers(pipe.dit)
+        expected = launches(fwd=n_requests * steps * n_blocks,
+                            quantize=n_requests * steps * per_forward,
+                            gemm=n_requests * steps * per_forward)
+        reset_counts()
+        images[name], seconds = fixture_requests(
+            pipe, len(embeds), n_requests, prompt_embeds=embeds, context_mask=mask,
+            num_inference_steps=steps, guidance_scale=guidance)
+        counts = read_counts()
+        res[name] = dict(both_acc=both_acc(images[name], classes),
+                         mse_vs_phase_7=float(np.mean((images[name] - full_images) ** 2)),
+                         s_per_request=seconds, launches=counts,
+                         expected_launches=expected)
+        if counts != expected:
+            raise AssertionError(f"fixture lora {name}: launches {counts}, "
+                                 f"expected {expected}")
+        del pipe
+        torch.cuda.empty_cache()
+    res.update(rank=4, targets=lora_targets(tree),
+               scale_0_equal_to_phase_7=bool(np.array_equal(images["scale_0"], full_images)),
+               forms_equal=bool(np.array_equal(images["safetensors"], images["peft_pt"])))
+    log("fixture_lora", json.dumps(res))
+    if not res["scale_0_equal_to_phase_7"]:
+        raise AssertionError("fixture lora: lora_scale=0 differs from phase 7")
+    if not res["forms_equal"]:
+        raise AssertionError("fixture lora: the peft and safetensors forms differ")
+    if res["safetensors"]["mse_vs_phase_7"] == 0:
+        raise AssertionError("fixture lora: the merged LoRA changed no image")
+    return res
+
+
+def write_diffusers_snapshot(dit, root: Path) -> Path:
+    """A diffusers-layout snapshot of `dit` as the reference lays it out:
+    `dit_model/diffusion_pytorch_model.safetensors` under the reference
+    key names (the port's own, fp32) and the reference's `config.json`
+    fields."""
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    cfg = dit.config
+    (root / "dit_model").mkdir(parents=True)
+    save_file({k: v.float().cpu() for k, v in dit.state_dict().items()},
+              root / "dit_model" / "diffusion_pytorch_model.safetensors")
+    fields = ("in_channels", "patch_size", "hidden_size", "depth", "num_heads",
+              "mlp_ratio", "cross_attn_input_size", "train_bias_and_rms", "use_rope",
+              "rope_base", "dynamic_softmax_temperature", "residual_v",
+              "adaln_mode", "cross_attn_all", "cross_attn_first_n", "cross_attn_period")
+    (root / "dit_model" / "config.json").write_text(json.dumps(
+        {"_class_name": "DiT", **{f: getattr(cfg, f) for f in fields}}, indent=2))
+    (root / "model_index.json").write_text(json.dumps(
+        {"_class_name": "FLitePipeline", "dit_model": ["f_lite.model", "DiT"]}, indent=2))
+    return root
+
+
+def run_fixture_save_ingest(full_images, tmp: Path, n_requests=4, steps=30,
+                            guidance=6.0) -> dict:
+    """Phase 8d: `save_pretrained` of the bf16 fixture, then
+    `from_pretrained` of it; a diffusers-layout snapshot of the fixture
+    (reference key names under `dit_model/`) through `from_pretrained`
+    twice, the first load converting and caching, the second taking the
+    cache. Each gives phase 7's images bit for bit, with exact launch
+    counts; the convert and cached-load seconds are printed."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+
+    pipe = load_fixture()[0]
+    t0 = time.perf_counter()
+    pipe.save_pretrained(tmp / "saved")
+    save_s = time.perf_counter() - t0
+    del pipe
+    snapshot = write_diffusers_snapshot(
+        FLitePipeline.from_pretrained(FIXTURE, dtype=torch.float32, device="cpu").dit,
+        tmp / "snapshot")
+    cache = snapshot / "f_lite_tpu_converted" / "dit" / "flax_params.safetensors"
+    res = dict(save_s=save_s)
+    stamps = []
+    for name, path in (("saved", tmp / "saved"), ("snapshot_convert", snapshot),
+                       ("snapshot_cached", snapshot)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe, embeds, mask, classes, n_blocks = load_fixture(path=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if path == snapshot:
+            stamps.append(cache.stat().st_mtime_ns)
+        expected = n_requests * steps * n_blocks
+        reset_counts()
+        images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
+                                     context_mask=mask, num_inference_steps=steps,
+                                     guidance_scale=guidance)
+        counts = read_counts()
+        res[name] = dict(load_s=load_s, launches=counts, expected_launches=expected,
+                         both_acc=both_acc(images, classes),
+                         equal_to_phase_7=bool(np.array_equal(images, full_images)))
+        if counts != launches(fwd=expected):
+            raise AssertionError(f"fixture {name}: launches {counts}, expected {expected}")
+        if not res[name]["equal_to_phase_7"]:
+            raise AssertionError(f"fixture {name}: images differ from phase 7's")
+        del pipe
+        torch.cuda.empty_cache()
+    res["cache_taken"] = stamps[0] == stamps[1]
+    log("fixture_save_ingest", json.dumps(res))
+    if not res["cache_taken"]:
+        raise AssertionError("fixture snapshot: the second load converted again")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 9-11: serving at 7B width (DiT f_lite_7b + the Flux VAE, seeded
 # random weights)
 # ---------------------------------------------------------------------------
@@ -1387,9 +1592,9 @@ def int8_layers(dit) -> int:
     return sum(isinstance(m, QuantDense) for m in dit.modules())
 
 
-def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b") -> dict:
-    """Phase 9 (and 11a, on the quantized pipeline): text to image at 1024
-    px, 30 steps, g=6."""
+def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b", profile=True) -> dict:
+    """Phase 9 (and 9d with a LoRA, 11a on the quantized pipeline): text to
+    image at 1024 px, 30 steps, g=6; a step profile where `profile`."""
     import numpy as np
     import torch
 
@@ -1444,13 +1649,66 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b") -> dict:
         raise AssertionError(f"{label} decoded image holds NaN or Inf")
     if counts != expected:
         raise AssertionError(f"{label}: launches {counts}, expected {expected}")
-    res["step_profile"] = profile_step(
-        lambda: pipe(prompt_embeds=embeds, context_mask=mask, height=size,
-                     width=size, num_inference_steps=1,
-                     guidance_scale=guidance, output_type="latent"),
-        label=f"{label} step_profile")
+    if profile:
+        res["step_profile"] = profile_step(
+            lambda: pipe(prompt_embeds=embeds, context_mask=mask, height=size,
+                         width=size, num_inference_steps=1,
+                         guidance_scale=guidance, output_type="latent"),
+            label=f"{label} step_profile")
     torch.cuda.empty_cache()
     return res
+
+
+def run_7b_lora(pipe, big, steps=30, guidance=6.0, size=1024, rank=64) -> dict:
+    """Phase 9d: phase 9's request with a seeded rank-64 LoRA on every
+    target, merged by `train.lora.apply_lora` (what `from_pretrained`
+    merges with) into a copy of phase 9's DiT, the original parked on the
+    host meanwhile so that the peak is this DiT's: finite, exactly 30 * 56
+    forward launches; merge s, s/image and peak GB beside phase 9's; then
+    `return_latents=True` equal to `output_type="latent"` bit for bit."""
+    import copy
+
+    import torch
+
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.train.lora import apply_lora, lora_rank
+
+    dit = copy.deepcopy(pipe.dit)
+    pipe.dit.to("cpu")
+    torch.cuda.empty_cache()
+    tree = seeded_lora(dit.config, rank=rank, seed=6, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = apply_lora(dit, tree, alpha=lora_rank(tree), rank=lora_rank(tree))
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    n_targets = lora_targets(tree)
+    del tree
+    lpipe = FLitePipeline(dit, pipe.vae)
+    res = run_7b(lpipe, steps, guidance, size, label="7b_lora_request", profile=False)
+    embeds, mask = text_7b(lpipe)
+    kw = dict(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
+              num_inference_steps=2, guidance_scale=guidance)
+    host = lpipe(**kw, generator=torch.Generator("cuda").manual_seed(7),
+                 return_latents=True).images
+    device = lpipe(**kw, generator=torch.Generator("cuda").manual_seed(7),
+                   output_type="latent").images
+    res.update(rank=rank, merged=merged, targets=n_targets, merge_s=merge_s,
+               return_latents_equal=bool(host.device.type == "cpu"
+                                         and torch.equal(host, device.cpu())),
+               return_latents_dtype=str(host.dtype),
+               phase_9=dict(s_per_image=big["s_per_image"], s_per_step=big["s_per_step"],
+                            max_memory_allocated_gb=big["max_memory_allocated_gb"]))
+    log("7b_lora", json.dumps({k: v for k, v in res.items() if k != "counts"}))
+    del lpipe, dit, host, device
+    torch.cuda.empty_cache()
+    pipe.dit.to("cuda")
+    if merged != n_targets:
+        raise AssertionError(f"7b lora: {merged} weights merged, expected {n_targets}")
+    if not res["return_latents_equal"]:
+        raise AssertionError("7b lora: return_latents differs from output_type='latent'")
+    return res
+
 
 
 # ---------------------------------------------------------------------------
@@ -1883,6 +2141,9 @@ def main() -> int:
     fixture_extras = phase(run_fixture_extras, full_images)
     fixture_int8 = phase(run_fixture_int8, full_images)
     fixture_prompts = phase(run_fixture_prompts, full_images)
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture_lora = phase(run_fixture_lora, full_images, Path(tmp))
+        fixture_saved = phase(run_fixture_save_ingest, full_images, Path(tmp))
     qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
     t5_res, t5_stack = phase(run_text_tower, "t5")
     pipe = build_7b_pipe()
@@ -1892,6 +2153,7 @@ def main() -> int:
     big = phase(run_7b, pipe)
     img2img = phase(run_img2img, pipe)
     strength_one = phase(run_strength_one, pipe)
+    big_lora = phase(run_7b_lora, pipe, big)
     from f_lite_tpu_torch.quant import quantize_dit
 
     quantize_dit(pipe.dit)
@@ -1923,6 +2185,12 @@ def main() -> int:
         launches_serving_7b_prompt=[prompt_7b[k]["launches"]["fwd"]
                                     for k in ("no_negative", "negative")],
         launches_serving_fixture_extras=fixture_extras["launches"]["fwd"],
+        launches_serving_fixture_lora={k: fixture_lora[k]["launches"]["fwd"] for k in (
+            "scale_0", "safetensors", "peft_pt", "int8")},
+        launches_serving_fixture_saved_ingested={k: fixture_saved[k]["launches"]["fwd"]
+                                                 for k in ("saved", "snapshot_convert",
+                                                           "snapshot_cached")},
+        launches_serving_7b_lora=big_lora["launches"],
         launches_lab=lab["launches"]["fwd"],
         launches_fixture_train=fixture_train["launches"]["fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -1976,7 +2244,11 @@ def main() -> int:
         launches=lab["launches"]["variants"],
         launches_serving=sum(c["variants"] for c in (
             fixture["counts"], fixture_extras["launches"], big["counts"],
-            img2img["launches"], strength_one["launches"])),
+            img2img["launches"], strength_one["launches"], big_lora["counts"],
+            *(fixture_lora[k]["launches"] for k in ("scale_0", "safetensors",
+                                                    "peft_pt", "int8")),
+            *(fixture_saved[k]["launches"] for k in ("saved", "snapshot_convert",
+                                                     "snapshot_cached")))),
         launches_training=(fixture_train["launches"]["variants"]
                            + train_7b["launches"]["variants"]),
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
@@ -2007,6 +2279,7 @@ def main() -> int:
             name=name, **int8_common,
             launches=big_int8["counts"][counter],
             launches_serving_fixture_int8=fixture_int8["launches"][counter],
+            launches_serving_fixture_lora_int8=fixture_lora["int8"]["launches"][counter],
             ms=int8_main[f"{key}_ms"], plain_ms=int8_main[f"{key}_plain_ms"],
             bound_ms=int8_main[f"{key}_bound_ms"],
             bound_by=int8_main[f"{key}_bound_by"],
@@ -2040,7 +2313,18 @@ def main() -> int:
                         "max_err_over_tol", "encode_ms", "bound_ms", "bound_by",
                         "peak_gb_with_fp32_copy", "launches")} for r in (t5_res, qwen)},
                     "serving_7b_prompt": {k: prompt_7b[k]["s_per_image"]
-                                          for k in ("no_negative", "negative")}}))
+                                          for k in ("no_negative", "negative")},
+                    "pipeline_extras": {
+                        "fixture_lora_both_acc": {k: fixture_lora[k]["both_acc"] for k in (
+                            "safetensors", "peft_pt", "int8")},
+                        "fixture_saved_load_s": fixture_saved["saved"]["load_s"],
+                        "fixture_snapshot_convert_load_s":
+                            fixture_saved["snapshot_convert"]["load_s"],
+                        "fixture_snapshot_cached_load_s":
+                            fixture_saved["snapshot_cached"]["load_s"],
+                        "lora_7b": {k: big_lora[k] for k in (
+                            "rank", "merged", "merge_s", "s_per_image", "s_per_step",
+                            "max_memory_allocated_gb", "phase_9")}}}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

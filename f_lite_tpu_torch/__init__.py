@@ -9,7 +9,7 @@ forward, is a hand-written CUDA kernel (`csrc/flash_attention_fwd.cu`).
 
 __version__ = "0.1.0"
 
-__all__ = ["APGConfig", "DiT", "DiTConfig", "FLitePipeline"]
+__all__ = ["APGConfig", "DiT", "DiTConfig", "FLitePipeline", "FLitePipelineOutput"]
 
 
 def __getattr__(name):
@@ -22,8 +22,8 @@ def __getattr__(name):
         from f_lite_tpu_torch.models import dit
 
         return getattr(dit, name)
-    if name == "FLitePipeline":
-        from f_lite_tpu_torch.pipeline import FLitePipeline
+    if name in ("FLitePipeline", "FLitePipelineOutput"):
+        from f_lite_tpu_torch import pipeline
 
-        return FLitePipeline
+        return getattr(pipeline, name)
     raise AttributeError(name)

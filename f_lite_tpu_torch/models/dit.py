@@ -41,6 +41,7 @@ from f_lite_tpu_torch.ops.patching import patchify, unpatchify
 from f_lite_tpu_torch.ops.rope import apply_rotary, rope_2d_freqs
 from f_lite_tpu_torch.ops.timesteps import timestep_embedding
 from f_lite_tpu_torch.quant import QUANT_TARGETS, quant_matmul
+from f_lite_tpu_torch.utils.random_weights import lecun_normal_
 
 
 # `dit/config.json` fields that shape only the JAX program or the saved
@@ -49,9 +50,6 @@ from f_lite_tpu_torch.quant import QUANT_TARGETS, quant_matmul
 _PROGRAM_ONLY = {"pipeline_microbatches": 1, "use_pallas_attention": None,
                  "scan_layers": False, "pipeline_stages": 1,
                  "padded_heads": None}
-# lecun_normal: a normal of variance 1/fan_in truncated at two standard
-# deviations, widened so that the truncated variance is 1/fan_in
-_TRUNC_STD = 0.87962566103423978
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,9 +374,7 @@ class DiT(nn.Module):
                 if zero_heads & set(name.split(".")):
                     w.zero_()
                 else:
-                    std = math.sqrt(1.0 / math.prod(w.shape[1:])) / _TRUNC_STD
-                    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                          generator=generator)
+                    lecun_normal_(w, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, Attention) and hasattr(mod, "lambda_v"):

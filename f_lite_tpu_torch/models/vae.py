@@ -56,6 +56,12 @@ class VAEConfig:
             kw["block_out_channels"] = tuple(kw["block_out_channels"])
         return cls(**kw)
 
+    def to_json_dict(self) -> dict:
+        """`vae/config.json` as the JAX package writes it."""
+        d = dataclasses.asdict(self)
+        d["block_out_channels"] = list(d["block_out_channels"])
+        return d
+
 
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm in fp32 (eps 1e-6), cast back to the input dtype."""
@@ -253,6 +259,24 @@ class AutoencoderKL(nn.Module):
         dtype = self.decoder.conv_in.weight.dtype
         x = self.decoder(z.to(dtype).permute(0, 3, 1, 2))
         return x.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "AutoencoderKL":
+        """flax's default initializers, drawn from `generator` (on the
+        parameters' device): lecun_normal convolution and dense kernels
+        (truncated normal, fan_in = in * kh * kw), zero biases, GroupNorm
+        scale 1 and bias 0."""
+        from f_lite_tpu_torch.utils.random_weights import lecun_normal_
+
+        for mod in self.modules():
+            if isinstance(mod, nn.GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                lecun_normal_(mod.weight, generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        return self
 
 
 class IdentityVAE:

@@ -6,7 +6,11 @@ with limited-interval guidance) through the DiT, decode with the VAE and
 return images; with an input image, encode it and start part-way (image to
 image), optionally repainting only a masked region (inpainting).
 
-Directory layout (as written by the JAX package's `save_pretrained`):
+`from_pretrained` takes a native pipeline directory, or a diffusers-layout
+snapshot directory (the reference's layout, `dit_model/` with torch
+weights), which is converted once and cached (`convert/ingest.py`); a LoRA
+merges at load (`lora_path=`); `save_pretrained` writes the native layout.
+Native directory layout (as `save_pretrained` writes it, in either package):
   {root}/model_index.json  (optional `text_encoder_type`: "t5" by default,
       "qwen2", or any other for `TorchTextEncoder`; `return_index`, -8)
   {root}/dit/config.json + flax_params.safetensors  (unrolled, scan-stacked
@@ -39,6 +43,11 @@ from f_lite_tpu_torch.convert.from_jax import (
     state_dict_from_jax,
     vae_state_dict_from_jax,
 )
+from f_lite_tpu_torch.convert.ingest import resolve_pretrained
+from f_lite_tpu_torch.convert.to_jax import (
+    state_dict_to_jax,
+    vae_state_dict_to_jax,
+)
 from f_lite_tpu_torch.models.dit import DiT, DiTConfig
 from f_lite_tpu_torch.models.vae import (
     AutoencoderKL,
@@ -59,8 +68,9 @@ from f_lite_tpu_torch.sampling.euler import (
     denoise,
     schedule_start_time,
 )
+from f_lite_tpu_torch.train.lora import apply_lora, load_lora_weights, lora_rank
 from f_lite_tpu_torch.utils.device import resolve_device
-from f_lite_tpu_torch.utils.safetensors import load_file
+from f_lite_tpu_torch.utils.safetensors import load_file, save_file
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "pil")
 
@@ -254,9 +264,23 @@ class FLitePipeline:
     def from_pretrained(cls, path: str | Path, *, dtype=torch.bfloat16,
                         device="cuda", quantize: bool = False,
                         text_encoder=None,
-                        load_text_encoder: bool = True) -> "FLitePipeline":
-        """Load a native pipeline directory. The DiT runs in `dtype`; the
-        VAE, as in the JAX package, in fp32.
+                        load_text_encoder: bool = True,
+                        lora_path: str | Path | None = None,
+                        lora_alpha: float | None = None,
+                        lora_scale: float = 1.0) -> "FLitePipeline":
+        """Load a pipeline: `path` is a native directory or a
+        diffusers-layout snapshot directory (`convert.ingest.
+        resolve_pretrained`: converted on first use and cached). The DiT
+        runs in `dtype`; the VAE, as in the JAX package, in fp32.
+
+        `lora_path`: a LoRA checkpoint (a dir, the framework's
+        `lora_weights.safetensors` or a reference peft `lora_weights.pt`)
+        merged into the DiT after the cast to `dtype` and before any
+        quantization, in `dtype` (`train.lora.apply_lora`), as the JAX
+        package merges it. The rank is read from the first `lora_a`;
+        `lora_alpha` defaults to the rank. A merge that changes no weight
+        raises, as do scan-stacked, pipeline-parallel and head-padded
+        checkpoints, whose saved kernels the factors do not fit.
 
         `quantize=True`: int8 W8A8 projections (`quant.quantize_dit`),
         quantized from the weights after their cast to `dtype`, as the JAX
@@ -267,20 +291,40 @@ class FLitePipeline:
         the directory's `text_encoder/` is loaded
         (`text_encoder_from_dir`), on `device`."""
         device = resolve_device(device)
-        path = Path(path)
+        path = resolve_pretrained(path)
         index = json.loads((path / "model_index.json").read_text())
         flat = load_file(path / "dit" / "flax_params.safetensors")
         saved_int8 = any(k.endswith(".w8") for k in flat)
         if saved_int8 and not quantize:
             raise ValueError(f"{path}: the DiT's weights are int8; load it "
                              "with quantize=True")
-        cfg = dataclasses.replace(DiTConfig.from_json_dict(
-            json.loads((path / "dit" / "config.json").read_text())
-        ), quantized=saved_int8)
+        cfg_json = json.loads((path / "dit" / "config.json").read_text())
+        cfg = dataclasses.replace(DiTConfig.from_json_dict(cfg_json),
+                                  quantized=saved_int8)
         dit = DiT(cfg)
         dit.load_state_dict(state_dict_from_jax(flat, cfg))
         del flat
         dit = dit.to(device=device, dtype=dtype).eval()
+        if lora_path:
+            lora = load_lora_weights(lora_path)
+            rank = lora_rank(lora)
+            if not rank:
+                raise ValueError(f"no lora_a factors in {lora_path}")
+            if cfg_json.get("padded_heads") not in (None, cfg.num_heads):
+                raise ValueError("LoRA factors do not fit the head-padded "
+                                 "kernels of this checkpoint")
+            # the saved scan-stacked and pipeline-parallel trunks hold no
+            # per-block kernel the factors attach to
+            stacked = (cfg_json.get("scan_layers", False)
+                       or (cfg_json.get("pipeline_stages") or 1) > 1)
+            alpha = float(lora_alpha) if lora_alpha is not None else rank
+            merged = 0 if stacked else apply_lora(dit, lora, alpha=alpha,
+                                                  rank=rank, scale=lora_scale)
+            if merged == 0:
+                raise ValueError(
+                    "LoRA factors matched no kernels — the checkpoint "
+                    "layout (e.g. scan-stacked blocks) differs from the "
+                    "unrolled layout the factors were trained against")
         if quantize:
             quantize_dit(dit)
         vae = None
@@ -296,6 +340,29 @@ class FLitePipeline:
         if text_encoder is None and load_text_encoder:
             text_encoder = text_encoder_from_dir(path, index, device)
         return cls(dit, vae, text_encoder)
+
+    def save_pretrained(self, path: str | Path) -> None:
+        """Write the native layout as the JAX package's `save_pretrained`
+        does: `model_index.json`, `dit/` (config.json and
+        flax_params.safetensors, unrolled, in the DiT's dtype; int8 weights
+        and fp32 scales when quantized, which load only with
+        `quantize=True`) and, with a VAE, `vae/` (fp32)."""
+        path = Path(path)
+        (path / "dit").mkdir(parents=True, exist_ok=True)
+        (path / "model_index.json").write_text(json.dumps(
+            {"_class_name": "FLitePipeline", "framework": "f-lite-tpu"}, indent=2))
+        cfg = self.dit.config
+        (path / "dit" / "config.json").write_text(
+            json.dumps(cfg.to_json_dict(), indent=2))
+        save_file(state_dict_to_jax(self.dit.state_dict(), cfg),
+                  path / "dit" / "flax_params.safetensors")
+        if isinstance(self.vae, IdentityVAE):
+            return
+        (path / "vae").mkdir(exist_ok=True)
+        (path / "vae" / "config.json").write_text(
+            json.dumps(self.vae.config.to_json_dict(), indent=2))
+        save_file(vae_state_dict_to_jax(self.vae.state_dict(), self.vae.config),
+                  path / "vae" / "flax_params.safetensors")
 
     def encode_prompt(self, prompt, negative_prompt=None):
         """Prompt(s) -> (embeds, neg, mask, neg_mask) as numpy through the
@@ -359,6 +426,7 @@ class FLitePipeline:
         negative_context_mask=None,
         latents=None,
         output_type: str = "uint8",
+        return_latents: bool = False,
         pad_context_to: int | None = None,
         image=None,
         strength: float = 0.8,
@@ -376,8 +444,11 @@ class FLitePipeline:
         it is drawn from `generator` (a seed-0 generator when None) in the
         DiT's dtype. `output_type`: "latent" (the final latents, a tensor on
         the device), "np" (float32 in [-1, 1]), "uint8", or "pil" (needs
-        PIL). `pad_context_to` zero-pads the text context up to the next
-        multiple of this length; padded keys carry mask 0, so it is exact.
+        PIL). `return_latents=True` skips the decode and returns the final
+        latents on the host (a CPU tensor, NHWC, in the DiT's dtype: numpy
+        has no bf16), whatever `output_type` says. `pad_context_to`
+        zero-pads the text context up to the next multiple of this length;
+        padded keys carry mask 0, so it is exact.
 
         - `image` + `strength`: image to image. `image` (see
           `_preprocess_image`) is encoded to its posterior mean and noised
@@ -481,6 +552,8 @@ class FLitePipeline:
             negative_mask=torch.from_numpy(neg_mask).to(device),
             start_step=start_step, inpaint=inpaint,
         )
+        if return_latents:
+            return FLitePipelineOutput(images=final.cpu())
         if output_type == "latent":
             return FLitePipelineOutput(images=final)
 

@@ -7,9 +7,11 @@ batch size / epochs / max_steps, the optimizer and schedule options,
 `--use_8bit_adam`, `--max_grad_norm`, `--mixed_precision bf16` (fp32 master
 weights, bf16 compute), `--gradient_checkpointing` with `--remat_policy
 full`, `--seed`, `--output_dir`, `--log_every`, `--report_to none` and
-`--export_pipeline` (writes `pipeline/dit/{config.json,
-flax_params.safetensors}`, which both packages load). The log line and the
-returned dict are the JAX trainer's.
+`--export_pipeline` (writes `pipeline/` through
+`FLitePipeline.save_pretrained`, which both packages load: the DiT and, but
+in pixel space, the run's VAE, `--vae_path` or a seeded tiny one, as
+`build_vae` gives it). The log line and the returned dict are the JAX
+trainer's.
 
 Every other option raises "not ported yet" when set to a value that would
 do something. Options that only the JAX program or the online image path
@@ -155,7 +157,6 @@ def parse_args(argv=None):
 # option -> (value that does nothing, what it needs)
 _NOT_PORTED = {
     "pretrained_model_path": (None, "fine-tuning from a pipeline"),
-    "vae_path": (None, "the VAE encoder"),
     "scan_layers": (False, "scan-stacked blocks"),
     "train_data_path": (None, "the online image path"),
     "val_data_path": (None, "validation"),
@@ -229,20 +230,28 @@ def build_config(args):
     )
 
 
-def export_pipeline(model, path: Path) -> None:
-    """Write a pipeline directory with the DiT alone (pixel-space and
-    precomputed runs have no VAE to export): `model_index.json`,
-    `dit/config.json` and `dit/flax_params.safetensors` in the JAX layout."""
-    from f_lite_tpu_torch.convert.to_jax import state_dict_to_jax
-    from f_lite_tpu_torch.utils.safetensors import save_file
+def build_vae(args, device):
+    """The run's VAE, as the JAX trainer's `build_vae` makes it: None in
+    pixel space (the identity), the native `vae/` dir of `--vae_path`, else
+    a tiny VAE with 16 latent channels and seeded weights (flax's default
+    initializers; not `jax.random`'s draws). fp32. The precomputed path
+    trains on latents, so the VAE only goes into the export."""
+    from f_lite_tpu_torch.convert.from_jax import vae_state_dict_from_jax
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from f_lite_tpu_torch.utils.safetensors import load_file
 
-    (path / "dit").mkdir(parents=True, exist_ok=True)
-    (path / "model_index.json").write_text(json.dumps(
-        {"_class_name": "FLitePipeline", "framework": "f-lite-tpu"}, indent=2))
-    (path / "dit" / "config.json").write_text(
-        json.dumps(model.config.to_json_dict(), indent=2))
-    save_file(state_dict_to_jax(model.state_dict(), model.config),
-              path / "dit" / "flax_params.safetensors")
+    if args.pixel_space:
+        return None
+    if args.vae_path:
+        vp = Path(args.vae_path)
+        cfg = VAEConfig.from_json_dict(json.loads((vp / "config.json").read_text()))
+        vae = AutoencoderKL(cfg)
+        vae.load_state_dict(vae_state_dict_from_jax(
+            load_file(vp / "flax_params.safetensors"), cfg))
+        return vae.to(device).eval()
+    with torch.device(device):
+        vae = AutoencoderKL(VAEConfig.tiny(latent_channels=16))
+    return vae.init_weights(torch.Generator(device).manual_seed(0)).eval()
 
 
 def train(args, on_step=None) -> dict:
@@ -251,6 +260,7 @@ def train(args, on_step=None) -> dict:
     tensors)."""
     from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
     from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.train.optim import build_lr_schedule, build_optimizer
     from f_lite_tpu_torch.train.step import TrainState, train_step
     from f_lite_tpu_torch.utils.device import resolve_device
@@ -268,6 +278,7 @@ def train(args, on_step=None) -> dict:
         model = DiT(cfg)  # fp32 master weights; compute in cfg.dtype
     model.init_weights(torch.Generator(device).manual_seed(seed)).train()
     n_params = sum(p.numel() for p in model.parameters())
+    vae = build_vae(args, device)
 
     dl, sampler = create_precomputed_data_loader(
         args.precomputed_data_dir, args.train_batch_size, seed=seed,
@@ -337,7 +348,7 @@ def train(args, on_step=None) -> dict:
 
     if args.export_pipeline:
         export_dir = Path(args.output_dir) / "pipeline"
-        export_pipeline(model, export_dir)
+        FLitePipeline(model, vae).save_pretrained(export_dir)
         logger.info("exported pipeline to %s", export_dir)
     result["global_step"] = global_step
     result["wall_s"] = time.time() - t_start

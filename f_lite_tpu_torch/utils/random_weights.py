@@ -1,5 +1,5 @@
 """Seeded random weights for runs without a checkpoint (smoke runs at full
-width, tests)."""
+width, tests), and flax's lecun_normal initializer."""
 
 from __future__ import annotations
 
@@ -7,6 +7,20 @@ import math
 
 import torch
 from torch import nn
+
+
+# lecun_normal: a normal of variance 1/fan_in truncated at two standard
+# deviations, widened so that the truncated variance is 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's `lecun_normal` in place: fan_in = the product of all but the
+    first dim of a torch (out, in, ...) weight."""
+    std = math.sqrt(1.0 / math.prod(w.shape[1:])) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+import torch
 
 _DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
            "I8": np.int8}
@@ -56,17 +57,33 @@ def load_file(path: str | Path) -> dict[str, np.ndarray]:
     return out
 
 
-def save_file(tensors: dict[str, np.ndarray], path: str | Path) -> None:
-    """Write `tensors` ({name: float32 array}) as one safetensors file."""
+_WRITE = {np.dtype(np.float32): "F32", np.dtype(np.int8): "I8"}
+
+
+def _encode(name: str, value) -> tuple[str, list[int], bytes]:
+    """(safetensors dtype, shape, little-endian bytes) of one tensor."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "BF16", list(t.shape), t.view(torch.int16).numpy().astype(
+                "<i2", copy=False).tobytes()
+        value = t.numpy()
+    arr = np.ascontiguousarray(value)
+    if arr.dtype not in _WRITE:
+        raise ValueError(f"tensor {name}: {arr.dtype}, the writer takes "
+                         "float32, bfloat16 (torch) and int8")
+    return _WRITE[arr.dtype], list(arr.shape), arr.astype(
+        arr.dtype.newbyteorder("<"), copy=False).tobytes()
+
+
+def save_file(tensors: dict, path: str | Path) -> None:
+    """Write `tensors` ({name: array or tensor}) as one safetensors file."""
     header: dict = {}
     blobs, offset = [], 0
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
-        if arr.dtype != np.float32:
-            raise ValueError(f"tensor {name}: {arr.dtype}, the writer takes float32")
-        data = arr.astype("<f4", copy=False).tobytes()
-        header[name] = {"dtype": "F32",
-                        "shape": list(arr.shape),
+        dt, shape, data = _encode(name, tensors[name])
+        header[name] = {"dtype": dt,
+                        "shape": shape,
                         "data_offsets": [offset, offset + len(data)]}
         blobs.append(data)
         offset += len(data)

@@ -678,3 +678,37 @@ def test_text_stack_bf16_on_the_card_matches_fp32_cpu(cuda_device, kind):
         print(f"{kind} return_index {return_index}: err {err:.4g} tol {tol:.4g}")
         assert err <= tol
     assert _counts() == before
+
+
+@pytest.mark.cuda
+def test_lora_merge_and_save_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """The fixture with a seeded rank-4 LoRA merged at load in bf16: the
+    card's merged weights within one bf16 ulp of the CPU's (the factors'
+    fp32 product may round differently), and `save_pretrained` on the card
+    writes those weights bit for bit."""
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    g = torch.Generator().manual_seed(3)
+    d = 256
+    save_file({f"blocks_{i}.{attn}.{t}.{k}": torch.randn(shape, generator=g) * 0.05
+               for i in range(6)
+               for attn, targets in (("self_attn", {"qkv": 3 * d, "proj": d}),
+                                     ("cross_attn", {"q": d, "context_kv": 2 * d,
+                                                     "proj": d}))
+               for t, n in targets.items()
+               for k, shape in (("lora_a", (d, 4)), ("lora_b", (4, n)))},
+              tmp_path / "lora_weights.safetensors")
+    kw = dict(dtype=torch.bfloat16, lora_path=tmp_path, lora_alpha=8.0)
+    want = FLitePipeline.from_pretrained(FIXTURE, device="cpu", **kw).dit.state_dict()
+    pipe = FLitePipeline.from_pretrained(FIXTURE, **kw)
+    got = pipe.dit.state_dict()
+    for key, w in want.items():
+        a, b = got[key].float().cpu(), w.float()
+        ulp = torch.ldexp(torch.ones_like(b), torch.frexp(
+            b.abs().clamp_min(2.0 ** -126)).exponent - 8)
+        assert bool(((a - b).abs() <= ulp).all()), key
+    pipe.save_pretrained(tmp_path / "saved")
+    again = FLitePipeline.from_pretrained(tmp_path / "saved", dtype=torch.bfloat16,
+                                          device="cpu").dit.state_dict()
+    for key, w in got.items():
+        assert torch.equal(again[key], w.cpu()), key

@@ -55,6 +55,10 @@ TEXT_MODULES = ("f_lite_tpu_torch.text.encoder", "f_lite_tpu_torch.text.t5",
                 "f_lite_tpu_torch.convert.hf_weights",
                 "f_lite_tpu_torch.text.layers", "f_lite_tpu_torch.utils.device",
                 "f_lite_tpu_torch.tools.text_precision")
+EXTRAS_MODULES = ("f_lite_tpu_torch.convert.ingest",
+                  "f_lite_tpu_torch.convert.manifest",
+                  "f_lite_tpu_torch.convert.lora_torch",
+                  "f_lite_tpu_torch.train.lora")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -74,9 +78,10 @@ def test_port_imports_without_jax_or_reference_package():
     out = _run(BLOCKED_IMPORTS.replace("BUILT_BEFORE", str(before)))
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
-    assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES) <= set(names.split()), names
+    assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES
+               + EXTRAS_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 34, out.stdout
+    assert n_modules >= 38, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -133,6 +138,71 @@ TEXT_WITHOUT_HF = textwrap.dedent("""
 
 def test_text_modules_import_and_run_without_hf_packages():
     out = _run(TEXT_WITHOUT_HF.replace("TEXT_MODULES", repr(TEXT_MODULES)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
+EXTRAS_WITHOUT_JAX_OR_SAFETENSORS = textwrap.dedent("""
+    import importlib, importlib.abc, json, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "flax", "f_lite_tpu", "transformers", "safetensors")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from f_lite_tpu_torch.convert.lora_torch import lora_to_peft_state_dict
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.utils.random_weights import randomize_
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    cfg = DiTConfig(in_channels=4, patch_size=2, hidden_size=32, depth=2,
+                    num_heads=2, mlp_ratio=2.0, cross_attn_input_size=16)
+    dit = randomize_(DiT(cfg), seed=0)
+    g = torch.Generator().manual_seed(1)
+    lora = {"blocks_0": {"self_attn": {"qkv": {
+        "lora_a": torch.randn(32, 2, generator=g).numpy(),
+        "lora_b": torch.randn(2, 96, generator=g).numpy()}}}}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "snap" / "dit_model").mkdir(parents=True)
+        save_file(dit.state_dict(), d / "snap/dit_model/diffusion_pytorch_model.safetensors")
+        (d / "snap/dit_model/config.json").write_text(json.dumps(dict(
+            hidden_size=32, depth=2, num_heads=2, in_channels=4, mlp_ratio=2.0,
+            cross_attn_input_size=16, residual_v=False)))
+        (d / "st").mkdir()
+        save_file({"blocks_0.self_attn.qkv." + k: v for k, v in
+                   lora["blocks_0"]["self_attn"]["qkv"].items()},
+                  d / "st" / "lora_weights.safetensors")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    lora_to_peft_state_dict(lora).items()}, d / "lora_weights.pt")
+        kw = dict(prompt_embeds=torch.zeros(1, 4, 16).numpy(), height=8, width=8,
+                  num_inference_steps=2, output_type="np")
+        images = []
+        for lora_path in (d / "st", d / "lora_weights.pt"):
+            pipe = FLitePipeline.from_pretrained(d / "snap", dtype=torch.float32,
+                                                 device="cpu", lora_path=lora_path)
+            images.append(pipe(**kw).images)
+        pipe.save_pretrained(d / "saved")
+        again = FLitePipeline.from_pretrained(d / "saved", dtype=torch.float32,
+                                              device="cpu")(**kw).images
+    assert (images[0] == images[1]).all() and (again == images[1]).all()
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_pipeline_extras_run_without_jax_or_safetensors():
+    """Ingest of a diffusers snapshot, LoRA at load in both forms and
+    save_pretrained, as on the card's machine (no JAX, no safetensors)."""
+    out = _run(EXTRAS_WITHOUT_JAX_OR_SAFETENSORS)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok"), out.stdout
 
