@@ -84,6 +84,26 @@ Phases (any failed check raises and the run exits non-zero):
    twice, the first load converting and caching, the second taking the
    cache: each gives phase 7's images bit for bit, with exact launch
    counts; the save, convert and cached-load seconds printed;
+8e. the fixture through `generate` (`--no_text_encoder`, whose 32
+   md5-seeded tokens are the fixture's training context, 64 px, 30 steps,
+   g=6): in-process `generate.main` for captions 0 and 23 at
+   `--num_images 2`, the PNGs (read back with the port's `read_png`) equal
+   to `pipe(prompt=..., generator=...)` bit for bit, both_acc >= 0.95,
+   exactly 2 * 30 * 12 forward launches; `--from_png` regenerates the same
+   pixels; the 24 captions' both_acc with 32 and with 128 (JAX's
+   front-ends') pseudo tokens, printed; `--quantize`: exactly 30 * 12
+   forward and 30 * 48 launches of each int8 kernel, pixels equal to the
+   direct int8 call; once more as a subprocess (`python -m
+   f_lite_tpu_torch.generate`), bit-equal;
+8f. the fixture through `serve`: batch mode from a `.jsonl` of 4 captions
+   with seeds at batch 2, each PNG equal to the solo request with its seed
+   bit for bit, exactly 2 * 30 * 12 forward launches, images/min printed;
+   HTTP mode (`make_http_server` on an ephemeral port after `warm_up`,
+   urllib): /healthz, 4 requests each equal to the direct call with its
+   seed and exactly 4 * 30 * 12 forward launches, a 400 and a 413,
+   /metrics equal to what was sent, and a drain that finishes the request
+   in flight and answers 503 to a new one (the fixture has no VAE, so its
+   image-to-image request runs in phase 9e);
 9a. T5-XXL at full width and depth (`T5Config()`: 24 blocks, d_model
    4096, 64 heads x 64, d_ff 10240, gated-gelu), seeded bf16 weights, at
    return_index -8 (blocks 0-16): one prompt of 77 seeded ids padded to
@@ -120,6 +140,18 @@ Phases (any failed check raises and the run exits non-zero):
    exactly 30 * 56 forward launches, merge s, s/image and peak GB beside
    phase 9's; `return_latents=True` equal to `output_type="latent"` bit
    for bit (2 steps);
+9e. phase 9's pipeline behind the HTTP server (`ZeroTextEncoder` of the
+   7B's width, 77 tokens, `--text_bucket 128`), warmed by `serve.warm_up`
+   first: one 1024 px 30-step request, finite, exactly 30 * 56 forward
+   launches, the client's s/request beside phase 9's s/image, PNG encode
+   and decode ms, and `read_png`'s decode ms of the same image filtered
+   adaptively (as libpng and PIL write it), all Average and all Paeth
+   (the filters decoded byte by byte); an image-to-image request with a base64 PNG (256 px, 4
+   steps, strength 0.5) equal to the direct call bit for bit with exactly
+   2 * 56 launches; `steps_per_dispatch=5` with a callback on 2- and
+   6-step trajectories, Euler and ab2: latents bit-equal to one window and
+   JAX's (e, n) calls; a callback cancelling after the first window:
+   exactly 5 * 56 forward launches;
 11a. int8 serving at 7B width: the pipeline of phases 9-11 quantized in
    place (`quant.quantize_dit`), the request of phase 9: finite output,
    exactly 30 * 56 forward and 30 * 248 launches of each int8 kernel,
@@ -1545,6 +1577,343 @@ def run_fixture_save_ingest(full_images, tmp: Path, n_requests=4, steps=30,
 
 
 # ---------------------------------------------------------------------------
+# phases 8e-8f: the fixture through the front-ends (`generate`, `serve`)
+# ---------------------------------------------------------------------------
+
+def u8_to_signed(images):
+    """uint8 images -> float [-1, 1], what `classify` reads."""
+    import numpy as np
+
+    return np.asarray(images, np.float32) / 127.5 - 1.0
+
+
+def class_hits(images, classes) -> int:
+    return sum(classify(img) == cls for img, cls in zip(u8_to_signed(images), classes))
+
+
+def fixture_prompt_pipe(quantize=False):
+    """The fixture in bf16 with what `--no_text_encoder` attaches."""
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.text.encoder import PSEUDO_TEXT_LEN, ZeroTextEncoder
+
+    pipe = FLitePipeline.from_pretrained(FIXTURE, quantize=quantize)
+    pipe.text_encoder = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size,
+                                        seq_len=PSEUDO_TEXT_LEN)
+    return pipe
+
+
+def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
+    """Phase 8e: `python -m f_lite_tpu_torch.generate` on the fixture
+    (`--no_text_encoder`, 64 px, 30 steps, g=6). In-process through
+    `generate.main`: captions 0 and 23 at `--num_images 2` (exactly 2 * 30 *
+    12 forward launches), their PNGs read back with `read_png` equal to
+    `pipe(prompt=..., generator=...)` bit for bit, both_acc >= 0.95;
+    `--from_png` of each caption's first file regenerates both files'
+    pixels; the 24 captions' both_acc with 32 pseudo tokens (the trainer's,
+    what `--no_text_encoder` attaches) and with JAX's front-ends' 128,
+    printed; `--quantize` at `--num_images 1`: exactly 30 * 12 forward and
+    30 * 48 launches of each int8 kernel, pixels equal to the direct int8
+    call. Then once as a subprocess, bit-equal to the in-process files."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch import generate
+    from f_lite_tpu_torch.utils.image import read_metadata, read_png
+
+    classes = [(c, s) for c in COLORS for s in SHAPES]
+    picked = [0, len(classes) - 1]
+    captions = fixture_captions([classes[i] for i in picked])
+    base = ["--model", str(FIXTURE), "--no_text_encoder", "--width", "64", "--height", "64",
+            "--num_inference_steps", str(steps), "--guidance_scale", str(guidance)]
+    pipe = fixture_prompt_pipe()
+    cfg = pipe.dit.config
+    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+    res = {}
+    files, seconds = [], []
+    reset_counts()
+    for i, cap in enumerate(captions):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files.append(generate.main(base + ["--prompt", cap, "--num_images", "2",
+                                           "--seed", str(i),
+                                           "--output_file", str(tmp / f"gen{i}.png")]))
+        seconds.append(time.perf_counter() - t0)
+    counts = read_counts()
+    expected = launches(fwd=len(captions) * steps * n_blocks)
+    images = [read_png(f.read_bytes()) for fs in files for f in fs]
+    direct = np.concatenate([
+        pipe(prompt=cap, height=64, width=64, num_inference_steps=steps,
+             guidance_scale=guidance, num_images_per_prompt=2,
+             generator=torch.Generator("cuda").manual_seed(i)).images
+        for i, cap in enumerate(captions)])
+    per_image = [classes[i] for i in picked for _ in range(2)]
+    res["bf16"] = dict(files=[f.name for fs in files for f in fs], s_per_call=seconds,
+                       launches=counts, expected_launches=expected,
+                       equal_to_direct=bool(np.array_equal(np.stack(images), direct)),
+                       both_acc=class_hits(images, per_image) / len(images),
+                       stamp=read_metadata(files[0][1]))
+    if counts != expected:
+        raise AssertionError(f"fixture generate: launches {counts}, expected {expected}")
+
+    again = []
+    for i, fs in enumerate(files):
+        again += generate.main(["--from_png", str(fs[0]), "--no_text_encoder",
+                                "--output_file", str(tmp / f"re{i}.png")])
+    res["from_png_equal"] = bool(np.array_equal(
+        np.stack([read_png(f.read_bytes()) for f in again]), direct))
+    # why `--no_text_encoder` draws the trainer's 32 pseudo tokens: the 24
+    # captions with JAX's front-end length (128) beside them
+    from f_lite_tpu_torch.text.encoder import PSEUDO_TEXT_LEN, ZeroTextEncoder
+
+    res["both_acc_24_captions_by_pseudo_len"] = {}
+    for seq_len in (PSEUDO_TEXT_LEN, 128):
+        pipe.text_encoder = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=seq_len)
+        out = pipe(prompt=fixture_captions(classes), height=64, width=64,
+                   num_inference_steps=steps, guidance_scale=guidance,
+                   generator=torch.Generator("cuda").manual_seed(0), output_type="np")
+        res["both_acc_24_captions_by_pseudo_len"][seq_len] = both_acc(out.images, classes)
+    del pipe
+    torch.cuda.empty_cache()
+
+    qpipe = fixture_prompt_pipe(quantize=True)
+    per_forward = int8_layers(qpipe.dit)
+    reset_counts()
+    (qfile,) = generate.main(base + ["--prompt", captions[0], "--seed", "0", "--quantize",
+                                     "--output_file", str(tmp / "int8.png")])
+    counts = read_counts()
+    expected = launches(fwd=steps * n_blocks, quantize=steps * per_forward,
+                        gemm=steps * per_forward)
+    qimg = read_png(qfile.read_bytes())
+    qdirect = qpipe(prompt=captions[0], height=64, width=64, num_inference_steps=steps,
+                    guidance_scale=guidance,
+                    generator=torch.Generator("cuda").manual_seed(0)).images[0]
+    res["int8"] = dict(launches=counts, expected_launches=expected,
+                       equal_to_direct=bool(np.array_equal(qimg, qdirect)),
+                       both_acc=class_hits([qimg], [classes[picked[0]]]))
+    del qpipe
+    torch.cuda.empty_cache()
+    if counts != expected:
+        raise AssertionError(f"fixture generate int8: launches {counts}, expected {expected}")
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "f_lite_tpu_torch.generate", *base, "--prompt", captions[0],
+         "--num_images", "2", "--seed", "0", "--output_file", str(tmp / "sub.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    res["subprocess_s"] = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"generate subprocess failed: {out.stderr[-2000:]}")
+    sub = [read_png((tmp / f"sub_{j}.png").read_bytes()) for j in (1, 2)]
+    res["subprocess_equal"] = bool(np.array_equal(np.stack(sub), direct[:2]))
+    log("fixture_generate", json.dumps(res))
+    for key, what in (("equal_to_direct", "bf16 files differ from the direct call"),):
+        if not res["bf16"][key]:
+            raise AssertionError(f"fixture generate: {what}")
+    if not res["int8"]["equal_to_direct"]:
+        raise AssertionError("fixture generate: the int8 file differs from the direct call")
+    if not res["from_png_equal"]:
+        raise AssertionError("fixture generate: --from_png differs from the first run")
+    if not res["subprocess_equal"]:
+        raise AssertionError("fixture generate: the subprocess's files differ")
+    if res["bf16"]["both_acc"] < 0.95:
+        raise AssertionError(f"fixture generate: both_acc {res['bf16']['both_acc']} < 0.95")
+    return res
+
+
+class Client:
+    """urllib against a server on an ephemeral port: (status, headers,
+    body) of a request, HTTP errors included."""
+
+    def __init__(self, server):
+        host, port = server.server_address[:2]
+        self.base = f"http://{host}:{port}"
+
+    def post(self, body, path="/generate"):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, dict(resp.headers), resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.base + path, timeout=60) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def oversized(self) -> int:
+        """A POST declaring 2 GiB and sending none of it."""
+        import http.client
+
+        host, port = self.base.rsplit("/", 1)[1].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        conn.putrequest("POST", "/generate")
+        conn.putheader("Content-Length", str(1 << 31))
+        conn.endheaders()
+        status = conn.getresponse().status
+        conn.close()
+        return status
+
+
+def start_server(pipe, args):
+    import threading
+
+    from f_lite_tpu_torch import serve
+
+    server = serve.make_http_server(pipe, args, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def stop_server(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=60)
+
+
+def metric_values(text: str) -> dict:
+    return dict(line.rsplit(" ", 1) for line in text.splitlines() if not line.startswith("#"))
+
+
+def run_fixture_serve(tmp: Path, steps=30, guidance=6.0) -> dict:
+    """Phase 8f: `python -m f_lite_tpu_torch.serve` on the fixture
+    (`--no_text_encoder`, 64 px, 30 steps, g=6). Batch mode from a `.jsonl`
+    of 4 captions with seeds at batch 2: exactly 2 * 30 * 12 forward
+    launches, each PNG equal to the solo request with its seed bit for bit,
+    the manifest's images/min printed. HTTP mode: `make_http_server` on an
+    ephemeral port after `warm_up`, driven by urllib: /healthz; 4 requests,
+    each PNG equal to the direct call with its seed, exactly 4 * 30 * 12
+    forward launches; a 400 and a 413; /metrics counters equal to what was
+    sent; a drain that finishes the request in flight and answers 503 to a
+    new one."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch import serve
+    from f_lite_tpu_torch.utils.image import read_metadata, read_png
+
+    classes = [(c, s) for c in COLORS for s in SHAPES]
+    picked = [3, 8, 13, 18]
+    rows = [dict(prompt=cap, seed=100 + j) for j, cap in
+            enumerate(fixture_captions([classes[i] for i in picked]))]
+    jsonl = tmp / "requests.jsonl"
+    jsonl.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    common = ["--model", str(FIXTURE), "--no_text_encoder", "--width", "64", "--height", "64",
+              "--steps", str(steps), "--guidance_scale", str(guidance)]
+    pipe = fixture_prompt_pipe()
+    cfg = pipe.dit.config
+    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+
+    def solo(r):
+        return pipe(prompt=r["prompt"], height=64, width=64, num_inference_steps=steps,
+                    guidance_scale=guidance, pad_context_to=128,
+                    generator=torch.Generator("cuda").manual_seed(r["seed"])).images[0]
+
+    res = {}
+    reset_counts()
+    manifest = serve.main(common + ["--prompts", str(jsonl), "--batch_size", "2",
+                                    "--output_dir", str(tmp / "batch")])
+    counts = read_counts()
+    expected = launches(fwd=2 * steps * n_blocks)
+    batch = [read_png(Path(e["file"]).read_bytes()) for e in manifest["images"]]
+    want = [solo(r) for r in rows]
+    res["batch"] = dict(images=len(batch), images_per_min=manifest["images_per_min"],
+                        wall_s=manifest["wall_s"], launches=counts,
+                        expected_launches=expected,
+                        equal_to_solo=[bool(np.array_equal(a, b)) for a, b in zip(batch, want)],
+                        max_abs_diff_to_solo=[int(np.abs(a.astype(int) - b).max())
+                                              for a, b in zip(batch, want)],
+                        both_acc=class_hits(batch, [classes[i] for i in picked]) / len(batch))
+    if counts != expected:
+        raise AssertionError(f"fixture serve batch: launches {counts}, expected {expected}")
+
+    args = serve.parse_args(common + ["--http_port", "0"])
+    res["warm_up_s"] = serve.warm_up(pipe, args)
+    server, thread = start_server(pipe, args)
+    client = Client(server)
+    try:
+        status, body = client.get("/healthz")
+        res["healthz"] = [status, json.loads(body)]
+        reset_counts()
+        http_images, seconds = [], []
+        for r in rows:
+            t0 = time.perf_counter()
+            status, headers, body = client.post(r)
+            seconds.append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"fixture http: {status} {body[:500]}")
+            http_images.append(read_png(body))
+            stamp = read_metadata(body)
+        counts = read_counts()
+        expected = launches(fwd=len(rows) * steps * n_blocks)
+        bad = client.post({"prompt": ""})[0]
+        too_big = client.oversized()
+        _, text = client.get("/metrics")
+        values = metric_values(text.decode())
+
+        # drain: a request in flight (its first forward seen) finishes,
+        # a new one gets 503
+        in_flight = threading.Event()
+        hook = pipe.dit.register_forward_pre_hook(lambda *_: in_flight.set())
+        slow = {}
+        worker = threading.Thread(target=lambda: slow.update(
+            zip(("status", "headers", "body"), client.post(rows[0]))))
+        worker.start()
+        if not in_flight.wait(120):
+            raise AssertionError("fixture http: the drain's request never ran")
+        hook.remove()
+        server.begin_drain()
+        drained = dict(new=client.post(rows[1])[0], healthz=client.get("/healthz")[0],
+                       waited=server.drain_wait(120.0))
+        worker.join(timeout=120)
+        drained["in_flight"] = slow.get("status")
+        drained["in_flight_equal"] = bool(slow.get("status") == 200 and np.array_equal(
+            read_png(slow["body"]), want[0]))
+    finally:
+        stop_server(server, thread)
+    sent = {'f_lite_requests_total{endpoint="generate",status="200"}': str(len(rows)),
+            'f_lite_requests_total{endpoint="generate",status="400"}': "1",
+            'f_lite_requests_total{endpoint="generate",status="413"}': "1",
+            "f_lite_images_total": str(len(rows)),
+            "f_lite_dispatches_total": str(len(rows))}
+    res["http"] = dict(s_per_request=seconds, launches=counts, expected_launches=expected,
+                       equal_to_direct=[bool(np.array_equal(a, b))
+                                        for a, b in zip(http_images, want)],
+                       stamp=stamp, status_400=bad, status_413=too_big,
+                       metrics={k: values.get(k) for k in sent}, drain=drained)
+    log("fixture_serve", json.dumps(res))
+    del pipe
+    torch.cuda.empty_cache()
+    if not all(res["batch"]["equal_to_solo"]):
+        raise AssertionError("fixture serve: a batched row differs from its solo request")
+    if counts != expected:
+        raise AssertionError(f"fixture http: launches {counts}, expected {expected}")
+    if not all(res["http"]["equal_to_direct"]):
+        raise AssertionError("fixture http: a PNG differs from the direct call")
+    if res["healthz"][0] != 200 or (bad, too_big) != (400, 413):
+        raise AssertionError(f"fixture http: healthz/400/413 gave {res['healthz'][0]}, "
+                             f"{bad}, {too_big}")
+    if res["http"]["metrics"] != sent:
+        raise AssertionError(f"fixture http: metrics {res['http']['metrics']}, sent {sent}")
+    if drained != dict(new=503, healthz=503, waited=True, in_flight=200,
+                       in_flight_equal=True):
+        raise AssertionError(f"fixture http: drain gave {drained}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 9-11: serving at 7B width (DiT f_lite_7b + the Flux VAE, seeded
 # random weights)
 # ---------------------------------------------------------------------------
@@ -1707,6 +2076,181 @@ def run_7b_lora(pipe, big, steps=30, guidance=6.0, size=1024, rank=64) -> dict:
         raise AssertionError(f"7b lora: {merged} weights merged, expected {n_targets}")
     if not res["return_latents_equal"]:
         raise AssertionError("7b lora: return_latents differs from output_type='latent'")
+    return res
+
+
+def expected_window_calls(steps: int, k: int) -> list:
+    """The (e, n) calls of JAX's `make_denoise_fn` callback for one segment
+    of `steps` rows in windows of k (`f_lite_tpu/sampling/euler.py:417-441`):
+    own copy of the rule."""
+    return [(min(e, steps), steps) for e in range(k, steps + k, k)]
+
+
+def filtered_png(image, kind) -> bytes:
+    """uint8 (H, W, 3) as a PNG whose rows all take filter `kind` (0-4), or
+    with kind "adaptive" each row the filter whose bytes, read as signed,
+    have the least absolute sum (the choice libpng and PIL make)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = image.shape
+    x = image.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1, paeth]
+    rows = np.stack([(x - pred) & 255 for pred in preds]).astype(np.uint8)  # (5, h, 3w)
+    kinds = (np.abs(rows.view(np.int8).astype(np.int32)).sum(-1).argmin(0)
+             if kind == "adaptive" else np.full(h, kind))
+    out = np.empty((h, w * 3 + 1), np.uint8)
+    out[:, 0] = kinds
+    out[:, 1:] = rows[kinds, np.arange(h)]
+
+    def chunk(t, d):
+        return struct.pack(">I", len(d)) + t + d + struct.pack(">I", zlib.crc32(t + d))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(out.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
+    """Phase 9e: phase 9's pipeline behind `serve.make_http_server`, with the
+    port's ZeroTextEncoder of the 7B's context width (77 tokens) and
+    --text_bucket 128, warmed by `serve.warm_up` (run_http's path) first:
+    one 1024 px, 30-step request, a finite image and exactly 30 * 56
+    forward launches, the client's s/request beside phase 9's s/image, the
+    PNG's encode and decode ms; an image-to-image request with a base64
+    PNG (256 px, 4 steps, strength 0.5), equal to the direct call bit for
+    bit with exactly 2 * 56 launches. Then `steps_per_dispatch=5` with a
+    callback on 2- and 6-step trajectories, Euler and ab2: final latents
+    bit-equal to one window and JAX's (e, n) calls; a callback that cancels
+    after the first window: exactly 5 * 56 forward launches."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch import serve
+    from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata, read_png
+
+    pipe.text_encoder = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size, seq_len=77)
+    blocks = blocks_7b(pipe)
+    args = serve.parse_args(["--model", "seeded f_lite_7b + Flux VAE", "--http_port", "0",
+                             "--text_bucket", "128", "--width", str(size), "--height",
+                             str(size), "--steps", str(steps), "--guidance_scale",
+                             str(guidance), "--device", "cuda"])
+    finite = []
+    hook = pipe.vae.decoder.register_forward_hook(
+        lambda _m, _i, out: finite.append(bool(torch.isfinite(out).all())))
+    res = {}
+    try:
+        res["warm_up_s"] = serve.warm_up(pipe, args)
+        server, thread = start_server(pipe, args)
+        client = Client(server)
+        try:
+            finite.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            status, headers, body = client.post({"prompt": PROMPT, "seed": 4})
+            s_request = time.perf_counter() - t0
+            counts = read_counts()
+            if status != 200:
+                raise AssertionError(f"7b http: {status} {body[:500]}")
+            t0 = time.perf_counter()
+            img = read_png(body)
+            decode_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            png_bytes_with_metadata(img, {"prompt": PROMPT, "seed": 4})
+            encode_ms = 1e3 * (time.perf_counter() - t0)
+            decode_by_filter = {}
+            for kind, name in (("adaptive", "adaptive"), (3, "average"), (4, "paeth")):
+                data = filtered_png(img, kind)
+                t0 = time.perf_counter()
+                again = read_png(data)
+                decode_by_filter[name] = 1e3 * (time.perf_counter() - t0)
+                if not np.array_equal(again, img):
+                    raise AssertionError(f"7b http: read_png of the {name} file differs")
+            expected = launches(fwd=steps * blocks)
+            res["request"] = dict(
+                s_per_request=s_request, server_s=float(headers["X-F-Lite-Seconds"]),
+                phase_9_s_per_image=big["s_per_image"], image=list(img.shape),
+                png_bytes=len(body), png_encode_ms=encode_ms, png_decode_ms=decode_ms,
+                png_decode_ms_by_filter=decode_by_filter,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=counts, expected_launches=expected, decoded_finite=finite == [True])
+            if img.shape != (size, size, 3) or finite != [True]:
+                raise AssertionError(f"7b http: image {img.shape}, finite {finite}")
+            if counts != expected:
+                raise AssertionError(f"7b http: launches {counts}, expected {expected}")
+
+            small = 256
+            source = np.random.RandomState(8).randint(0, 256, (small, small, 3)).astype(np.uint8)
+            req = {"prompt": PROMPT, "seed": 5, "width": small, "height": small, "steps": 4,
+                   "strength": 0.5, "image": base64.b64encode(png_bytes_with_metadata(source)).decode()}
+            reset_counts()
+            status, _, body = client.post(req)
+            counts = read_counts()
+            if status != 200:
+                raise AssertionError(f"7b http img2img: {status} {body[:500]}")
+            direct = pipe(prompt=PROMPT, height=small, width=small, num_inference_steps=4,
+                          guidance_scale=guidance, pad_context_to=128, image=source,
+                          strength=0.5, generator=torch.Generator("cuda").manual_seed(5))
+            res["img2img"] = dict(launches=counts, expected_launches=launches(fwd=2 * blocks),
+                                  equal_to_direct=bool(np.array_equal(read_png(body),
+                                                                      direct.images[0])))
+            if counts != launches(fwd=2 * blocks) or not res["img2img"]["equal_to_direct"]:
+                raise AssertionError(f"7b http img2img: {res['img2img']}")
+        finally:
+            stop_server(server, thread)
+    finally:
+        hook.remove()
+
+    embeds, mask = text_7b(pipe)
+    kw = dict(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
+              guidance_scale=guidance, output_type="latent")
+    windows = {}
+    for n in (2, 6):
+        for sampler in ("euler", "ab2"):
+            calls = []
+            got = pipe(**kw, num_inference_steps=n, sampler=sampler, steps_per_dispatch=5,
+                       callback=lambda e, total: calls.append((e, total)),
+                       generator=torch.Generator("cuda").manual_seed(9)).images
+            one = pipe(**kw, num_inference_steps=n, sampler=sampler, steps_per_dispatch=0,
+                       generator=torch.Generator("cuda").manual_seed(9)).images
+            windows[f"{sampler}@{n}"] = dict(
+                bitwise_equal=bool(torch.equal(got, one)), calls=calls,
+                expected_calls=expected_window_calls(n, 5),
+                finite=bool(torch.isfinite(got).all()))
+    reset_counts()
+    cancel_calls = []
+    out = pipe(prompt_embeds=embeds, context_mask=mask, height=size, width=size,
+               num_inference_steps=6, guidance_scale=guidance, steps_per_dispatch=5,
+               callback=lambda e, total: cancel_calls.append((e, total)) or True,
+               generator=torch.Generator("cuda").manual_seed(9))
+    counts = read_counts()
+    res["windows"] = windows
+    res["cancel"] = dict(calls=cancel_calls, launches=counts,
+                         expected_launches=launches(fwd=5 * blocks),
+                         image=list(out.images.shape))
+    pipe.text_encoder = None
+    log("7b_http", json.dumps(res))
+    torch.cuda.empty_cache()
+    for name, w in windows.items():
+        if not (w["bitwise_equal"] and w["finite"]
+                and [tuple(c) for c in w["calls"]] == w["expected_calls"]):
+            raise AssertionError(f"7b windows {name}: {w}")
+    if counts != launches(fwd=5 * blocks) or cancel_calls != [(5, 6)]:
+        raise AssertionError(f"7b cancel: {res['cancel']}")
     return res
 
 
@@ -2144,6 +2688,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fixture_lora = phase(run_fixture_lora, full_images, Path(tmp))
         fixture_saved = phase(run_fixture_save_ingest, full_images, Path(tmp))
+        fixture_generate = phase(run_fixture_generate, Path(tmp))
+        fixture_serve = phase(run_fixture_serve, Path(tmp))
     qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
     t5_res, t5_stack = phase(run_text_tower, "t5")
     pipe = build_7b_pipe()
@@ -2154,6 +2700,7 @@ def main() -> int:
     img2img = phase(run_img2img, pipe)
     strength_one = phase(run_strength_one, pipe)
     big_lora = phase(run_7b_lora, pipe, big)
+    big_http = phase(run_7b_http, pipe, big)
     from f_lite_tpu_torch.quant import quantize_dit
 
     quantize_dit(pipe.dit)
@@ -2191,6 +2738,12 @@ def main() -> int:
                                                  for k in ("saved", "snapshot_convert",
                                                            "snapshot_cached")},
         launches_serving_7b_lora=big_lora["launches"],
+        launches_serving_fixture_generate=fixture_generate["bf16"]["launches"]["fwd"],
+        launches_serving_fixture_serve={k: fixture_serve[k]["launches"]["fwd"]
+                                        for k in ("batch", "http")},
+        launches_serving_7b_http={"request": big_http["request"]["launches"]["fwd"],
+                                  "img2img": big_http["img2img"]["launches"]["fwd"],
+                                  "cancelled": big_http["cancel"]["launches"]["fwd"]},
         launches_lab=lab["launches"]["fwd"],
         launches_fixture_train=fixture_train["launches"]["fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2248,7 +2801,11 @@ def main() -> int:
             *(fixture_lora[k]["launches"] for k in ("scale_0", "safetensors",
                                                     "peft_pt", "int8")),
             *(fixture_saved[k]["launches"] for k in ("saved", "snapshot_convert",
-                                                     "snapshot_cached")))),
+                                                     "snapshot_cached")),
+            fixture_generate["bf16"]["launches"], fixture_generate["int8"]["launches"],
+            fixture_serve["batch"]["launches"], fixture_serve["http"]["launches"],
+            big_http["request"]["launches"], big_http["img2img"]["launches"],
+            big_http["cancel"]["launches"])),
         launches_training=(fixture_train["launches"]["variants"]
                            + train_7b["launches"]["variants"]),
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
@@ -2280,6 +2837,8 @@ def main() -> int:
             launches=big_int8["counts"][counter],
             launches_serving_fixture_int8=fixture_int8["launches"][counter],
             launches_serving_fixture_lora_int8=fixture_lora["int8"]["launches"][counter],
+            launches_serving_fixture_generate_int8=(
+                fixture_generate["int8"]["launches"][counter]),
             ms=int8_main[f"{key}_ms"], plain_ms=int8_main[f"{key}_plain_ms"],
             bound_ms=int8_main[f"{key}_bound_ms"],
             bound_by=int8_main[f"{key}_bound_by"],
@@ -2324,7 +2883,18 @@ def main() -> int:
                             fixture_saved["snapshot_cached"]["load_s"],
                         "lora_7b": {k: big_lora[k] for k in (
                             "rank", "merged", "merge_s", "s_per_image", "s_per_step",
-                            "max_memory_allocated_gb", "phase_9")}}}))
+                            "max_memory_allocated_gb", "phase_9")}},
+                    "front_ends": {
+                        "fixture_generate_both_acc": fixture_generate["bf16"]["both_acc"],
+                        "fixture_serve_batch_images_per_min":
+                            fixture_serve["batch"]["images_per_min"],
+                        "fixture_http_s_per_request": fixture_serve["http"]["s_per_request"],
+                        "fixture_warm_up_s": fixture_serve["warm_up_s"],
+                        "http_7b": {k: big_http["request"][k] for k in (
+                            "s_per_request", "server_s", "phase_9_s_per_image",
+                            "png_encode_ms", "png_decode_ms", "png_decode_ms_by_filter",
+                            "png_bytes")},
+                        "http_7b_warm_up_s": big_http["warm_up_s"]}}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

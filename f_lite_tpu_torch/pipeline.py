@@ -65,6 +65,7 @@ from f_lite_tpu_torch.ops.guidance import APGConfig
 from f_lite_tpu_torch.quant import quantize_dit
 from f_lite_tpu_torch.sampling.euler import (
     DenoiseSettings,
+    auto_steps_per_dispatch,
     denoise,
     schedule_start_time,
 )
@@ -433,6 +434,8 @@ class FLitePipeline:
         mask_image=None,
         guidance_interval: tuple | None = None,
         sampler: str = "euler",
+        steps_per_dispatch: int | None = None,
+        callback=None,
     ) -> FLitePipelineOutput:
         """Generate images (B, height, width, 3) from `prompt` (a string or
         a list) and `negative_prompt` through the text encoder
@@ -462,6 +465,13 @@ class FLitePipeline:
         - `guidance_interval=(lo, hi)`: CFG only while t is in [lo, hi],
           the conditional forward alone elsewhere.
         - `sampler`: "euler" or "ab2" (`sampling.euler.SAMPLERS`).
+        - `steps_per_dispatch`: the trajectory runs in windows of this many
+          steps, as the JAX pipeline dispatches it; None: JAX's automatic
+          size (`sampling.euler.auto_steps_per_dispatch`), 0: one window.
+          Every k gives the same latents bit for bit.
+        - `callback(done_steps, total_steps) -> bool`: runs after every
+          window; a truthy return stops the trajectory there, and the
+          latents reached so far are decoded (the GUI's cancel).
         The noise of image to image and inpainting comes from `generator`
         after the start noise.
         """
@@ -542,6 +552,9 @@ class FLitePipeline:
                                   dtype=dtype)
         else:
             latents = torch.as_tensor(latents, device=device)
+        if steps_per_dispatch is None:
+            steps_per_dispatch = auto_steps_per_dispatch(
+                batch, num_inference_steps, lh * lw)
 
         final = denoise(
             self.dit, latents,
@@ -551,6 +564,7 @@ class FLitePipeline:
             settings,
             negative_mask=torch.from_numpy(neg_mask).to(device),
             start_step=start_step, inpaint=inpaint,
+            steps_per_dispatch=steps_per_dispatch, callback=callback,
         )
         if return_latents:
             return FLitePipelineOutput(images=final.cpu())

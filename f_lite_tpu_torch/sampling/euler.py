@@ -1,7 +1,7 @@
 """CFG-batched flow-matching sampler (counterpart of
 `f_lite_tpu/sampling/euler.py`: `_denoise_schedule`, `_interval_segments`,
-`denoise`, `schedule_start_time` and the schedule slicing of
-`make_denoise_fn`).
+`denoise`, `schedule_start_time`, `auto_steps_per_dispatch` and the
+schedule windows of `make_denoise_fn`).
 
 A plain Python loop over the (t, t_next) schedule: per step one DiT forward
 on the CFG pair batched as [neg, pos] with masks [neg_mask, pos_mask] (or
@@ -14,7 +14,12 @@ combine, and z += (t - t_next) * v on an fp32 accumulator. Extras:
   image);
 - inpainting: after every step the kept region (mask 0) is put back at the
   step's marginal, (1 - t_next) x + t_next eps, with fresh noise eps per
-  row; ab2 with a mask is Euler, and a zero-dt row is a full no-op.
+  row; ab2 with a mask is Euler, and a zero-dt row is a full no-op;
+- `steps_per_dispatch` and `callback`: the trajectory runs in windows, each
+  guidance-interval segment chunked at k steps, as JAX dispatches them. The
+  ab2 history is carried from window to window within a segment, so any k
+  gives the same latents bit for bit; `callback(done, total)` runs after
+  each window and a truthy return stops the loop there.
 The schedule's scalars stay on the host in fp32, so the loop never waits
 for the device.
 """
@@ -87,9 +92,13 @@ def interval_segments(settings: DenoiseSettings, schedule: torch.Tensor) -> list
 
 def denoise_schedule(dit: Callable, latents, prompt_embeds, negative_embeds,
                      context_mask, negative_mask, schedule: torch.Tensor,
-                     settings: DenoiseSettings, inpaint=None) -> torch.Tensor:
+                     settings: DenoiseSettings, inpaint=None, carry=None):
     """The loop over an explicit fp32 (N, 2) schedule slice (on the host);
-    returns z (fp32). Under "ab2" the history starts empty.
+    returns (z fp32, carry).
+
+    `carry` = (v_prev, h_prev), the ab2 history: the last velocity and its
+    step (an fp32 host scalar), as the previous slice returned it; None (or
+    h_prev == 0) starts without history.
 
     `inpaint` = (x_lat (B,h,w,C) fp32, mask (B,h,w,1) fp32, noise (N,B,h,w,C)
     fp32): row i puts the kept region back with noise[i]."""
@@ -115,7 +124,7 @@ def denoise_schedule(dit: Callable, latents, prompt_embeds, negative_embeds,
 
     zero = torch.zeros((), dtype=torch.float32)
     z = latents.float()
-    v_prev, h_prev = torch.zeros_like(z), zero
+    v_prev, h_prev = carry if carry is not None else (None, zero)
     for i in range(schedule.shape[0]):
         t, t_next = schedule[i, 0], schedule[i, 1]
         if inpaint is not None:
@@ -135,7 +144,20 @@ def denoise_schedule(dit: Callable, latents, prompt_embeds, negative_embeds,
             known = (1.0 - t_next) * x_lat + t_next * noise[i]
             z_new = mask * z_new + (1.0 - mask) * known
         z, v_prev, h_prev = z_new, v, dt
-    return z
+    return z, (v_prev, h_prev)
+
+
+def auto_steps_per_dispatch(batch: int, steps: int,
+                            latent_tokens: int = 16384) -> int | None:
+    """The default window: about a batch-1 1024 px (128 x 128 latents)
+    32-step trajectory's work, scaled down by batch and latent tokens;
+    None (one window) when the whole trajectory fits. JAX's rule, kept so
+    a window ends where a JAX dispatch does (`callback` runs there)."""
+    units = batch * max(latent_tokens, 1) / 16384.0
+    k = int(32.0 / max(units, 1e-9))
+    if k >= steps:
+        return None
+    return max(1, k)
 
 
 @torch.no_grad()
@@ -143,7 +165,8 @@ def denoise(dit: Callable, latents: torch.Tensor, prompt_embeds: torch.Tensor,
             negative_embeds: torch.Tensor, context_mask: torch.Tensor | None,
             settings: DenoiseSettings,
             negative_mask: torch.Tensor | None = None, *, start_step: int = 0,
-            inpaint=None) -> torch.Tensor:
+            inpaint=None, steps_per_dispatch: int | None = None,
+            callback: Callable | None = None) -> torch.Tensor:
     """Run the trajectory from schedule row `start_step`. latents (B, h, w,
     C) NHWC; embeds (B, S, Ctx).
 
@@ -151,21 +174,34 @@ def denoise(dit: Callable, latents: torch.Tensor, prompt_embeds: torch.Tensor,
     defaults to `context_mask`. `inpaint` = (x_lat, mask, noise) as in
     `denoise_schedule`, with one noise row per step run (N - start_step).
     Guidance-interval segments run in turn, the ab2 history restarting at
-    each. Returns the final latents in `latents.dtype`."""
+    each; each segment runs in windows of `steps_per_dispatch` steps (None
+    or 0: the whole segment), the history carried across them.
+    `callback(e, n)` runs after every window, `e` the window's end in the
+    schedule from `start_step` and n = N - start_step; a truthy return
+    stops there. Returns the latents reached, in `latents.dtype`."""
     _, lh, lw, _ = latents.shape
     n = settings.num_inference_steps
     if not 0 <= start_step < n:
         raise ValueError(f"start_step {start_step} outside [0, {n})")
     schedule = full_schedule(settings, lh, lw)[start_step:]
-    if inpaint is not None and inpaint[2].shape[0] != schedule.shape[0]:
+    n = schedule.shape[0]
+    if inpaint is not None and inpaint[2].shape[0] != n:
         raise ValueError(f"inpaint noise has {inpaint[2].shape[0]} rows for "
-                         f"{schedule.shape[0]} steps")
+                         f"{n} steps")
     nocfg = dataclasses.replace(settings, guidance_scale=0.0, apg=None,
                                 guidance_interval=None)
+    k = steps_per_dispatch or n
     z = latents
     for s, e, use_cfg in interval_segments(settings, schedule):
-        seg_inpaint = None if inpaint is None else (*inpaint[:2], inpaint[2][s:e])
-        z = denoise_schedule(dit, z, prompt_embeds, negative_embeds,
-                             context_mask, negative_mask, schedule[s:e],
-                             settings if use_cfg else nocfg, seg_inpaint)
+        carry = None  # the cfg <-> no-cfg switch changes the field
+        for ws in range(s, e, k):
+            we = min(ws + k, e)
+            window_inpaint = (None if inpaint is None
+                              else (*inpaint[:2], inpaint[2][ws:we]))
+            z, carry = denoise_schedule(
+                dit, z, prompt_embeds, negative_embeds, context_mask,
+                negative_mask, schedule[ws:we],
+                settings if use_cfg else nocfg, window_inpaint, carry)
+            if callback is not None and callback(we, n):
+                return z.to(latents.dtype)
     return z.to(latents.dtype)

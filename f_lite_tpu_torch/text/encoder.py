@@ -264,6 +264,14 @@ class PrecomputedTextEncoder:
         return out, mask
 
 
+# the pseudo context length the trainer's hermetic encoder gives a run
+# without a text encoder (`f_lite_tpu/train/trainer.py:280`); the port's
+# front-ends attach it at that length, so such a model is served the
+# context it was trained on. The JAX front-ends attach 128, which such a
+# model never saw; 32 is the repair of that mismatch, not a divergence
+PSEUDO_TEXT_LEN = 32
+
+
 class ZeroTextEncoder:
     """Deterministic hermetic encoder: md5-seeded pseudo-embeddings, bit
     for bit those of the JAX package's `ZeroTextEncoder`."""

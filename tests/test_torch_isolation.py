@@ -1,11 +1,13 @@
 """The port stands alone: with `jax`, `flax`, `optax` and `f_lite_tpu`
 blocked by an import hook, every module of `f_lite_tpu_torch` (the training
-path's and the text encoders' included) and `chip_smoke.py` import (and do
-no work at import time); with `transformers`, `tokenizers` and
-`safetensors` blocked too, every text module imports and the text stacks
-build, load an HF folder and run. The entry points' default device is the
-card: without one, `from_pretrained`, the text encoders and the trainer
-raise instead of falling back."""
+path's, the text encoders' and the front-ends' included) and
+`chip_smoke.py` import (and do no work at import time); with
+`transformers`, `tokenizers` and `safetensors` blocked too, every text
+module imports and the text stacks build, load an HF folder and run; with
+PIL blocked too, the front-ends import and the PNG codec writes and reads.
+The entry points' default device is the card: without one,
+`from_pretrained`, the text encoders, the trainer, `generate`, `serve` and
+the ComfyUI node raise instead of falling back."""
 
 import subprocess
 import sys
@@ -59,6 +61,9 @@ EXTRAS_MODULES = ("f_lite_tpu_torch.convert.ingest",
                   "f_lite_tpu_torch.convert.manifest",
                   "f_lite_tpu_torch.convert.lora_torch",
                   "f_lite_tpu_torch.train.lora")
+FRONTEND_MODULES = ("f_lite_tpu_torch.generate", "f_lite_tpu_torch.serve",
+                    "f_lite_tpu_torch.comfyui", "f_lite_tpu_torch.gui",
+                    "f_lite_tpu_torch.utils.image")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -79,9 +84,9 @@ def test_port_imports_without_jax_or_reference_package():
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
     assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES
-               + EXTRAS_MODULES) <= set(names.split()), names
+               + EXTRAS_MODULES + FRONTEND_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 38, out.stdout
+    assert n_modules >= 43, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -207,6 +212,53 @@ def test_pipeline_extras_run_without_jax_or_safetensors():
     assert out.stdout.strip().endswith("ok"), out.stdout
 
 
+FRONTENDS_WITHOUT_PIL = textwrap.dedent("""
+    import importlib, importlib.abc, sys
+
+    BLOCKED = ("jax", "flax", "f_lite_tpu", "PIL", "gradio")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    for name in FRONTEND_MODULES:
+        importlib.import_module(name)
+    from f_lite_tpu_torch.utils import image
+
+    x = np.random.RandomState(0).randint(0, 256, (24, 40, 3)).astype(np.uint8)
+    data = image.png_bytes_with_metadata(x, {"prompt": "a cat", "seed": 3})
+    assert (image.read_png(data) == x).all()
+    assert image.read_metadata(data) == {"prompt": "a cat", "seed": 3}
+    assert (image.load_image(data) == x).all()
+    for bad, what in ((b"GIF89a", "needs PIL"),):
+        try:
+            image.load_image(bad)
+        except ValueError as e:
+            assert what in str(e), e
+        else:
+            raise SystemExit("decoded a GIF without PIL")
+    try:
+        image.load_image(data, size=(16, 16))
+    except image.NeedsResize as e:
+        assert "needs PIL" in str(e), e
+    else:
+        raise SystemExit("resized without PIL")
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_frontends_and_png_codec_without_pil():
+    out = _run(FRONTENDS_WITHOUT_PIL.replace("FRONTEND_MODULES", repr(FRONTEND_MODULES)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
 def _skip_on_a_cuda_host():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a host without CUDA")
@@ -248,6 +300,33 @@ def test_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("module", ["generate", "serve"])
+def test_frontends_default_to_cuda_and_raise_without_a_card(module, tmp_path):
+    _skip_on_a_cuda_host()
+    pf = tmp_path / "p.txt"
+    pf.write_text("a cat\n")
+    argv = {"generate": ["--prompt", "a cat", "--no_text_encoder"],
+            "serve": ["--prompts", str(pf), "--no_text_encoder"]}[module]
+    out = subprocess.run(
+        [sys.executable, "-m", f"f_lite_tpu_torch.{module}", "--model",
+         "artifacts/fixture_run/pipeline", "--output_file" if module == "generate"
+         else "--output_dir", str(tmp_path / "out"), *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def test_comfy_node_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    _skip_on_a_cuda_host()
+    from f_lite_tpu_torch import comfyui
+
+    monkeypatch.setattr(comfyui, "_PIPELINE_CACHE", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        comfyui.FLiteNode().generate("artifacts/fixture_run/pipeline", "x", "", 64, 64,
+                                     1, 6.0, 0, False, False)
 
 
 def test_lab_raises_without_a_card():

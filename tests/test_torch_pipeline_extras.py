@@ -28,6 +28,7 @@ from f_lite_tpu.pipeline import FLitePipeline as JaxPipeline
 from f_lite_tpu_torch import pipeline as tpipeline
 from f_lite_tpu_torch.models import vae as tvae
 from f_lite_tpu_torch.pipeline import FLitePipeline
+from f_lite_tpu_torch.sampling import euler as tsampling
 from test_torch_dit import random_jax_params, unflatten
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -231,6 +232,44 @@ def test_interval_and_sampler_match_jax(pipes, opts):
                             return_latents=True).images)
     got = pipe(**kw, latents=latents, output_type="latent").images.numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("sampler", ["euler", "ab2"])
+def test_steps_per_dispatch_and_callback_match_jax(pipes, sampler):
+    """`steps_per_dispatch=3` with a callback under a guidance interval:
+    images within 1e-5 of JAX's, the same (done, total) calls, bit-equal to
+    one window (0) and to the automatic size (None); a callback that
+    cancels after the first window decodes the latents reached, as JAX's
+    does."""
+    jpipe, pipe = pipes
+    latents = np.random.RandomState(6).randn(1, 8, 8, 4).astype(np.float32)
+    kw = dict(prompt_embeds=_embeds(), height=16, width=16, num_inference_steps=7,
+              guidance_scale=4.0, guidance_interval=(0.2, 0.9), sampler=sampler,
+              output_type="np")
+
+    def both(callback_result, steps_per_dispatch=3):
+        jcalls, tcalls = [], []
+        want = np.asarray(jpipe(**kw, latents=jnp.asarray(latents),
+                                steps_per_dispatch=steps_per_dispatch,
+                                callback=lambda d, t: jcalls.append((d, t)) or callback_result
+                                ).images)
+        got = pipe(**kw, latents=latents, steps_per_dispatch=steps_per_dispatch,
+                   callback=lambda d, t: tcalls.append((d, t)) or callback_result).images
+        assert tcalls == jcalls
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        return got, tcalls
+
+    got, calls = both(False)
+    assert len(calls) > 2 and calls[-1] == (7, 7)
+    np.testing.assert_array_equal(got, pipe(**kw, latents=latents, steps_per_dispatch=0).images)
+    np.testing.assert_array_equal(got, pipe(**kw, latents=latents).images)
+    cancelled, calls = both(True)
+    assert len(calls) == 1
+    assert not np.allclose(cancelled, got, atol=1e-3)
+    _, calls = both(False, steps_per_dispatch=None)  # one window a segment
+    assert [d for d, _ in calls] == [e for _, e, _ in tsampling.interval_segments(
+        tsampling.DenoiseSettings(num_inference_steps=7, guidance_interval=(0.2, 0.9)),
+        tsampling.full_schedule(tsampling.DenoiseSettings(num_inference_steps=7), 8, 8))]
 
 
 @pytest.mark.parametrize("mode", ["tiled", "sliced", "direct"])

@@ -3,9 +3,10 @@
 One tiny DiT (seeded JAX parameters, loaded into the port through
 `state_dict_from_jax`), the same numpy latents and embeddings. The JAX side
 runs `make_denoise_fn` (guidance-interval segments, ab2 with its velocity
-history, `start_step` slices, inpainting with one key per schedule row) or
-`_denoise_schedule` on an explicit schedule; the port gets the JAX
-per-step noise as a tensor. Bar: final latents allclose 1e-5.
+history, `start_step` slices, inpainting with one key per schedule row,
+`steps_per_dispatch` windows with their callback) or `_denoise_schedule`
+on an explicit schedule; the port gets the JAX per-step noise as a tensor.
+Bar: final latents allclose 1e-5; the port's windows bit-equal to one.
 """
 
 import dataclasses
@@ -148,18 +149,81 @@ def test_inpaint_zero_dt_row_is_a_no_op(models, method):
     tin = (torch.from_numpy(x_lat), torch.from_numpy(repaint))
     with torch.no_grad():
         got = teuler.denoise_schedule(*args, torch.from_numpy(sched), tsettings,
-                                      inpaint=(*tin, torch.from_numpy(eps))).numpy()
+                                      inpaint=(*tin, torch.from_numpy(eps)))[0].numpy()
         # without the zero-dt row (and its noise row): the same result
         keep = [0, 2, 3]
         without = teuler.denoise_schedule(
             *args, torch.from_numpy(sched[keep]), tsettings,
-            inpaint=(*tin, torch.from_numpy(eps[keep]))).numpy()
+            inpaint=(*tin, torch.from_numpy(eps[keep])))[0].numpy()
         euler = teuler.denoise_schedule(
             *args, torch.from_numpy(sched), dataclasses.replace(tsettings, method="euler"),
-            inpaint=(*tin, torch.from_numpy(eps))).numpy()
+            inpaint=(*tin, torch.from_numpy(eps)))[0].numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_array_equal(got, without)
     np.testing.assert_array_equal(got, euler)
     # the last row has t_next = 0: the kept region is x_lat exactly
     keep_px = repaint[..., 0] == 0
     np.testing.assert_array_equal(got[keep_px], x_lat[keep_px])
+
+
+WINDOW_CASES = [(k, method, variant) for k in (1, 4, 7) for method in ("euler", "ab2")
+                for variant in ("plain", "interval_inpaint")]
+
+
+@pytest.mark.parametrize("k,method,variant", WINDOW_CASES)
+def test_dispatch_windows_match_jax(models, k, method, variant):
+    """`steps_per_dispatch=k` against JAX's `make_denoise_fn` windows: the
+    final latents within 1e-5, the same `(e, n)` callback calls, bit-equal
+    to the port's single window, and a cancel after the first window
+    within 1e-5 of JAX's."""
+    japply, jparams, model = models
+    latents, pos, neg, mask, neg_mask, x_lat, repaint = _inputs(seed=2)
+    kw = dict(num_inference_steps=STEPS, guidance_scale=4.0, method=method)
+    start, jinpaint, tinpaint = 0, None, None
+    if variant == "interval_inpaint":
+        kw["guidance_interval"] = (0.3, 0.8)
+        start = 2
+        key = jax.random.key(6)
+        jinpaint = (jnp.asarray(x_lat), jnp.asarray(repaint), key)
+        eps = _jax_eps(key, STEPS - start, x_lat.shape)
+        tinpaint = tuple(map(torch.from_numpy, (x_lat, repaint, eps)))
+    fn = jeuler.make_denoise_fn(japply, jeuler.DenoiseSettings(**kw), donate=False,
+                                steps_per_dispatch=k)
+    tsettings = teuler.DenoiseSettings(**kw)
+
+    def run_jax(callback):
+        return np.asarray(fn(jparams, jnp.asarray(latents), jnp.asarray(pos),
+                             jnp.asarray(neg), jnp.asarray(mask),
+                             neg_mask=jnp.asarray(neg_mask), callback=callback,
+                             start_step=start, inpaint=jinpaint))
+
+    def run_port(callback, steps_per_dispatch=k):
+        return teuler.denoise(
+            model, torch.from_numpy(latents), torch.from_numpy(pos),
+            torch.from_numpy(neg), torch.from_numpy(mask), tsettings,
+            negative_mask=torch.from_numpy(neg_mask), start_step=start,
+            inpaint=tinpaint, steps_per_dispatch=steps_per_dispatch,
+            callback=callback).numpy()
+
+    jcalls, tcalls = [], []
+    want = run_jax(lambda e, n: jcalls.append((e, n)))
+    got = run_port(lambda e, n: tcalls.append((e, n)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert tcalls == jcalls and tcalls[-1] == (STEPS - start, STEPS - start)
+    assert len(tcalls) > 1  # the trajectory ran in several windows
+    np.testing.assert_array_equal(got, run_port(None, steps_per_dispatch=0))
+
+    jcalls, tcalls = [], []
+    want = run_jax(lambda e, n: jcalls.append((e, n)) or True)
+    got = run_port(lambda e, n: tcalls.append((e, n)) or True)
+    assert tcalls == jcalls and len(tcalls) == 1
+    assert float(np.abs(got - latents).max()) > 0.01  # the first window ran
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_auto_steps_per_dispatch_matches_jax():
+    for batch in (1, 2, 3, 4, 8, 48):
+        for steps in (1, 2, 5, 15, 30, 50):
+            for tokens in (16, 1024, 4096, 16384, 25600, 65536):
+                assert teuler.auto_steps_per_dispatch(batch, steps, tokens) == \
+                    jeuler.auto_steps_per_dispatch(batch, steps, tokens)
