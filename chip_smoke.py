@@ -11,8 +11,8 @@ Phases (any failed check raises and the run exits non-zero):
 3. the forward kernel (bf16: TMA + wgmma, warp-specialised) against its
    plain PyTorch version on the card, at the shapes the serving and
    training paths give it (7B self and cross at 1024 px, 4112 tokens, and
-   at 1280 px, 6416 tokens; the fixture's; training's 1040 tokens; ragged
-   tails), in bf16 and fp32, timed beside the plain version, one PyTorch
+   at 1280 px, 6416 tokens; the fixture's; training's 1040 tokens, and
+   528 under sequence dropout; ragged tails), in bf16 and fp32, timed beside the plain version, one PyTorch
    library call of the same function (`scaled_dot_product_attention`, a
    yardstick the port never calls) and the card's bound for the work; the
    largest abs error allowed is 1e-5 in fp32 and 5% of the plain fp32
@@ -20,10 +20,13 @@ Phases (any failed check raises and the run exits non-zero):
    shape; ptxas' lines of its bf16 instances, none of which may spill or
    have its wgmma serialised (C7512);
 4. the dq and dkv kernels (bf16: TMA + wgmma, warp-specialised) against
-   `flash_attention_bwd_plain` at the training path's shapes and at a head
+   `flash_attention_bwd_plain` at the training path's shapes (1040 and,
+   under sequence dropout, 528 tokens) and at a head
    dim the wrapper pads (128 -> 256), in bf16 and fp32 (`grad_tolerance`:
    5% of the plain gradient's rms in bf16, with P and dS rounded to bf16
-   where the kernels round them, 1e-5 of its largest magnitude in fp32),
+   where the kernels round them, the error against the plain result
+   rounded to the kernels' output dtype and that rounding's own error
+   printed beside; 1e-5 of its largest magnitude in fp32),
    with exact zeros at masked keys and kv_len 0 rows, timed beside the
    plain version, SDPA forward + backward minus forward, and the bound;
    ptxas' register, spill and C7512 lines of the bf16 backward kernels,
@@ -163,11 +166,36 @@ Phases (any failed check raises and the run exits non-zero):
    run's `artifacts/fixture_run/train.log` reads 0.073); exactly 12
    launches of each kernel per step; the exported pipeline reloads with
    the same DiT output;
+12b. resume: the fixture recipe 40 steps straight against 20, then
+   `--resume_from_checkpoint latest` to 40, with `--async_checkpoint` saves
+   at step 20: every step's loss and the final checkpoint's tensors
+   bit-equal, exactly 12 launches of each kernel a step; SIGTERM to a
+   trainer subprocess once it has logged a step: exit 0, the stop
+   (`preempted_at`) logged with a checkpoint at its step, and a resume 10
+   steps on;
+12c. fine-tuning: the committed fixture through `--pretrained_model_path`
+   with `--use_lora --lora_rank 4`, `--ema_decay 0.99`,
+   `--gradient_accumulation_steps 2`, `--bs_rampup 20` and
+   `--sequence_dropout 0.5` (528 self-attention tokens), 60 micro-steps:
+   finite losses, exactly 12 launches of each kernel a micro-step; the
+   exported pipeline (EMA factors merged) scores phase 7's requests at
+   both_acc >= 0.95 with exact launch counts;
 13. training, `f_lite_7b_width_d20_train512`: the 7B's widths at depth 20,
    512 px latents (1040 tokens), batch 4, bf16 with fp32 master weights,
    checkpointing from block 8, 10 steps; finite loss and grad norm,
    exactly 46 forward, 31 dq and 31 dkv launches per step, peak memory
-   under 80 GB, and a profile of one step;
+   under 80 GB, a profile of one step, and the trainer's final (full
+   state) checkpoint's seconds and GB;
+13b. the same with `--remat_policy dots`, then with `--sequence_dropout
+   0.5` (528 self-attention tokens): each 10 steps with phase 13's checks
+   and figures (46/31/31 launches a step: "dots" runs attention again in
+   the backward);
+13c. the same with `--use_lora --lora_rank 64` (the base frozen: its
+   zero-initialised head leaves the factors' gradients 0, the work and
+   launches those of a real run); then one full-state checkpoint at that
+   width, `--async_checkpoint` at step 2 and the final sync save at step
+   3: seconds blocked and writing, GB on disk against n_params x 12, free
+   disk checked first;
 14. a `{"kernels": [...]}` line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
@@ -315,6 +343,11 @@ ATTN_SHAPES = [
     ("train_7b_cross", 4, 10, 1040, 128, 256, [77, 128, 77, 128]),
     ("7b1280_self", 2, 10, 6416, 6416, 256, None),
     ("7b1280_cross", 2, 10, 6416, 128, 256, [77, 128]),
+    # sequence dropout 0.5: 16 registers + 512 kept tokens
+    ("seqdrop_fixture_self", 32, 4, 528, 528, 64, None),
+    ("seqdrop_fixture_cross", 32, 4, 528, 32, 64, [32] * 32),
+    ("seqdrop_7b_self", 4, 10, 528, 528, 256, None),
+    ("seqdrop_7b_cross", 4, 10, 528, 128, 256, [77, 128, 77, 128]),
 ]
 
 
@@ -389,6 +422,11 @@ BWD_SHAPES = [
     ("odd_d256", 2, 3, 130, 93, 256, [0, 93]),
     # a head dim with no compiled instance: zero-padded to 256
     ("7b_d128", 4, 10, 1040, 1040, 128, None),
+    # sequence dropout 0.5: 16 registers + 512 kept tokens
+    ("seqdrop_fixture_self", 32, 4, 528, 528, 64, None),
+    ("seqdrop_fixture_cross", 32, 4, 528, 32, 64, [32] * 32),
+    ("seqdrop_7b_self", 4, 10, 528, 528, 256, None),
+    ("seqdrop_7b_cross", 4, 10, 528, 128, 256, [77, 128, 77, 128]),
 ]
 
 
@@ -509,9 +547,14 @@ def check_backward() -> list[dict]:
             # the plain version rounds P and dS to bf16 where the kernels do
             want = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, lens,
                                                 out_dtype=torch.float32)
-            errs, tols = {}, {}
+            # beside the error: the error against the plain result rounded
+            # to the kernels' output dtype, and that rounding's own error
+            # (in bf16 it alone passes 5% of the rms where |g| > 12.8 rms)
+            errs, tols, errs_rounded, floors = {}, {}, {}, {}
             for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                 errs[gname] = float((g.float() - w).abs().max())
+                errs_rounded[gname] = float((g.float() - w.to(dtype).float()).abs().max())
+                floors[gname] = float((w.to(dtype).float() - w).abs().max())
                 tols[gname] = fa.grad_tolerance(w, dtype)
                 if not math.isfinite(errs[gname]) or errs[gname] > tols[gname]:
                     raise AssertionError(
@@ -536,6 +579,7 @@ def check_backward() -> list[dict]:
                       for w in ("dq", "dkv", "pair", "fused")}
             row = dict(shape=label, dtype=name, q=[b, h, lq, d],
                        kv=[b, h, lk, d], kv_lens=kv, max_abs_err=errs,
+                       max_abs_err_vs_rounded=errs_rounded, rounding_floor=floors,
                        tolerance=tols, dq_ms=dq_ms, dkv_ms=dkv_ms,
                        pair_ms=dq_ms + dkv_ms, plain_ms=plain_ms,
                        library_ms=lib_ms,
@@ -1051,20 +1095,10 @@ class StepWatch:
             self._t = time.perf_counter()  # the profiler's own teardown
 
 
-def run_fixture_training(tmp: Path, steps=300) -> dict:
-    """The fixture recipe of artifacts/fixture_run/train.log from scratch."""
-    import torch
-
-    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
-    from f_lite_tpu_torch.pipeline import FLitePipeline
-
+def fixture_argv(cache: Path, out: Path, steps: int) -> list:
+    """The recipe of artifacts/fixture_run/train.log on the shapes cache."""
     cfg = json.loads((FIXTURE / "dit" / "config.json").read_text())
-    cache = tmp / "shapes_cache"
-    t0 = time.perf_counter()
-    n_items = write_shapes_cache(cache)
-    cache_s = time.perf_counter() - t0
-    out = tmp / "fixture_train"
-    argv = ["--device", "cuda", "--use_precomputed_data",
+    return ["--device", "cuda", "--use_precomputed_data",
             "--precomputed_data_dir", str(cache), "--pixel_space",
             "--model_width", str(cfg["hidden_size"]),
             "--model_depth", str(cfg["depth"]),
@@ -1074,10 +1108,32 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
             "--learning_rate", "8e-4", "--num_warmup_steps", "200",
             "--lr_scheduler", "constant", "--max_steps", str(steps),
             "--num_epochs", "100", "--mixed_precision", "bf16",
-            "--log_every", "10", "--seed", "0", "--output_dir", str(out),
-            "--export_pipeline"]
-    n_attn = cfg["depth"] + sum(
-        DiTConfig.from_json_dict(cfg).block_has_cross_attn(i) for i in range(cfg["depth"]))
+            "--log_every", "10", "--seed", "0", "--output_dir", str(out)]
+
+
+def fixture_attention_calls() -> int:
+    """Attention calls of one fixture forward (self and cross)."""
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.from_json_dict(json.loads((FIXTURE / "dit" / "config.json").read_text()))
+    return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+
+
+def run_fixture_training(tmp: Path, steps=300) -> dict:
+    """The fixture recipe of artifacts/fixture_run/train.log from scratch."""
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+
+    cfg = json.loads((FIXTURE / "dit" / "config.json").read_text())
+    cache = tmp / "shapes_cache"
+    t0 = time.perf_counter()
+    n_items = write_shapes_cache(cache)
+    cache_s = time.perf_counter() - t0
+    out = tmp / "fixture_train"
+    argv = fixture_argv(cache, out, steps) + ["--export_pipeline"]
+    n_attn = fixture_attention_calls()
     watch = StepWatch(profile_window=(100, 103))
     reset_counts()
     watch.begin()
@@ -1125,30 +1181,198 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 12b-12c: resume and preemption; fine-tuning the fixture
+# ---------------------------------------------------------------------------
+
+def run_counted(argv, check=None) -> tuple:
+    """`run_training` with a `StepWatch`: (result, logged losses, watch,
+    every step's loss as a float)."""
+    losses = []
+
+    def record(step, metrics):
+        losses.append(float(metrics["loss"]))
+        if check is not None:
+            check(step, metrics)
+
+    watch = StepWatch(check=record)
+    watch.begin()
+    result, logged = run_training(argv, watch)
+    return result, logged, watch, losses
+
+
+def checkpoint_tensors(out: Path, step: int) -> dict:
+    from f_lite_tpu_torch.train.checkpoint import Checkpointer
+
+    return Checkpointer(out).load(step)[1]
+
+
+def run_fixture_resume(tmp: Path, steps=40) -> dict:
+    """Phase 12b: the fixture recipe (phase 12's cache), `steps` straight
+    against `steps` / 2, then `--resume_from_checkpoint latest` to `steps`,
+    both with `--async_checkpoint` saves at `steps` / 2: every step's loss
+    and the final checkpoint's tensors bit-equal, exactly 12 launches of
+    each kernel a step. Then SIGTERM to a trainer subprocess: exit 0, the
+    stop logged (`preempted_at`) with a checkpoint at its step, and a
+    resume 10 steps on."""
+    import signal
+
+    cache = tmp / "shapes_cache"
+    per = fixture_attention_calls()
+    half = steps // 2
+    extra = ["--checkpointing_steps", str(half), "--async_checkpoint"]
+    reset_counts()
+    _, _, straight_watch, straight = run_counted(
+        fixture_argv(cache, tmp / "resume_a", steps) + extra)
+    straight_counts = read_counts()
+    reset_counts()
+    _, _, w1, first = run_counted(fixture_argv(cache, tmp / "resume_b", half) + extra)
+    _, _, w2, rest = run_counted(fixture_argv(cache, tmp / "resume_b", steps) + extra
+                                 + ["--resume_from_checkpoint", "latest"])
+    resumed_counts = read_counts()
+    want = checkpoint_tensors(tmp / "resume_a", steps)
+    got = checkpoint_tensors(tmp / "resume_b", steps)
+    unequal = [k for k in want if not torch_equal(want[k], got.get(k))]
+    per_step = straight_watch.per_step + w1.per_step + w2.per_step
+    res = dict(steps=steps, resumed_at=half, losses_equal=straight == first + rest,
+               tensors=len(want), tensors_unequal=unequal[:5],
+               launches_straight=straight_counts, launches_resumed=resumed_counts,
+               s_per_step=statistics.median(straight_watch.times[2:]))
+    log("fixture_resume", json.dumps(res))
+    if not res["losses_equal"] or len(straight) != steps:
+        raise AssertionError(f"fixture resume: losses {straight} against {first + rest}")
+    if unequal or set(want) != set(got):
+        raise AssertionError(f"fixture resume: checkpoint tensors differ: {unequal[:5]}")
+    expected = launches(fwd=per, dq=per, dkv=per)
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"fixture resume: launch counts off: {per_step[:3]}")
+
+    # preemption: SIGTERM once the subprocess has logged a step
+    out = tmp / "sigterm"
+    argv = [sys.executable, "-m", "f_lite_tpu_torch.train",
+            *fixture_argv(cache, out, 100000), "--checkpointing_steps", "0",
+            "--log_every", "5"]
+    log_path = tmp / "sigterm.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as lf:
+        proc = subprocess.Popen(argv, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT)
+    try:
+        while " loss " not in log_path.read_text():
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("sigterm: no step logged:\n" + log_path.read_text())
+            time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_text()
+    if rc != 0 or "stopping on signal" not in text:
+        raise AssertionError(f"sigterm: exit {rc}\n{text[-3000:]}")
+    stopped = int(text.split("stopping on signal")[1].split("at step")[1].split(";")[0])
+    from f_lite_tpu_torch.train.checkpoint import Checkpointer
+
+    latest = Checkpointer(out).latest
+    reset_counts()
+    result, _, watch, _ = run_counted(fixture_argv(cache, out, stopped + 10)
+                                      + ["--resume_from_checkpoint", "latest"])
+    res["sigterm"] = dict(exit_code=rc, preempted_at=stopped, latest_checkpoint=latest,
+                          resumed_to=result["global_step"], launches=read_counts(),
+                          subprocess_s=time.perf_counter() - t0)
+    log("fixture_sigterm", json.dumps(res["sigterm"]))
+    if latest != stopped or result["global_step"] != stopped + 10 \
+            or "preempted_at" in result:
+        raise AssertionError(f"sigterm: {res['sigterm']}")
+    if any(c != expected for c in watch.per_step):
+        raise AssertionError(f"sigterm resume: launch counts off: {watch.per_step[:3]}")
+    return res
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return b is not None and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def run_fixture_finetune(tmp: Path, steps=60, n_requests=4) -> dict:
+    """Phase 12c: fine-tune the committed fixture (`--pretrained_model_path`)
+    with a rank-4 LoRA, EMA 0.99, accumulation 2, bs_rampup 20 and sequence
+    dropout 0.5 (528 self-attention tokens) on phase 12's cache, `steps`
+    micro-steps: finite losses, exactly 12 launches of each kernel a
+    micro-step; the exported pipeline (EMA factors merged) scores phase
+    7's requests at both_acc >= 0.95."""
+    import torch
+
+    per = fixture_attention_calls()
+    out = tmp / "finetune"
+    finite = []
+    argv = fixture_argv(tmp / "shapes_cache", out, steps) + [
+        "--pretrained_model_path", str(FIXTURE), "--use_lora", "--lora_rank", "4",
+        "--lora_alpha", "4", "--ema_decay", "0.99", "--gradient_accumulation_steps", "2",
+        "--bs_rampup", "20", "--sequence_dropout", "0.5", "--learning_rate", "1e-4",
+        "--num_warmup_steps", "5", "--export_pipeline"]
+    reset_counts()
+    result, logged, watch, losses = run_counted(
+        argv, check=lambda step, m: finite.append(math.isfinite(float(m["loss"]))))
+    counts = read_counts()
+    expected = launches(fwd=per, dq=per, dkv=per)
+    pipe, embeds, mask, classes, n_blocks = load_fixture(path=out / "pipeline")
+    reset_counts()
+    images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
+                                 context_mask=mask, num_inference_steps=30,
+                                 guidance_scale=6.0)
+    serve_counts = read_counts()
+    res = dict(micro_steps=result["global_step"], updates=watch.state.optimizer.count,
+               logged_losses=logged, all_finite=all(finite), launches=counts,
+               per_micro_step=watch.per_step[0], per_micro_step_expected=expected,
+               s_per_micro_step=statistics.median(watch.times[2:]),
+               both_acc=both_acc(images, classes), serving_launches=serve_counts,
+               checkpoints=result["checkpoints"])
+    log("fixture_finetune", json.dumps(res))
+    if result["global_step"] != steps or not all(finite) or len(finite) != steps:
+        raise AssertionError(f"fixture fine-tune: {result['global_step']} steps, finite {finite}")
+    if any(c != expected for c in watch.per_step):
+        raise AssertionError(f"fixture fine-tune: launch counts off: {watch.per_step[:3]}")
+    if serve_counts != launches(fwd=n_requests * 30 * n_blocks):
+        raise AssertionError(f"fixture fine-tune export: launches {serve_counts}")
+    if res["both_acc"] < 0.95:
+        raise AssertionError(f"fixture fine-tune: both_acc {res['both_acc']} < 0.95")
+    del pipe, watch
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 13: f_lite_7b_width_d20_train512
 # ---------------------------------------------------------------------------
 
-def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
-    """The 7B's widths at depth 20, 512 px (64x64x16 latents), batch 4, text
-    embeddings of 77 and 128 real rows (padded to 128), bf16 compute over
-    fp32 master weights, checkpointing from block 8, AdamW, 10 steps."""
+def write_7b_cache(tmp: Path, batch=4):
+    """512 px latents (64x64x16) and text embeddings of 77 and 128 real rows
+    (padded to 128), seeded; the cache dir."""
     import numpy as np
-    import torch
 
     from f_lite_tpu_torch.data.precomputed import PrecomputedCacheWriter
     from f_lite_tpu_torch.models.dit import DiTConfig
 
-    cfg = DiTConfig.f_lite_7b(depth=depth)
+    cfg = DiTConfig.f_lite_7b()
     cache = tmp / "7b_cache"
-    writer = PrecomputedCacheWriter(cache)
-    rs = np.random.RandomState(10)
-    for i, n_text in enumerate((77, 128, 77, 128)[:batch]):
-        writer.add(f"item{i}", f"prompt {i}",
-                   rs.randn(64, 64, cfg.in_channels).astype(np.float32),
-                   (rs.randn(n_text, cfg.cross_attn_input_size) * 0.02).astype(np.float32))
-    writer.finalize()
-    argv = ["--device", "cuda", "--use_precomputed_data",
-            "--precomputed_data_dir", str(cache),
+    if not cache.exists():
+        writer = PrecomputedCacheWriter(cache)
+        rs = np.random.RandomState(10)
+        for i, n_text in enumerate((77, 128, 77, 128)[:batch]):
+            writer.add(f"item{i}", f"prompt {i}",
+                       rs.randn(64, 64, cfg.in_channels).astype(np.float32),
+                       (rs.randn(n_text, cfg.cross_attn_input_size) * 0.02).astype(np.float32))
+        writer.finalize()
+    return cache
+
+
+def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20) -> list:
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    return ["--device", "cuda", "--use_precomputed_data",
+            "--precomputed_data_dir", str(write_7b_cache(tmp, batch)),
             "--model_width", str(cfg.hidden_size), "--model_depth", str(depth),
             "--model_head_dim", str(cfg.head_dim),
             "--in_channels", str(cfg.in_channels),
@@ -1158,7 +1382,31 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
             "--learning_rate", "1e-4", "--lr_scheduler", "constant",
             "--num_warmup_steps", "2", "--max_grad_norm", "1.0",
             "--mixed_precision", "bf16", "--gradient_checkpointing",
-            "--log_every", "1", "--seed", "0", "--output_dir", str(tmp / "7b_out")]
+            "--log_every", "1", "--seed", "0", "--output_dir", str(out)]
+
+
+def disk_gb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
+
+
+def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
+                    label="7b_train") -> dict:
+    """The 7B's widths at depth 20, 512 px (64x64x16 latents), batch 4, text
+    embeddings of 77 and 128 real rows (padded to 128), bf16 compute over
+    fp32 master weights, checkpointing from block 8, AdamW, `steps` steps,
+    with `extra` options: finite loss and grad norm, exactly 46 forward, 31
+    dq and 31 dkv launches a step, peak memory under 80 GB, a profile of
+    one step, and the final checkpoint's seconds and GB (its dir removed
+    after)."""
+    import shutil
+
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    out = tmp / label
+    argv = argv_7b(tmp, out, steps, batch, depth) + list(extra)
     n_self = depth
     n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
     n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
@@ -1169,7 +1417,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
     def check(step, metrics):
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         finite.append(math.isfinite(loss) and math.isfinite(gnorm))
-        log(f"  7b step {step}: loss {loss} grad_norm {gnorm}")
+        log(f"  {label} step {step}: loss {loss} grad_norm {gnorm}")
 
     watch = StepWatch(profile_window=(steps - 2, steps - 1), check=check)
     torch.cuda.empty_cache()
@@ -1179,24 +1427,70 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20) -> dict:
     result, _ = run_training(argv, watch)
     counts = read_counts()
     n_params = sum(p.numel() for p in watch.state.model.parameters())
-    res = dict(config="f_lite_7b_width_d20_train512", params=n_params,
+    n_trained = sum(p.numel() for p in watch.state.optimizer.params)
+    final = out / "checkpoints" / str(result["global_step"])
+    res = dict(config="f_lite_7b_width_d20_train512", options=list(extra),
+               params=n_params, trained_params=n_trained,
                batch=batch, tokens=1040, steps=result["global_step"],
                s_per_step=statistics.median(watch.times[2:]),
                s_per_step_pr5=0.409, step_s=watch.times,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=counts, per_step=watch.per_step[0],
                per_step_expected=expected, all_finite=all(finite),
+               checkpoints=result["checkpoints"], final_checkpoint_gb=disk_gb(final),
                step_profile=watch.profile)
-    log("7b_train", json.dumps(res))
+    log(label, json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
     if result["global_step"] != steps or not all(finite) or len(finite) != steps:
-        raise AssertionError(f"7B training: {result['global_step']} steps, finite {finite}")
+        raise AssertionError(f"{label}: {result['global_step']} steps, finite {finite}")
     bad = [i + 1 for i, c in enumerate(watch.per_step) if c != expected]
     if bad:
         raise AssertionError(
-            f"7B training: launch counts {watch.per_step[bad[0] - 1]} at step "
+            f"{label}: launch counts {watch.per_step[bad[0] - 1]} at step "
             f"{bad[0]}, expected {expected}")
     if not res["max_memory_allocated_gb"] < 80:
-        raise AssertionError(f"7B training peak {res['max_memory_allocated_gb']} GB")
+        raise AssertionError(f"{label} peak {res['max_memory_allocated_gb']} GB")
+    del watch
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_7b_checkpoint(tmp: Path, depth=20) -> dict:
+    """Phase 13c's full-state checkpoint at the 7B's widths: 3 steps with an
+    `--async_checkpoint` save at step 2 and the trainer's final (sync)
+    save at step 3, `--checkpoints_total_limit 1`: each save's seconds
+    blocked and writing, the bytes on disk against n_params x 12 (fp32
+    parameters, mu and nu). Free disk is checked first, for two of them."""
+    import shutil
+
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in DiT(DiTConfig.f_lite_7b(depth=depth)).parameters())
+    need_gb = 2 * n_params * 12 / 1e9
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    log("7b_checkpoint_disk", json.dumps(dict(params=n_params, need_gb=need_gb,
+                                              free_gb=free_gb, dir=str(tmp))))
+    if free_gb < need_gb * 1.1:
+        raise AssertionError(f"7B checkpoint: {free_gb:.1f} GB free, {need_gb:.1f} needed")
+    out = tmp / "7b_checkpoint"
+    argv = argv_7b(tmp, out, 3, depth=depth) + [
+        "--checkpointing_steps", "2", "--async_checkpoint", "--checkpoints_total_limit", "1"]
+    watch = StepWatch()
+    torch.cuda.empty_cache()
+    reset_counts()
+    watch.begin()
+    result, _ = run_training(argv, watch)
+    steps = sorted(int(d.name) for d in (out / "checkpoints").iterdir())
+    res = dict(params=n_params, expected_gb=n_params * 12 / 1e9,
+               disk_gb=disk_gb(out / "checkpoints" / "3"), kept_steps=steps,
+               saves=result["checkpoints"], step_s=watch.times)
+    log("7b_checkpoint", json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
+    if steps != [3] or not res["disk_gb"] > 0.9 * res["expected_gb"]:
+        raise AssertionError(f"7B checkpoint: {res}")
     del watch
     torch.cuda.empty_cache()
     return res
@@ -2714,7 +3008,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fixture_train = phase(run_fixture_training, Path(tmp))
+        fixture_resume = phase(run_fixture_resume, Path(tmp))
+        fixture_finetune = phase(run_fixture_finetune, Path(tmp))
         train_7b = phase(run_7b_training, Path(tmp))
+        train_7b_dots = phase(run_7b_training, Path(tmp), 10, 4, 20,
+                              ("--remat_policy", "dots"), "7b_train_dots")
+        train_7b_seqdrop = phase(run_7b_training, Path(tmp), 10, 4, 20,
+                                 ("--sequence_dropout", "0.5"), "7b_train_seqdrop")
+        train_7b_lora = phase(run_7b_training, Path(tmp), 10, 4, 20,
+                              ("--use_lora", "--lora_rank", "64"), "7b_train_lora")
+        checkpoint_7b = phase(run_7b_checkpoint, Path(tmp))
+    log("7b_train_options", json.dumps({
+        r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
+            "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
+            "final_checkpoint_gb")} | {"by_class_ms": r["step_profile"]["by_class_ms"],
+                                       "idle_share": r["step_profile"]["idle_share"],
+                                       "final_save": r["checkpoints"][-1]}
+        for r in (train_7b, train_7b_dots, train_7b_seqdrop, train_7b_lora)}))
 
     main_row = next(r for r in rows if r["shape"] == "7b_self" and r["dtype"] == "bfloat16")
     forward = dict(
@@ -2746,6 +3056,12 @@ def main() -> int:
                                   "cancelled": big_http["cancel"]["launches"]["fwd"]},
         launches_lab=lab["launches"]["fwd"],
         launches_fixture_train=fixture_train["launches"]["fwd"],
+        launches_per_train_step_options={
+            "dots": train_7b_dots["per_step"]["fwd"],
+            "sequence_dropout": train_7b_seqdrop["per_step"]["fwd"],
+            "lora": train_7b_lora["per_step"]["fwd"]},
+        launches_fixture_resume=fixture_resume["launches_resumed"]["fwd"],
+        launches_per_fixture_finetune_micro_step=fixture_finetune["per_micro_step"]["fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -2768,6 +3084,13 @@ def main() -> int:
             launches=train_7b["launches"][which],
             launches_per_train_step=train_7b["per_step"][which],
             launches_fixture_train=fixture_train["launches"][which],
+            launches_per_train_step_options={
+                "dots": train_7b_dots["per_step"][which],
+                "sequence_dropout": train_7b_seqdrop["per_step"][which],
+                "lora": train_7b_lora["per_step"][which]},
+            launches_fixture_resume=fixture_resume["launches_resumed"][which],
+            launches_per_fixture_finetune_micro_step=(
+                fixture_finetune["per_micro_step"][which]),
             max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
             max_err_over_tolerance=max(r["max_abs_err"][gname] / r["tolerance"][gname]
                                        for r in bwd_rows for gname in grads),
@@ -2806,8 +3129,10 @@ def main() -> int:
             fixture_serve["batch"]["launches"], fixture_serve["http"]["launches"],
             big_http["request"]["launches"], big_http["img2img"]["launches"],
             big_http["cancel"]["launches"])),
-        launches_training=(fixture_train["launches"]["variants"]
-                           + train_7b["launches"]["variants"]),
+        launches_training=sum(r["launches"]["variants"] for r in (
+            fixture_train, fixture_finetune, train_7b, train_7b_dots, train_7b_seqdrop,
+            train_7b_lora)) + fixture_resume["launches_straight"]["variants"]
+        + fixture_resume["launches_resumed"]["variants"],
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
         max_err_over_tolerance=max(r["max_err_over_tolerance"] for r in variant_rows),
         ms=lab_at[(*serving_pair, "base")],
@@ -2894,7 +3219,22 @@ def main() -> int:
                             "s_per_request", "server_s", "phase_9_s_per_image",
                             "png_encode_ms", "png_decode_ms", "png_decode_ms_by_filter",
                             "png_bytes")},
-                        "http_7b_warm_up_s": big_http["warm_up_s"]}}))
+                        "http_7b_warm_up_s": big_http["warm_up_s"]},
+                    "train_state": {
+                        "fixture_resume_bit_equal": fixture_resume["losses_equal"],
+                        "fixture_sigterm": fixture_resume["sigterm"],
+                        "fixture_finetune_both_acc": fixture_finetune["both_acc"],
+                        "checkpoint_7b": {k: checkpoint_7b[k] for k in (
+                            "params", "expected_gb", "disk_gb", "saves")},
+                        "train_7b_s_per_step": {
+                            "full": train_7b["s_per_step"], "dots": train_7b_dots["s_per_step"],
+                            "sequence_dropout": train_7b_seqdrop["s_per_step"],
+                            "lora": train_7b_lora["s_per_step"]},
+                        "train_7b_peak_gb": {
+                            "full": train_7b["max_memory_allocated_gb"],
+                            "dots": train_7b_dots["max_memory_allocated_gb"],
+                            "sequence_dropout": train_7b_seqdrop["max_memory_allocated_gb"],
+                            "lora": train_7b_lora["max_memory_allocated_gb"]}}}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

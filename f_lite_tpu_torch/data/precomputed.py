@@ -4,8 +4,10 @@
 A cache directory holds `vae_latents/latent_<md5>.npy` (normalized latents,
 or pixels for pixel-space runs, NHWC), `text_embeddings/embedding_<md5>.npy`
 (one per distinct caption) and `precomputed_mapping.json` listing the
-entries; numpy reads all of it. The loader runs in-process (no worker pool,
-no resolution buckets yet) and yields collated numpy batches.
+entries; numpy reads all of it. The loader runs in-process (no worker pool)
+and yields collated numpy batches: fixed batches in the item sampler's
+order, or, with `use_buckets`, the resolution bucket sampler's batches of
+one latent shape each (`setup_latent_buckets`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from pathlib import Path
 
 import numpy as np
 
-from f_lite_tpu_torch.data.samplers import StatefulDistributedSampler
+from f_lite_tpu_torch.data.samplers import (
+    ResolutionBucketSampler,
+    StatefulDistributedSampler,
+)
 from f_lite_tpu_torch.text.encoder import caption_cache_key
 
 
@@ -64,6 +69,24 @@ class PrecomputedDataset:
     def __len__(self):
         return len(self.entries)
 
+    def latent_shape(self, idx: int) -> tuple:
+        """The entry's latent shape, from the mapping (or, for a cache
+        written without it, the file's header)."""
+        e = self.entries[idx]
+        if "latent_shape" in e:
+            return tuple(e["latent_shape"])
+        return np.load(self.root / "vae_latents" / e["latent_file"],
+                       mmap_mode="r").shape
+
+    def setup_latent_buckets(self) -> dict:
+        """{latent shape: [indices]} in first-seen order, as the bucket
+        sampler's `aspect_ratio_buckets`."""
+        buckets: dict[tuple, list[int]] = {}
+        for i in range(len(self)):
+            buckets.setdefault(self.latent_shape(i), []).append(i)
+        self.aspect_ratio_buckets = buckets
+        return buckets
+
     def __getitem__(self, idx: int) -> dict:
         e = self.entries[idx]
         latent = np.load(self.root / "vae_latents" / e["latent_file"])
@@ -101,18 +124,26 @@ class PrecomputedDataset:
 
 
 class PrecomputedLoader:
-    """Batches of `batch_size` items in the sampler's order, collated;
-    an incomplete last batch is dropped."""
+    """Collated batches: of `batch_size` items in the sampler's order (an
+    incomplete last batch dropped), or, without a batch size, the index
+    lists the sampler yields (a batch sampler)."""
 
-    def __init__(self, dataset: PrecomputedDataset, batch_size: int, sampler):
+    def __init__(self, dataset: PrecomputedDataset, batch_size: int | None,
+                 sampler):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
 
     def __len__(self):
+        if self.batch_size is None:
+            return len(self.sampler)
         return len(self.sampler) // self.batch_size
 
     def __iter__(self):
+        if self.batch_size is None:
+            for indices in self.sampler:
+                yield self.dataset.collate_fn([self.dataset[i] for i in indices])
+            return
         batch = []
         for idx in self.sampler:
             batch.append(self.dataset[idx])
@@ -122,8 +153,21 @@ class PrecomputedLoader:
 
 
 def create_precomputed_data_loader(root, batch_size, *, shuffle=True, seed=0,
-                                   latent_flip=False):
-    """(loader, sampler) over the cache at `root`."""
+                                   use_buckets=False, latent_flip=False,
+                                   sampler_state=None):
+    """(loader, sampler) over the cache at `root`; `use_buckets` batches
+    within latent-shape buckets; `sampler_state` (a sampler's
+    `state_dict`) resumes inside the saved epoch."""
     ds = PrecomputedDataset(root, latent_flip=latent_flip)
-    sampler = StatefulDistributedSampler(ds, shuffle=shuffle, seed=seed)
-    return PrecomputedLoader(ds, batch_size, sampler), sampler
+    if use_buckets:
+        ds.setup_latent_buckets()
+        sampler = ResolutionBucketSampler(ds, batch_size, shuffle=shuffle,
+                                          seed=seed)
+        loader = PrecomputedLoader(ds, None, sampler)
+    else:
+        sampler = StatefulDistributedSampler(ds, batch_size, shuffle=shuffle,
+                                             seed=seed)
+        loader = PrecomputedLoader(ds, batch_size, sampler)
+    if sampler_state:
+        sampler.load_state_dict(sampler_state)
+    return loader, sampler

@@ -17,7 +17,10 @@ Training as the JAX package does it: `DiTConfig.dtype` is the compute dtype
 activations' dtype, as flax's `dtype` over `param_dtype` does (fp32 master
 weights computing in bf16); `gradient_checkpoint` recomputes the blocks from
 `gradient_checkpoint_from` on in the backward (`remat_policy` "full");
-`init_weights` draws the JAX initializers.
+`remat_policy` "dots" also keeps the blocks' weight products and recomputes
+the rest (JAX's `dots_with_no_batch_dims_saveable`, through selective
+checkpointing); `token_indices` runs a subset of the patch tokens (sequence
+dropout); `init_weights` draws the JAX initializers.
 
 Int8 serving (`quantized=True`, `f_lite_tpu_torch/quant.py`): the
 `QUANT_TARGETS` projections are `QuantDense` layers (int8 weights, fp32
@@ -33,7 +36,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from f_lite_tpu_torch.ops.attention import attention, compact_context
 from f_lite_tpu_torch.ops.norms import rms_norm
@@ -76,7 +84,7 @@ class DiTConfig:
     pos_embed_max_len: int = 2048  # only when use_rope=False
     gradient_checkpoint: bool = False
     gradient_checkpoint_from: int = 8  # recompute blocks >= this
-    remat_policy: str = "full"  # "full": keep block inputs only
+    remat_policy: str = "full"  # "full": keep block inputs; "dots": + products
     quantized: bool = False  # int8 W8A8 projections (inference)
     dtype: torch.dtype | None = None  # compute dtype; None = param dtype
 
@@ -324,6 +332,25 @@ class PatchEmbed(nn.Module):
         return F.linear(tokens, w, self.patch_proj.bias.to(tokens.dtype))
 
 
+# the weight products, which "dots" keeps (JAX's
+# dots_with_no_batch_dims_saveable): nn.Linear's GEMMs, and F.linear where a
+# backend does not decompose it; a batched product (bmm) is recomputed
+_SAVED_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.linear.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_saveable_contexts():
+    """Selective checkpointing's pair of dispatch modes for "dots". Every
+    other op, the attention's output allocations among them, runs again in
+    the recomputation, so a kernel writes into fresh tensors there."""
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 class DiT(nn.Module):
     """The denoiser: forward(x (B,H,W,C), context (B,S,Ctx), context_mask
     (B,S) bool or None, t (B,)) -> velocity (B,H,W,C), all NHWC."""
@@ -384,28 +411,48 @@ class DiT(nn.Module):
             self.positional_embedding.zero_()
         return self
 
-    def forward(self, x, context, context_mask, t):
+    def forward(self, x, context, context_mask, t, token_indices=None):
+        """`token_indices` (B, K) int64, sequence dropout: only these patch
+        positions run through the blocks (with the 16 register tokens
+        prepended), with their own rope rows (or positional rows), and the
+        output is token-space (B, K, p*p*C) instead of an image."""
         cfg = self.config
         dtype = self.dtype
         b, height, width, _ = x.shape
         gh, gw = height // cfg.patch_size, width // cfg.patch_size
         d = cfg.hidden_size
+        nreg = cfg.n_register_tokens
 
         if context_mask is not None:
             context, context_mask = compact_context(context, context_mask)
         context = self.context_norm(self.context_proj(context.to(dtype)))
 
-        tokens = self.patch_embed(patchify(x.to(dtype), cfg.patch_size))
+        patches = patchify(x.to(dtype), cfg.patch_size)
+        if token_indices is not None:
+            patches = torch.take_along_dim(patches, token_indices[..., None], dim=1)
+        tokens = self.patch_embed(patches)
         reg = self.register_tokens.to(dtype).expand(b, -1, -1)
         tokens = torch.cat([reg, tokens], dim=1)
 
         if cfg.use_rope:
             rope = rope_2d_freqs(
                 cfg.head_dim, gh, gw, base=cfg.rope_base,
-                n_register_tokens=cfg.n_register_tokens, device=x.device,
+                n_register_tokens=nreg, device=x.device,
             )
+            if token_indices is not None:
+                # per-row tables: the kept patches' rows behind the
+                # registers' identity rows
+                rope = tuple(
+                    torch.cat([tab[None, :nreg].expand(b, -1, -1),
+                               tab[nreg:][token_indices]], dim=1)
+                    for tab in rope)
         else:
-            pos = self.positional_embedding[:, : tokens.shape[1], :]
+            pos = self.positional_embedding
+            if token_indices is None:
+                pos = pos[:, : tokens.shape[1], :]
+            else:
+                pos = torch.cat([pos[:, :nreg].expand(b, -1, -1),
+                                 pos[0, nreg: nreg + gh * gw][token_indices]], dim=1)
             tokens = tokens + pos.to(dtype)
             rope = None
 
@@ -415,23 +462,25 @@ class DiT(nn.Module):
             modulation = self.adaLN_modulation(t_emb).reshape(b, 9, d)
 
         remat = cfg.gradient_checkpoint and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported yet")
+        context_fn = (_dots_saveable_contexts if cfg.remat_policy == "dots"
+                      else noop_context_fn)
         v_first = None
         for idx, block in enumerate(self.blocks):
             if cfg.adaln_mode == "per_block":
                 modulation = block.adaLN_modulation(t_emb).reshape(b, 9, d)
             args = (tokens, context, context_mask, modulation, rope, v_first)
             if remat and idx >= cfg.gradient_checkpoint_from:
-                # keep the block's inputs only; the backward runs the block
-                # again under grad mode (so attention saves its lse again)
-                tokens, v_first = checkpoint(block, *args, use_reentrant=False)
+                # "full" keeps the block's inputs only; "dots" also the
+                # weight products. The backward runs the rest of the block
+                # again under grad mode, attention included (its kernel
+                # launches again and saves its lse again)
+                tokens, v_first = checkpoint(block, *args, use_reentrant=False,
+                                             context_fn=context_fn)
             else:
                 tokens, v_first = block(*args)
 
         # drop registers; final modulation + projection
-        tokens = tokens[:, cfg.n_register_tokens:, :]
+        tokens = tokens[:, nreg:, :]
         final_mod = self.final_modulation(t_emb).reshape(b, 2, d)
         shift = final_mod[:, 0][:, None, :].to(dtype)
         scale = final_mod[:, 1][:, None, :].to(dtype)
@@ -440,4 +489,6 @@ class DiT(nn.Module):
         else:
             tokens = rms_norm(tokens)
         tokens = self.final_proj(tokens * (1 + scale) + shift)
+        if token_indices is not None:
+            return tokens
         return unpatchify(tokens, gh, gw, cfg.patch_size, cfg.in_channels)

@@ -37,7 +37,11 @@ def rope_2d_freqs(head_dim: int, h: int, w: int, *, base: float = 10000.0,
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE in fp32. x (B, H, T, D); cos/sin (T, D // 2)."""
+    """Rotate-half RoPE in fp32. x (B, H, T, D); cos/sin (T, D // 2) or
+    per batch row (B, T, D // 2) (the rows gathered under sequence
+    dropout)."""
+    if cos.dim() == 3:  # (B, T, D/2): broadcast over the heads
+        cos, sin = cos[:, None], sin[:, None]
     x32 = x.float()
     d = x32.shape[-1] // 2
     x1, x2 = x32[..., :d], x32[..., d:]

@@ -1,13 +1,19 @@
-"""LoRA at load: the port's `apply_lora` and `load_lora_weights`
-(counterparts of `f_lite_tpu/train/lora.py`).
+"""LoRA: the merge at load (`apply_lora`, `load_lora_weights`) and LoRA
+training (`init_lora_params`, `attach_lora`, `save_lora_weights`);
+counterparts of `f_lite_tpu/train/lora.py`.
 
 The factors form the framework's tree, `blocks_{i}/{self_attn|cross_attn}/
 {target}` -> {"lora_a": (in, r), "lora_b": (r, out_flat)}, on the
 reference's targets `qkv, q, context_kv, proj`. The port's weights are
 torch's (out, in), the fused targets' rows in the (split, H, D) C order the
 factors' flattened out dims use (`convert/lora_torch.py`), so the merged
-weight is `W + scale * alpha / rank * (a @ b)^T`. Training the factors
-(`init_lora_params`, `save_lora_weights`) is not ported yet.
+weight is `W + scale * alpha / rank * (a @ b)^T`.
+
+Training merges inside the step, with autograd: `attach_lora` puts a
+parametrization on each target weight that returns `W + alpha / rank *
+(a @ b)^T` in fp32 (the JAX order: the product in fp32, cast to the
+weight's dtype, then the scaled add) and freezes the DiT, so only the
+factors train. `detach_lora` takes the parametrizations off again.
 """
 
 from __future__ import annotations
@@ -15,8 +21,114 @@ from __future__ import annotations
 from pathlib import Path
 
 import torch
+from torch import nn
+from torch.nn.utils import parametrize
 
 DEFAULT_TARGETS = ("qkv", "q", "context_kv", "proj")
+
+
+def target_layers(dit, targets=DEFAULT_TARGETS) -> dict:
+    """{(f"blocks_{i}", "self_attn" | "cross_attn", target): layer} for the
+    DiT's layers named in `targets`, in sorted path order."""
+    found = {}
+    for name, module in dit.named_modules():
+        parts = name.split(".")
+        if len(parts) == 4 and parts[0] == "blocks" and parts[3] in targets:
+            found[(f"blocks_{parts[1]}", parts[2], parts[3])] = module
+    return dict(sorted(found.items()))
+
+
+def _nodes(tree: dict, depth: int) -> list:
+    """The dicts `depth` levels down the tree."""
+    if depth == 0:
+        return [tree]
+    return [n for v in tree.values() if isinstance(v, dict) for n in _nodes(v, depth - 1)]
+
+
+def _node(tree: dict, path) -> dict:
+    for p in path:
+        tree = tree.setdefault(p, {})
+    return tree
+
+
+def init_lora_params(dit, *, rank: int = 64, targets=DEFAULT_TARGETS,
+                     generator: torch.Generator, stddev: float = 0.02) -> dict:
+    """The factor tree of `f_lite_tpu.train.lora.init_lora_params`: for each
+    target layer, lora_a (in, rank) normal * stddev and lora_b (rank, out)
+    zeros, fp32, drawn from `generator` (on its device) in sorted path
+    order."""
+    tree: dict = {}
+    device = generator.device
+    for path, layer in target_layers(dit, targets).items():
+        d_out, d_in = layer.weight.shape
+        _node(tree, path)["lora_a"] = torch.randn(
+            (d_in, rank), generator=generator, device=device) * stddev
+        _node(tree, path)["lora_b"] = torch.zeros((rank, d_out), device=device)
+    if not tree:
+        raise ValueError(f"no LoRA target among {tuple(targets)} in the DiT")
+    return tree
+
+
+def flatten_lora(tree: dict, prefix: str = "") -> dict:
+    """{"blocks_0.self_attn.qkv.lora_a": tensor, ...}: the keys of
+    `lora_weights.safetensors`."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        flat.update(flatten_lora(v, key) if isinstance(v, dict) else {key: v})
+    return flat
+
+
+class _LoRAMerge(nn.Module):
+    def __init__(self, a: torch.Tensor, b: torch.Tensor, factor: float):
+        super().__init__()
+        self.lora_a = nn.Parameter(a)
+        self.lora_b = nn.Parameter(b)
+        self.factor = factor
+
+    def forward(self, w):
+        delta = (self.lora_a @ self.lora_b).t().to(w.dtype)
+        return w + self.factor * delta
+
+
+def attach_lora(dit, tree: dict, *, alpha: float, rank: int) -> dict:
+    """Freeze `dit` and merge the factors of `tree` into their weights on
+    every access (a parametrization), so the forward trains them. Returns
+    the factor tree of the trainable Parameters (fp32, on the weights'
+    device)."""
+    tree = tree.get("params", tree)
+    targets = {t for attn in _nodes(tree, 2) for t in attn}
+    dit.requires_grad_(False)
+    trained: dict = {}
+    for path, layer in target_layers(dit, targets).items():
+        node = tree.get(path[0], {}).get(path[1], {}).get(path[2])
+        if node is None:
+            continue
+        dev = layer.weight.device
+        merge = _LoRAMerge(*(torch.as_tensor(node[k]).to(dev, torch.float32).clone()
+                             for k in ("lora_a", "lora_b")), alpha / rank)
+        parametrize.register_parametrization(layer, "weight", merge)
+        _node(trained, path).update(lora_a=merge.lora_a, lora_b=merge.lora_b)
+    if not trained:
+        raise ValueError("LoRA factors matched no layer of the DiT")
+    return trained
+
+
+def detach_lora(dit) -> None:
+    """Take `attach_lora`'s parametrizations off: the base weights again."""
+    for layer in dit.modules():
+        if parametrize.is_parametrized(layer, "weight"):
+            parametrize.remove_parametrizations(layer, "weight",
+                                                leave_parametrized=False)
+
+
+def save_lora_weights(tree: dict, directory) -> None:
+    """`{directory}/lora_weights.safetensors` with the JAX package's keys,
+    fp32 (the port's writer); both packages' `load_lora_weights` read it."""
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    save_file({k: torch.as_tensor(v).float() for k, v in flatten_lora(tree).items()},
+              Path(directory) / "lora_weights.safetensors")
 
 
 def lora_rank(lora: dict) -> int:
@@ -42,11 +154,12 @@ def apply_lora(dit, lora: dict, *, alpha: float = 64.0, rank: int = 64,
     changed. A factor whose layer is not in the DiT is skipped, as the JAX
     merge skips it."""
     tree = lora.get("params", lora)
+    targets = {t for attn in _nodes(tree, 2) for t in attn}
     factor = scale * alpha / rank
     merged = 0
     for name, module in dit.named_modules():
         parts = name.split(".")
-        if len(parts) != 4 or parts[0] != "blocks" or parts[3] not in DEFAULT_TARGETS:
+        if len(parts) != 4 or parts[0] != "blocks" or parts[3] not in targets:
             continue
         node = tree.get(f"blocks_{parts[1]}", {}).get(parts[2], {}).get(parts[3])
         if node is None or "lora_a" not in node:

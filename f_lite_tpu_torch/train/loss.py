@@ -5,11 +5,16 @@ binning (counterpart of `f_lite_tpu/train/loss.py`).
   its mask set to all-ones for the dropped rows;
 - t from `sample_train_timesteps` (90% resolution-shifted sigmoid-normal,
   10% uniform); z_t = (1 - t) x + t n; velocity target v = x - n;
+- sequence dropout (`token_keep_ratio` < 1): each row keeps the first
+  max(1, int(n_patches * ratio)) of an argsort of uniform scores, the DiT
+  runs on those tokens only and the target is gathered with the same
+  indices;
 - MSE in patchified token space, per-sample mean, then the batch mean
   (or the `sample_weight`-weighted mean);
 - per-decile sums and counts of the per-sample losses (bin = min(int(10 t),
   9)).
-`timesteps=` and `noise=` replace the random draws (tests, parity). The
+`timesteps=`, `noise=` and `token_indices=` replace the random draws
+(tests, parity). The
 random draws come from a `torch.Generator` on the latents' device; they are
 not the JAX package's numbers. Inputs are normalized latents; all
 reductions are fp32.
@@ -45,12 +50,9 @@ def flow_matching_loss(
     token_keep_ratio: float = 1.0,
     timesteps: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
+    token_indices: torch.Tensor | None = None,  # (B, K) int64
     sample_weight: torch.Tensor | None = None,  # (B,) 0/1
 ) -> tuple[torch.Tensor, LossAux]:
-    if token_keep_ratio < 1.0:
-        raise NotImplementedError(
-            "token_keep_ratio < 1 (sequence dropout) is not ported yet: it "
-            "needs token_indices in the DiT")
     b, h, w, _ = latents.shape
     device = latents.device
 
@@ -72,10 +74,20 @@ def flow_matching_loss(
     z_t = x * (1.0 - t) + noise * t
     v_target = x - noise
 
+    if token_indices is None and token_keep_ratio < 1.0:
+        n_patches = (h // patch_size) * (w // patch_size)
+        keep = max(1, int(n_patches * token_keep_ratio))
+        scores = torch.rand(b, n_patches, generator=generator, device=device)
+        token_indices = torch.argsort(scores, dim=1)[:, :keep]
+
     pred = dit(z_t.to(latents.dtype), context, context_mask,
-               timesteps.to(latents.dtype))
+               timesteps.to(latents.dtype), token_indices)
     targ_tok = patchify(v_target, patch_size)
-    pred_tok = patchify(pred.float(), patch_size)
+    if token_indices is None:
+        pred_tok = patchify(pred.float(), patch_size)
+    else:  # token-space prediction of the kept tokens
+        pred_tok = pred.float()
+        targ_tok = torch.take_along_dim(targ_tok, token_indices[..., None], dim=1)
     per_sample = ((targ_tok - pred_tok) ** 2).mean(dim=(1, 2))  # (B,)
     if sample_weight is None:
         loss = per_sample.mean()

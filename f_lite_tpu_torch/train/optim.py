@@ -15,6 +15,11 @@ What differs from PyTorch's defaults, and is matched here:
   nu stays in the parameter dtype; the stored mu is scaled in bf16 by b1 rounded
   to bf16 (0.8984375), and the step computes with the new fp32 mu before
   rounding it (optax's `mu_dtype`).
+
+`Accumulate(opt, k)` is `optax.MultiSteps(opt, k)`: a running mean of k
+micro-batch gradients, applied by `opt` on every k-th call. Both keep
+their state in `state_dict()` / `load_state_dict()` (counts as ints,
+moments and the accumulator as tensors), which the checkpoint writes.
 """
 
 from __future__ import annotations
@@ -147,18 +152,74 @@ class AdamW:
                 mu.copy_(mu_new)
         return norm
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
+            for t, v in zip(dst, state[key], strict=True):
+                t.copy_(v)
+
+
+class Accumulate:
+    """`optax.MultiSteps(opt, k)` over `opt`'s parameters: each call folds
+    its gradients into a running mean (Welford's update, acc + (g - acc) /
+    (n + 1), in the gradients' dtype); the k-th call hands the mean to
+    `opt` (clip + AdamW, whose count and schedule advance once per update)
+    and resets it. The other calls leave the parameters untouched. Each
+    call returns the global norm of its own gradients, the JAX trainer's
+    `grad_norm`."""
+
+    def __init__(self, opt: AdamW, k: int):
+        self.opt = opt
+        self.k = k
+        self.params = opt.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+
+    @property
+    def count(self) -> int:
+        return self.opt.count
+
+    @torch.no_grad()
+    def step(self, grads) -> torch.Tensor:
+        grads = list(grads)
+        norm = global_norm(grads)
+        n = self.mini_step
+        for acc, g in zip(self.acc, grads):
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if self.mini_step == 0:
+            self.opt.step(self.acc)
+            for acc in self.acc:
+                acc.zero_()
+        return norm
+
+    def state_dict(self) -> dict:
+        return {**self.opt.state_dict(), "mini_step": self.mini_step,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+        self.mini_step = int(state["mini_step"])
+        for t, v in zip(self.acc, state["acc"], strict=True):
+            t.copy_(v)
+
 
 def build_optimizer(params, *, learning_rate: float = 1e-4,
                     lr_scheduler: str = "linear", num_warmup_steps: int = 0,
                     max_steps: int = 10_000, weight_decay: float = 0.01,
                     max_grad_norm: float | None = 1.0,
-                    moment_dtype=None) -> AdamW:
+                    moment_dtype=None, accumulation_steps: int = 1):
     """Clipping + AdamW over `params` with the named schedule;
-    `moment_dtype="bfloat16"` keeps mu in bf16 (`--use_8bit_adam`)."""
+    `moment_dtype="bfloat16"` keeps mu in bf16 (`--use_8bit_adam`);
+    `accumulation_steps` > 1 wraps it in `Accumulate`."""
     schedule = build_lr_schedule(lr_scheduler, learning_rate,
                                  num_warmup_steps=num_warmup_steps,
                                  max_steps=max_steps)
     if isinstance(moment_dtype, str):
         moment_dtype = getattr(torch, moment_dtype)
-    return AdamW(params, schedule, weight_decay=weight_decay,
-                 max_grad_norm=max_grad_norm, mu_dtype=moment_dtype)
+    opt = AdamW(params, schedule, weight_decay=weight_decay,
+                max_grad_norm=max_grad_norm, mu_dtype=moment_dtype)
+    return Accumulate(opt, accumulation_steps) if accumulation_steps > 1 else opt

@@ -1,7 +1,9 @@
 """One training step: loss -> backward -> clip -> AdamW (counterpart of
 `f_lite_tpu/train/step.py`, whose jitted step does the same in one XLA
 program). Here the forward and backward run eagerly through the DiT, with
-the flash-attention kernels on the card."""
+the flash-attention kernels on the card. The optimizer's parameters are
+what trains: the DiT's, or the LoRA factors of a frozen DiT
+(`train/lora.py`); under `Accumulate` a call is one micro-batch."""
 
 from __future__ import annotations
 
@@ -10,30 +12,33 @@ import dataclasses
 import torch
 
 from f_lite_tpu_torch.train.loss import flow_matching_loss
-from f_lite_tpu_torch.train.optim import AdamW
+from f_lite_tpu_torch.train.optim import Accumulate, AdamW
 
 
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: AdamW
+    optimizer: AdamW | Accumulate
     step: int = 0
 
 
 def train_step(state: TrainState, latents, context, context_mask, *,
                generator: torch.Generator | None = None,
                uncond_prob: float = 0.05, patch_size: int = 2,
-               timesteps=None, noise=None) -> dict:
+               token_keep_ratio: float = 1.0, sample_weight=None,
+               timesteps=None, noise=None, token_indices=None) -> dict:
     """Run one step in place on `state` and return its metrics as device
-    tensors: loss, grad_norm (the global norm before clipping), bin_sums and
-    bin_counts (per-decile loss sums and counts)."""
+    tensors: loss, grad_norm (the global norm of this call's gradients,
+    before clipping), bin_sums and bin_counts (per-decile loss sums and
+    counts)."""
     model, opt = state.model, state.optimizer
     for p in opt.params:
         p.grad = None
     loss, aux = flow_matching_loss(
         model, latents, context, context_mask, generator=generator,
         uncond_prob=uncond_prob, patch_size=patch_size,
-        timesteps=timesteps, noise=noise,
+        token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
+        timesteps=timesteps, noise=noise, token_indices=token_indices,
     )
     loss.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad

@@ -7,7 +7,8 @@ header. F32, F16 and I8 (int8 weights of a quantized DiT) load as such;
 BF16 widens exactly to float32 (numpy has no bfloat16). `raw_arrays` yields
 each tensor as a view of a map of the file (BF16 as its uint16 bits), so a
 caller can take one tensor at a time without reading the whole file. The
-writer stores float32 arrays, in name order.
+writer stores float32 and int8 arrays and float32, bfloat16 and int8
+tensors, in name order.
 """
 
 from __future__ import annotations
@@ -58,39 +59,50 @@ def load_file(path: str | Path) -> dict[str, np.ndarray]:
 
 
 _WRITE = {np.dtype(np.float32): "F32", np.dtype(np.int8): "I8"}
+_WRITE_TORCH = {torch.float32: "F32", torch.bfloat16: "BF16", torch.int8: "I8"}
 
 
-def _encode(name: str, value) -> tuple[str, list[int], bytes]:
-    """(safetensors dtype, shape, little-endian bytes) of one tensor."""
+def _meta(name: str, value) -> tuple[str, list[int], int]:
+    """(safetensors dtype, shape, byte count) of one tensor."""
+    if isinstance(value, torch.Tensor):
+        dt = _WRITE_TORCH.get(value.dtype)
+        itemsize = value.element_size()
+    else:
+        value = np.asarray(value)
+        dt = _WRITE.get(value.dtype)
+        itemsize = value.dtype.itemsize
+    if dt is None:
+        raise ValueError(f"tensor {name}: {value.dtype}, the writer takes "
+                         "float32, bfloat16 (torch) and int8")
+    return dt, list(value.shape), int(np.prod(value.shape, dtype=np.int64)) * itemsize
+
+
+def _bytes(value) -> np.ndarray:
+    """One tensor's little-endian bytes, as a uint8 array (bfloat16 as its
+    16-bit pattern)."""
     if isinstance(value, torch.Tensor):
         t = value.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return "BF16", list(t.shape), t.view(torch.int16).numpy().astype(
-                "<i2", copy=False).tobytes()
+            t = t.view(torch.int16)
         value = t.numpy()
-    arr = np.ascontiguousarray(value)
-    if arr.dtype not in _WRITE:
-        raise ValueError(f"tensor {name}: {arr.dtype}, the writer takes "
-                         "float32, bfloat16 (torch) and int8")
-    return _WRITE[arr.dtype], list(arr.shape), arr.astype(
-        arr.dtype.newbyteorder("<"), copy=False).tobytes()
+    arr = np.ascontiguousarray(value).reshape(-1)
+    return arr.astype(arr.dtype.newbyteorder("<"), copy=False).view(np.uint8)
 
 
 def save_file(tensors: dict, path: str | Path) -> None:
-    """Write `tensors` ({name: array or tensor}) as one safetensors file."""
+    """Write `tensors` ({name: array or tensor}) as one safetensors file,
+    one tensor's bytes in memory at a time."""
     header: dict = {}
-    blobs, offset = [], 0
+    offset = 0
     for name in sorted(tensors):
-        dt, shape, data = _encode(name, tensors[name])
-        header[name] = {"dtype": dt,
-                        "shape": shape,
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+        dt, shape, n = _meta(name, tensors[name])
+        header[name] = {"dtype": dt, "shape": shape,
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for name in sorted(tensors):
+            f.write(_bytes(tensors[name]))

@@ -9,6 +9,7 @@ on a GPU host without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -456,6 +457,39 @@ def test_dit_with_128_wide_heads_on_the_card_matches_the_cpu(cuda_device):
         assert pg.grad is not None, f"{name}: no gradient on the card"
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+def test_dots_remat_and_token_indices_on_the_card(cuda_device):
+    """On the card, through the kernels: "dots" (blocks 1-2 checkpointed)
+    gives the gradients of "full" bit for bit with the same launches (the
+    backward runs attention again), and a forward on 8 kept tokens a row
+    (`token_indices`) matches the CPU's, atol 1e-4."""
+    cfg, cpu, args, weight = _small_dit_and_inputs()
+    grads, counts = {}, {}
+    for policy in ("full", "dots"):
+        gpu = DiT(dataclasses.replace(cfg, gradient_checkpoint=True,
+                                      gradient_checkpoint_from=1, remat_policy=policy))
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to(cuda_device)
+        before = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+        (gpu(*(a.to(cuda_device) for a in args)) * weight.to(cuda_device)).sum().backward()
+        torch.cuda.synchronize()
+        after = (tfa.LAUNCHES.count, tfa.DQ_LAUNCHES.count, tfa.DKV_LAUNCHES.count)
+        counts[policy] = [x - y for x, y in zip(after, before)]
+        grads[policy] = {n: p.grad for n, p in gpu.named_parameters()}
+    assert counts["dots"] == counts["full"] == [8, 5, 5]
+    for name, g in grads["full"].items():
+        assert torch.equal(g, grads["dots"][name]), name
+    idx = torch.from_numpy(np.stack([np.random.RandomState(s).permutation(64)[:8]
+                                     for s in range(2)]))
+    gpu = DiT(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda_device)
+    with torch.no_grad():
+        want = cpu(*args, idx)
+        got = gpu(*(a.to(cuda_device) for a in args), idx.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -51,6 +51,7 @@ TRAINING_MODULES = (
     "f_lite_tpu_torch.train.loss", "f_lite_tpu_torch.train.optim",
     "f_lite_tpu_torch.train.step", "f_lite_tpu_torch.data.precomputed",
     "f_lite_tpu_torch.data.samplers", "f_lite_tpu_torch.convert.to_jax",
+    "f_lite_tpu_torch.train.checkpoint",
 )
 TEXT_MODULES = ("f_lite_tpu_torch.text.encoder", "f_lite_tpu_torch.text.t5",
                 "f_lite_tpu_torch.text.qwen2", "f_lite_tpu_torch.text.templates",
@@ -208,6 +209,72 @@ def test_pipeline_extras_run_without_jax_or_safetensors():
     """Ingest of a diffusers snapshot, LoRA at load in both forms and
     save_pretrained, as on the card's machine (no JAX, no safetensors)."""
     out = _run(EXTRAS_WITHOUT_JAX_OR_SAFETENSORS)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
+TRAIN_STATE_WITHOUT_JAX_OR_SAFETENSORS = textwrap.dedent("""
+    import importlib, importlib.abc, json, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "f_lite_tpu",
+               "safetensors")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from f_lite_tpu_torch.data.precomputed import PrecomputedCacheWriter
+    from f_lite_tpu_torch.train.trainer import parse_args, train
+
+    torch.set_num_threads(1)  # a tiny model beside parallel test workers
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        w = PrecomputedCacheWriter(d / "cache")
+        rs = np.random.RandomState(0)
+        for i in range(12):
+            w.add(str(i), f"c{i % 3}", rs.randn(8 if i % 2 else 12, 8, 3).astype(np.float32),
+                  rs.randn(4, 16).astype(np.float32))
+        w.finalize()
+        argv = ["--device", "cpu", "--use_precomputed_data", "--precomputed_data_dir",
+                str(d / "cache"), "--pixel_space", "--model_width", "32",
+                "--model_depth", "2", "--model_head_dim", "16",
+                "--cross_attn_input_size", "16", "--train_batch_size", "2",
+                "--use_resolution_buckets", "--num_epochs", "3", "--seed", "0",
+                "--gradient_checkpointing", "--log_every", "1"]
+        train(parse_args(argv + ["--output_dir", str(d / "base"), "--max_steps", "2",
+                                 "--export_pipeline"]))
+        recipe = ["--pretrained_model_path", str(d / "base" / "pipeline"), "--use_lora",
+                  "--lora_rank", "2", "--ema_decay", "0.9", "--ema_dtype", "bf16",
+                  "--gradient_accumulation_steps", "2", "--bs_rampup", "2",
+                  "--sequence_dropout", "0.5", "--remat_policy", "dots",
+                  "--batch_multiplicity", "2", "--checkpointing_steps", "2",
+                  "--async_checkpoint", "--output_dir", str(d / "ft")]
+        train(parse_args(argv + recipe + ["--max_steps", "2"]))
+        result = train(parse_args(argv + recipe + ["--max_steps", "4",
+                                                   "--resume_from_checkpoint", "latest",
+                                                   "--export_pipeline"]))
+        assert result["global_step"] == 4, result
+        assert (d / "ft" / "checkpoints" / "4" / "lora_weights.safetensors").exists()
+        assert json.loads((d / "ft" / "checkpoints" / "4" / "sampler_state.json")
+                          .read_text())["start_batch_index"] == 4
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_train_state_and_recipe_options_run_without_jax_or_safetensors():
+    """Fine-tune, LoRA, EMA, accumulation, rampup, sequence dropout, "dots",
+    buckets, an async checkpoint and a resume, as on the card's machine
+    (no JAX, no safetensors), on the CPU."""
+    out = _run(TRAIN_STATE_WITHOUT_JAX_OR_SAFETENSORS)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok"), out.stdout
 

@@ -140,12 +140,6 @@ def test_gradient_checkpointing_gives_the_same_grads_exactly():
         assert torch.equal(g, grads[1][name]), name
 
 
-def test_dots_remat_policy_is_not_ported():
-    model = DiT(DiTConfig(**SMALL, gradient_checkpoint=True, remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _port_loss(model, _batch(0))
-
-
 def test_fresh_init_outputs_zero_with_jax_initializers():
     cfg = DiTConfig(**SMALL)
     model = DiT(cfg).init_weights(torch.Generator().manual_seed(0))
@@ -318,12 +312,8 @@ def test_trainer_result_and_log_line(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--use_lora"], ["--ema_decay", "0.999"], ["--bs_rampup", "10"],
-    ["--gradient_accumulation_steps", "2"], ["--sequence_dropout", "0.5"],
-    ["--fsdp", "2"], ["--multihost"], ["--resume_from_checkpoint", "latest"],
-    ["--checkpointing_steps", "500"], ["--sample_every", "500"],
-    ["--val_data_path", "x"], ["--remat_policy", "dots"],
-    ["--report_to", "tensorboard"],
+    ["--fsdp", "2"], ["--multihost"], ["--sample_every", "500"],
+    ["--val_data_path", "x"], ["--report_to", "tensorboard"],
 ])
 def test_unported_options_raise(tmp_path, extra):
     argv = _tiny_argv(tmp_path, tmp_path / "out") + extra
