@@ -196,8 +196,36 @@ Phases (any failed check raises and the run exits non-zero):
    width, `--async_checkpoint` at step 2 and the final sync save at step
    3: seconds blocked and writing, GB on disk against n_params x 12, free
    disk checked first;
-14. a `{"kernels": [...]}` line, then the card line, then the last line
-   `{"ok": true, "device": {...}}`.
+12d. the fixture's recipe on the online image path (run after 12c): phase
+   12's images written as 64 px PNGs by the port's writer with a JSON
+   table (`--root_dir_type json --base_url file:// --center_crop
+   --resolution 64 --text_encoder_type zero --uncond_prob 0.01
+   --num_workers 4`), 300 steps at batch 32, bf16: mean logged loss over
+   steps 260-300 <= 0.15, exactly 12 launches of each kernel a step;
+   `--val_data_path` (two held-out batches) every 100 steps: val/loss
+   finite, 12 forward and no backward launches an eval batch; `--sample_every
+   300` with 4 captions: `samples/step_300.png` read back, 50 * 12 forward
+   launches, its tiles' both_acc printed; `--profile_steps 10,12`: the
+   trace names the three flash kernels; loader wait ms a step and s/step
+   beside phase 12's;
+12e. resume on the online path with `--random_flip`: 40 steps straight
+   against 20 + `--resume_from_checkpoint latest`, every loss and the final
+   checkpoint's tensors bit-equal; 5 steps with `--debug_nans` with losses
+   bit-equal to 5 without; 12 launches of each kernel a step;
+12f. buckets: the fixture's width from scratch on a dummy-backed table of
+   three declared aspects, `--use_resolution_buckets` without
+   `--center_crop`, batch 8, 20 steps: every batch of one shape, the
+   kernels seeing 2064, 2256 and 2320 self tokens, 12 launches of each a
+   step;
+13d. `f_lite_7b_width_d20_train512` on the online path (after 13c): a
+   dummy-backed JSON table of 512x512 rows, the Flux VAE at full width
+   with seeded weights (`--vae_path`) encoding in fp32,
+   `ZeroTextEncoder(4096, 32)`, batch 4, bf16, 10 steps: finite loss and
+   grad norm, 46/31/31 launches a step, peak under 80 GB; s/step, the VAE
+   encode's ms a step, the loader's wait ms, idle share and peak GB
+   beside phase 13's;
+14. a `{"kernels": [...]}` line, the script's total seconds, then the card
+   line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of another path launched there fails the run.
 
@@ -208,6 +236,7 @@ false or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -348,6 +377,10 @@ ATTN_SHAPES = [
     ("seqdrop_fixture_cross", 32, 4, 528, 32, 64, [32] * 32),
     ("seqdrop_7b_self", 4, 10, 528, 528, 256, None),
     ("seqdrop_7b_cross", 4, 10, 528, 128, 256, [77, 128, 77, 128]),
+    # the online path: the fixture's 80x112 bucket (2240 patches + 16
+    # registers) and the 7B's 32 ZeroTextEncoder tokens
+    ("bucket_fixture_self", 8, 4, 2256, 2256, 64, None),
+    ("online_7b_cross", 4, 10, 1040, 32, 256, [32] * 4),
 ]
 
 
@@ -427,6 +460,9 @@ BWD_SHAPES = [
     ("seqdrop_fixture_cross", 32, 4, 528, 32, 64, [32] * 32),
     ("seqdrop_7b_self", 4, 10, 528, 528, 256, None),
     ("seqdrop_7b_cross", 4, 10, 528, 128, 256, [77, 128, 77, 128]),
+    # the online path (see ATTN_SHAPES)
+    ("bucket_fixture_self", 8, 4, 2256, 2256, 64, None),
+    ("online_7b_cross", 4, 10, 1040, 32, 256, [32] * 4),
 ]
 
 
@@ -989,6 +1025,19 @@ def draw_shape(size, rgb, shape, rng):
     return img
 
 
+def shapes_images(per_class=128, size=64, seed=0):
+    """(item id, caption, uint8 image) of the shapes dataset, class by
+    class, each image drawn from one RandomState(seed) in turn."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    for color, rgb in COLORS.items():
+        for shape in SHAPES:
+            for i in range(per_class):
+                yield (f"{color}/{shape}/{i}", f"a {color} {shape}",
+                       draw_shape(size, rgb, shape, rng))
+
+
 def write_shapes_cache(root: Path, per_class=128, size=64, seed=0) -> int:
     """The shapes dataset as a precomputed cache: pixels in [-1, 1] NHWC as
     the latents, and each caption's ZeroTextEncoder(64, seq_len=32)
@@ -1000,16 +1049,13 @@ def write_shapes_cache(root: Path, per_class=128, size=64, seed=0) -> int:
 
     enc = ZeroTextEncoder(64, seq_len=32)
     writer = PrecomputedCacheWriter(root)
-    rng = np.random.RandomState(seed)
-    for color, rgb in COLORS.items():
-        for shape in SHAPES:
-            caption = f"a {color} {shape}"
+    embeds = {}
+    for item_id, caption, img in shapes_images(per_class, size, seed):
+        if caption not in embeds:
             emb, mask = enc.encode([caption])
-            emb = emb[0][mask[0]]
-            for i in range(per_class):
-                img = draw_shape(size, rgb, shape, rng)
-                writer.add(f"{color}/{shape}/{i}", caption,
-                           img.astype(np.float32) / 127.5 - 1.0, emb)
+            embeds[caption] = emb[0][mask[0]]
+        writer.add(item_id, caption, img.astype(np.float32) / 127.5 - 1.0,
+                   embeds[caption])
     writer.finalize()
     return len(writer.entries)
 
@@ -1108,7 +1154,10 @@ def fixture_argv(cache: Path, out: Path, steps: int) -> list:
             "--learning_rate", "8e-4", "--num_warmup_steps", "200",
             "--lr_scheduler", "constant", "--max_steps", str(steps),
             "--num_epochs", "100", "--mixed_precision", "bf16",
-            "--log_every", "10", "--seed", "0", "--output_dir", str(out)]
+            "--log_every", "10", "--seed", "0", "--output_dir", str(out),
+            # what these options gave before they were ported: the card
+            # has no tensorboardX, and the cache no sample prompts
+            "--report_to", "none", "--sample_every", "0", "--eval_every", "0"]
 
 
 def fixture_attention_calls() -> int:
@@ -1343,6 +1392,305 @@ def run_fixture_finetune(tmp: Path, steps=60, n_requests=4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 12d-12f: the fixture's recipe on the online image path
+# ---------------------------------------------------------------------------
+
+SAMPLE_CAPTIONS = ("a red circle", "a green square", "a blue triangle",
+                   "a yellow circle")
+
+
+def write_shapes_table(root: Path, per_class=128, size=64, seed=0, holdout=64) -> dict:
+    """The shapes images of phase 12's cache as PNG files (the port's
+    writer) with a JSON table (`media_path`, `captions`, `width`,
+    `height`), its rows class-interleaved so the first 2048 (the
+    dataset's length, a multiple of 2048) hold every class; `holdout`
+    more images (seed + 1) in a validation table; a prompts file of 4
+    captions. {"train", "val", "prompts": paths, "items": n, "write_s"}."""
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
+
+    t0 = time.perf_counter()
+    (root / "images").mkdir(parents=True, exist_ok=True)
+
+    def rows_of(n, draw_seed, prefix):
+        rows = []
+        for k, (item_id, caption, img) in enumerate(shapes_images(n, size, draw_seed)):
+            f = root / "images" / f"{prefix}{item_id.replace('/', '_')}.png"
+            f.write_bytes(png_bytes_with_metadata(img))
+            rows.append((k % n, k // n, {"media_path": str(f), "captions": [caption],
+                                         "width": size, "height": size}))
+        return [r for _, _, r in sorted(rows, key=lambda r: r[:2])]
+
+    train = rows_of(per_class, seed, "")
+    n_classes = len(COLORS) * len(SHAPES)
+    val = rows_of(-(-holdout // n_classes), seed + 1, "val_")[:holdout]
+    out = {"train": root / "train.json", "val": root / "val.json",
+           "prompts": root / "prompts.txt"}
+    out["train"].write_text(json.dumps(train))
+    out["val"].write_text(json.dumps(val))
+    out["prompts"].write_text("\n".join(SAMPLE_CAPTIONS) + "\n")
+    return {**out, "items": len(train), "val_items": len(val),
+            "write_s": time.perf_counter() - t0}
+
+
+def online_argv(argv: list, table: Path, *, base_url="file://", resolution=64,
+                center_crop=True) -> list:
+    """`argv` (a precomputed recipe) moved to the online path over `table`."""
+    i = argv.index("--use_precomputed_data")
+    argv = argv[:i] + argv[i + 3:]  # with --precomputed_data_dir <dir>
+    return argv + ["--train_data_path", str(table), "--root_dir_type", "json",
+                   "--base_url", base_url, "--resolution", str(resolution),
+                   "--text_encoder_type", "zero", "--num_workers", "4",
+                   *(["--center_crop"] if center_crop else [])]
+
+
+def fixture_online_argv(table: Path, out: Path, steps: int) -> list:
+    """Phase 12's recipe on the online path: the PNG table, ZeroTextEncoder
+    (64, 32) (the cache's context), caption dropout 0.01 (the precomputed
+    path's), 4 loader threads."""
+    return online_argv(fixture_argv(Path("unused"), out, steps), table) + [
+        "--uncond_prob", "0.01"]
+
+
+class CountedCall:
+    """Wraps a trainer function: the launch counts of each call, taken out
+    of the StepWatch's next step (they run between two steps)."""
+
+    def __init__(self, module, name, watch):
+        self.module, self.name, self.watch = module, name, watch
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            before = read_counts()
+            out = self.fn(*args, **kwargs)
+            after = read_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            self.calls.append(delta)
+            self.watch._last = {k: self.watch._last[k] + delta[k] for k in delta}
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def trace_summary(path: Path) -> dict:
+    """The flash kernels named in a Chrome trace, and the device's busy
+    share between its first and last kernel."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    names = " ".join(e.get("name", "") for e in kernels).lower()
+    span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+            if kernels else 0.0)
+    busy = sum(e["dur"] for e in kernels)
+    return dict(kernels=len(kernels),
+                names={k: k in names for k in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")},
+                span_ms=span / 1e3, busy_ms=busy / 1e3,
+                idle_share=(1.0 - busy / span) if span else None)
+
+
+def grid_tiles(grid, n, size=64, nrow=3, padding=2):
+    """The n tiles of `make_image_grid`'s grid, as float images in [-1, 1]."""
+    tiles = []
+    for i in range(n):
+        r, c = divmod(i, nrow)
+        y, x = r * (size + padding), c * (size + padding)
+        tiles.append(grid[y:y + size, x:x + size].astype("float32") / 127.5 - 1.0)
+    return tiles
+
+
+def run_fixture_online(tmp: Path, phase12: dict, steps=300, profile=(10, 12)) -> dict:
+    """Phase 12d: the fixture's recipe from scratch on the online path
+    (PNG files, thread workers), with validation every 100 steps (2
+    held-out batches), the sample grid at the last step and a profile of
+    steps 11-12: mean logged loss over steps 260-300 <= 0.15; exactly 12
+    launches of each kernel a step, 12 forward and no backward launches an
+    eval batch, 50 * 12 forward launches a grid; val/loss finite; the
+    grid read back (its tiles' both_acc printed); the trace names the
+    flash kernels; loader wait ms a step and s/step beside phase 12's."""
+    import torch
+
+    from f_lite_tpu_torch.train import trainer
+    from f_lite_tpu_torch.utils.image import read_png
+
+    tables = write_shapes_table(tmp / "shapes_png")
+    out = tmp / "fixture_online"
+    eval_batch = 32
+    argv = fixture_online_argv(tables["train"], out, steps) + [
+        "--val_data_path", str(tables["val"]), "--eval_every", "100",
+        "--eval_batch_size", str(eval_batch), "--sample_every", str(steps),
+        "--sample_prompts_file", str(tables["prompts"]),
+        "--profile_steps", f"{profile[0]},{profile[1]}"]
+    per = fixture_attention_calls()
+    n_eval_batches = tables["val_items"] // eval_batch
+    watch = StepWatch()
+    reset_counts()
+    watch.begin()
+    with CountedCall(trainer, "evaluate", watch) as ev, \
+            CountedCall(trainer, "sample_images", watch) as smp:
+        result, losses = run_training(argv, watch)
+    counts = read_counts()
+    vals = result.get("val/loss")
+    grid = read_png((out / "samples" / f"step_{steps}.png").read_bytes())
+    tiles = grid_tiles(grid, len(SAMPLE_CAPTIONS))
+    hits = [classify(t) == tuple(c.split()[1:]) for t, c in zip(tiles, SAMPLE_CAPTIONS)]
+    trace = trace_summary(out / "profile" / f"steps_{profile[0]}_{profile[1]}.json")
+    late = [losses[s] for s in range(260, steps + 1, 10)]
+    res = dict(items=tables["items"], table_write_s=tables["write_s"],
+               steps=result["global_step"], logged_losses=losses,
+               mean_loss_260_300=statistics.mean(late),
+               phase_12_mean_loss_260_300=phase12["mean_loss_260_300"],
+               s_per_step=statistics.median(watch.times[2:]),
+               phase_12_s_per_step=phase12["s_per_step"],
+               loader_wait_ms_per_step=result["loader_wait_s"] / steps * 1e3,
+               val_loss=vals, evals=ev.calls, sample_grids=smp.calls,
+               sample_both_acc=sum(hits) / len(hits), grid_shape=list(grid.shape),
+               trace=trace, launches=counts, per_step=watch.per_step[0])
+    log("fixture_online", json.dumps(res))
+    if result["global_step"] != steps:
+        raise AssertionError(f"fixture online: {result['global_step']} steps")
+    bad = [i + 1 for i, c in enumerate(watch.per_step)
+           if c != launches(fwd=per, dq=per, dkv=per)]
+    if bad:
+        raise AssertionError(f"fixture online: launch counts off at steps {bad[:5]}: "
+                             f"{watch.per_step[bad[0] - 1]}")
+    if not res["mean_loss_260_300"] <= 0.15:
+        raise AssertionError(f"fixture online: mean loss {res['mean_loss_260_300']} > 0.15")
+    if len(ev.calls) != steps // 100 or any(
+            c != launches(fwd=per * n_eval_batches) for c in ev.calls):
+        raise AssertionError(f"fixture online eval: launches {ev.calls}")
+    if vals is None or not math.isfinite(vals):
+        raise AssertionError(f"fixture online: val/loss {vals}")
+    if smp.calls != [launches(fwd=50 * per)]:
+        raise AssertionError(f"fixture online sample grid: launches {smp.calls}")
+    if grid.shape != (2 * 64 + 2, 3 * 64 + 4, 3):
+        raise AssertionError(f"fixture online sample grid: shape {grid.shape}")
+    if not all(trace["names"].values()):
+        raise AssertionError(f"fixture online: the trace lacks a kernel: {trace}")
+    del watch
+    torch.cuda.empty_cache()
+    res["tables"] = {k: str(v) for k, v in tables.items() if isinstance(v, Path)}
+    return res
+
+
+def run_fixture_online_resume(tmp: Path, tables: dict, steps=40, nan_steps=5) -> dict:
+    """Phase 12e: phase 12d's recipe with `--random_flip` (the PNG table:
+    the dummy backend's pixels change from process to process), `steps`
+    straight against `steps` / 2 + `--resume_from_checkpoint latest`: every
+    loss and the final checkpoint's tensors bit-equal, exactly 12
+    launches of each kernel a step. Then `nan_steps` with `--debug_nans`
+    against the same steps without: losses bit-equal."""
+    import torch
+
+    table = Path(tables["train"])
+    per = fixture_attention_calls()
+    expected = launches(fwd=per, dq=per, dkv=per)
+    half = steps // 2
+    extra = ["--random_flip", "--checkpointing_steps", str(half)]
+    reset_counts()
+    _, _, w0, straight = run_counted(
+        fixture_online_argv(table, tmp / "online_resume_a", steps) + extra)
+    _, _, w1, first = run_counted(
+        fixture_online_argv(table, tmp / "online_resume_b", half) + extra)
+    _, _, w2, rest = run_counted(
+        fixture_online_argv(table, tmp / "online_resume_b", steps) + extra
+        + ["--resume_from_checkpoint", "latest"])
+    want = checkpoint_tensors(tmp / "online_resume_a", steps)
+    got = checkpoint_tensors(tmp / "online_resume_b", steps)
+    unequal = [k for k in want if not torch_equal(want[k], got.get(k))]
+    _, _, w3, plain = run_counted(
+        fixture_online_argv(table, tmp / "online_nan_a", nan_steps))
+    _, _, w4, checked = run_counted(
+        fixture_online_argv(table, tmp / "online_nan_b", nan_steps) + ["--debug_nans"])
+    per_step = w0.per_step + w1.per_step + w2.per_step + w3.per_step + w4.per_step
+    res = dict(steps=steps, resumed_at=half, losses_equal=straight == first + rest,
+               tensors=len(want), tensors_unequal=unequal[:5],
+               debug_nans_losses_equal=plain == checked, debug_nans_losses=checked,
+               s_per_step=statistics.median(w0.times[2:]),
+               s_per_step_debug_nans=statistics.median(w4.times[1:]),
+               launches=read_counts())
+    log("fixture_online_resume", json.dumps(res))
+    if not res["losses_equal"] or len(straight) != steps:
+        raise AssertionError(f"online resume: losses {straight} against {first + rest}")
+    if unequal or set(want) != set(got):
+        raise AssertionError(f"online resume: checkpoint tensors differ: {unequal[:5]}")
+    if not res["debug_nans_losses_equal"] or len(plain) != nan_steps:
+        raise AssertionError(f"--debug_nans: losses {checked} against {plain}")
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"online resume: launch counts off: {per_step[:3]}")
+    return res
+
+
+def run_fixture_buckets(tmp: Path, steps=20, batch=8) -> dict:
+    """Phase 12f: the fixture's width from scratch on a dummy-backed table
+    of three declared aspects (64x128, 80x112, 96x96 px at resolution 64
+    without --center_crop), `--use_resolution_buckets`, batch 8: every
+    batch of one shape before collation, the forward kernel seeing 2064,
+    2256 and 2320 self tokens (self: L queries and keys; cross: L queries,
+    32 keys), one L a step, and exactly 12 launches of each kernel a
+    step."""
+    import torch
+
+    from f_lite_tpu_torch.data.dataset import ImageDataset
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    aspects = [(64, 128), (80, 112), (96, 96)]
+    rows = [{"media_path": f"dummy://shapes/{i}.png",
+             "captions": [f"a {list(COLORS)[i % 8]} {SHAPES[i % 3]}"],
+             "width": aspects[i % 3][0], "height": aspects[i % 3][1]}
+            for i in range(3 * 8 * batch)]
+    table = tmp / "buckets.json"
+    table.write_text(json.dumps(rows))
+    argv = online_argv(fixture_argv(Path("unused"), tmp / "buckets", steps), table,
+                       base_url="dummy://", center_crop=False) + [
+        "--use_resolution_buckets", "--train_batch_size", str(batch)]
+    per = fixture_attention_calls()
+    seen, step_lengths, mixed = [], [], []
+    fwd_kernel, collate = fa._forward_kernel, ImageDataset.collate_fn
+
+    def recording_kernel(q, k, *args, **kwargs):
+        seen.append((int(q.shape[2]), int(k.shape[2])))
+        return fwd_kernel(q, k, *args, **kwargs)
+
+    def recording_collate(self, items):
+        mixed.append(len({it["image"].shape for it in items}) > 1)
+        return collate(self, items)
+
+    def check(step, metrics):
+        step_lengths.append(sorted(set(seen)))
+        seen.clear()
+
+    fa._forward_kernel, ImageDataset.collate_fn = recording_kernel, recording_collate
+    try:
+        reset_counts()
+        result, _, watch, losses = run_counted(argv, check=check)
+    finally:
+        fa._forward_kernel, ImageDataset.collate_fn = fwd_kernel, collate
+    self_lengths = sorted({ls[-1][0] for ls in step_lengths})
+    res = dict(steps=result["global_step"], batches_mixed=sum(mixed),
+               batches_collated=len(mixed), self_lengths=self_lengths,
+               lengths_per_step=step_lengths, all_finite=all(map(math.isfinite, losses)),
+               s_per_step=statistics.median(watch.times[2:]), launches=read_counts(),
+               per_step=watch.per_step[0])
+    log("fixture_buckets", json.dumps(res))
+    if result["global_step"] != steps or not res["all_finite"]:
+        raise AssertionError(f"buckets: {res}")
+    if any(mixed):
+        raise AssertionError(f"buckets: {sum(mixed)} batches of mixed shapes")
+    if self_lengths != [2064, 2256, 2320] or any(
+            ls != [(ls[0][0], 32), (ls[0][0], ls[0][0])] for ls in step_lengths):
+        raise AssertionError(f"buckets: the kernels saw {step_lengths}")
+    if any(c != launches(fwd=per, dq=per, dkv=per) for c in watch.per_step):
+        raise AssertionError(f"buckets: launch counts off: {watch.per_step[:3]}")
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 13: f_lite_7b_width_d20_train512
 # ---------------------------------------------------------------------------
 
@@ -1382,7 +1730,8 @@ def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20) -> list:
             "--learning_rate", "1e-4", "--lr_scheduler", "constant",
             "--num_warmup_steps", "2", "--max_grad_norm", "1.0",
             "--mixed_precision", "bf16", "--gradient_checkpointing",
-            "--log_every", "1", "--seed", "0", "--output_dir", str(out)]
+            "--log_every", "1", "--seed", "0", "--output_dir", str(out),
+            "--report_to", "none", "--sample_every", "0", "--eval_every", "0"]
 
 
 def disk_gb(path: Path) -> float:
@@ -1491,6 +1840,143 @@ def run_7b_checkpoint(tmp: Path, depth=20) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     if steps != [3] or not res["disk_gb"] > 0.9 * res["expected_gb"]:
         raise AssertionError(f"7B checkpoint: {res}")
+    del watch
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_flux_vae(root: Path, seed=3, device="cuda") -> Path:
+    """A Flux VAE at full width with seeded weights (flax's default
+    initializers), written once as a native `vae/` dir (config.json +
+    flax_params.safetensors); the dir."""
+    import torch
+
+    from f_lite_tpu_torch.convert.to_jax import vae_state_dict_to_jax
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    if not (root / "config.json").exists():
+        root.mkdir(parents=True, exist_ok=True)
+        with torch.device(device):
+            vae = AutoencoderKL(VAEConfig.flux())
+        vae.init_weights(torch.Generator(device).manual_seed(seed))
+        (root / "config.json").write_text(json.dumps(vae.config.to_json_dict()))
+        save_file(vae_state_dict_to_jax(vae.state_dict(), vae.config),
+                  root / "flax_params.safetensors")
+        del vae
+        torch.cuda.empty_cache()
+    return root
+
+
+class EncodeTimer:
+    """Times every `AutoencoderKL.encode` with CUDA events (read after the
+    run)."""
+
+    def __enter__(self):
+        import torch
+
+        from f_lite_tpu_torch.models.vae import AutoencoderKL
+
+        self.cls, self.fn, self.events = AutoencoderKL, AutoencoderKL.encode, []
+        fn, events = self.fn, self.events
+
+        def timed(vae, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(vae, *args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+
+        AutoencoderKL.encode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.encode = self.fn
+
+    def ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20) -> dict:
+    """Phase 13d: `f_lite_7b_width_d20_train512` on the online path: a
+    dummy-backed JSON table of 512x512 rows with --center_crop, the Flux
+    VAE at full width (seeded, `--vae_path`) encoding each batch in fp32,
+    ZeroTextEncoder(4096, 32), batch 4, bf16, full remat from block 8, 10
+    steps: finite loss and grad norm, exactly 46 forward, 31 dq and 31 dkv
+    launches a step, peak under 80 GB; s/step, the VAE encode's ms a step
+    (CUDA events), the loader's wait ms a step, idle share and peak GB,
+    each beside phase 13's."""
+    import shutil
+
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    table = tmp / "7b_online.json"
+    table.write_text(json.dumps([
+        {"media_path": f"dummy://photos/{i}.jpg", "captions": [f"prompt {i}"],
+         "width": 512, "height": 512} for i in range(16 * batch)]))
+    vae_dir = write_flux_vae(tmp / "flux_vae")
+    out = tmp / "7b_online"
+    argv = online_argv(argv_7b(tmp, out, steps, batch, depth), table,
+                       base_url="dummy://", resolution=512) + [
+        "--vae_path", str(vae_dir)]
+    n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
+    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
+    expected = launches(fwd=depth + n_cross + n_remat, dq=depth + n_cross,
+                        dkv=depth + n_cross)
+    finite = []
+
+    def check(step, metrics):
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        finite.append(math.isfinite(loss) and math.isfinite(gnorm))
+        log(f"  7b_online step {step}: loss {loss} grad_norm {gnorm}")
+
+    watch = StepWatch(profile_window=(steps - 2, steps - 1), check=check)
+    # what earlier phases leave allocated counts in the peak: collect
+    # their cycles first and report the rest beside the peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    watch.begin()
+    with EncodeTimer() as enc:
+        result, _ = run_training(argv, watch)
+    encode_ms = enc.ms()
+    res = dict(config="f_lite_7b_width_d20_train512 (online)", batch=batch,
+               tokens=1040, cross_tokens=32, steps=result["global_step"],
+               s_per_step=statistics.median(watch.times[2:]),
+               phase_13_s_per_step=phase13["s_per_step"], step_s=watch.times,
+               vae_encode_ms_per_step=statistics.median(encode_ms[2:]),
+               vae_encode_ms=encode_ms,
+               loader_wait_ms_per_step=result["loader_wait_s"] / steps * 1e3,
+               idle_share=watch.profile["idle_share"],
+               phase_13_idle_share=phase13["step_profile"]["idle_share"],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               allocated_at_start_gb=start_gb,
+               phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+               launches=read_counts(), per_step=watch.per_step[0],
+               per_step_expected=expected, all_finite=all(finite),
+               step_profile=watch.profile)
+    log("7b_online", json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
+    if result["global_step"] != steps or not all(finite) or len(finite) != steps:
+        raise AssertionError(f"7b_online: {result['global_step']} steps, finite {finite}")
+    bad = [i + 1 for i, c in enumerate(watch.per_step) if c != expected]
+    if bad:
+        raise AssertionError(f"7b_online: launch counts {watch.per_step[bad[0] - 1]} at "
+                             f"step {bad[0]}, expected {expected}")
+    if len(encode_ms) != steps:
+        raise AssertionError(f"7b_online: {len(encode_ms)} VAE encodes in {steps} steps")
+    if not res["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"7b_online peak {res['max_memory_allocated_gb']} GB")
     del watch
     torch.cuda.empty_cache()
     return res
@@ -2944,6 +3430,7 @@ def main() -> int:
         return 1
     from f_lite_tpu_torch.ops.cuda.build import SOURCES, build, library_path
 
+    t_total = time.perf_counter()
     card = card_line()
     log("card:", card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3010,6 +3497,10 @@ def main() -> int:
         fixture_train = phase(run_fixture_training, Path(tmp))
         fixture_resume = phase(run_fixture_resume, Path(tmp))
         fixture_finetune = phase(run_fixture_finetune, Path(tmp))
+        fixture_online = phase(run_fixture_online, Path(tmp), fixture_train)
+        fixture_online_resume = phase(run_fixture_online_resume, Path(tmp),
+                                      fixture_online["tables"])
+        fixture_buckets = phase(run_fixture_buckets, Path(tmp))
         train_7b = phase(run_7b_training, Path(tmp))
         train_7b_dots = phase(run_7b_training, Path(tmp), 10, 4, 20,
                               ("--remat_policy", "dots"), "7b_train_dots")
@@ -3018,6 +3509,7 @@ def main() -> int:
         train_7b_lora = phase(run_7b_training, Path(tmp), 10, 4, 20,
                               ("--use_lora", "--lora_rank", "64"), "7b_train_lora")
         checkpoint_7b = phase(run_7b_checkpoint, Path(tmp))
+        train_7b_online = phase(run_7b_online, Path(tmp), train_7b)
     log("7b_train_options", json.dumps({
         r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
             "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
@@ -3062,6 +3554,13 @@ def main() -> int:
             "lora": train_7b_lora["per_step"]["fwd"]},
         launches_fixture_resume=fixture_resume["launches_resumed"]["fwd"],
         launches_per_fixture_finetune_micro_step=fixture_finetune["per_micro_step"]["fwd"],
+        launches_online={
+            "per_7b_step": train_7b_online["per_step"]["fwd"],
+            "per_fixture_step": fixture_online["per_step"]["fwd"],
+            "per_fixture_eval_of_2_batches": [c["fwd"] for c in fixture_online["evals"]],
+            "per_fixture_sample_grid": fixture_online["sample_grids"][0]["fwd"],
+            "per_fixture_bucket_step": fixture_buckets["per_step"]["fwd"],
+            "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -3091,6 +3590,13 @@ def main() -> int:
             launches_fixture_resume=fixture_resume["launches_resumed"][which],
             launches_per_fixture_finetune_micro_step=(
                 fixture_finetune["per_micro_step"][which]),
+            launches_online={
+                "per_7b_step": train_7b_online["per_step"][which],
+                "per_fixture_step": fixture_online["per_step"][which],
+                "per_fixture_eval_of_2_batches": [c[which] for c in fixture_online["evals"]],
+                "per_fixture_sample_grid": fixture_online["sample_grids"][0][which],
+                "per_fixture_bucket_step": fixture_buckets["per_step"][which],
+                "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
             max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
             max_err_over_tolerance=max(r["max_abs_err"][gname] / r["tolerance"][gname]
                                        for r in bwd_rows for gname in grads),
@@ -3131,7 +3637,8 @@ def main() -> int:
             big_http["cancel"]["launches"])),
         launches_training=sum(r["launches"]["variants"] for r in (
             fixture_train, fixture_finetune, train_7b, train_7b_dots, train_7b_seqdrop,
-            train_7b_lora)) + fixture_resume["launches_straight"]["variants"]
+            train_7b_lora, fixture_online, fixture_online_resume, fixture_buckets,
+            train_7b_online)) + fixture_resume["launches_straight"]["variants"]
         + fixture_resume["launches_resumed"]["variants"],
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
         max_err_over_tolerance=max(r["max_err_over_tolerance"] for r in variant_rows),
@@ -3234,7 +3741,23 @@ def main() -> int:
                             "full": train_7b["max_memory_allocated_gb"],
                             "dots": train_7b_dots["max_memory_allocated_gb"],
                             "sequence_dropout": train_7b_seqdrop["max_memory_allocated_gb"],
-                            "lora": train_7b_lora["max_memory_allocated_gb"]}}}))
+                            "lora": train_7b_lora["max_memory_allocated_gb"]}},
+                    "online": {
+                        "fixture": {k: fixture_online[k] for k in (
+                            "mean_loss_260_300", "phase_12_mean_loss_260_300",
+                            "s_per_step", "phase_12_s_per_step",
+                            "loader_wait_ms_per_step", "val_loss", "sample_both_acc")}
+                        | {"trace_idle_share": fixture_online["trace"]["idle_share"]},
+                        "fixture_resume_bit_equal": fixture_online_resume["losses_equal"],
+                        "debug_nans_bit_equal":
+                            fixture_online_resume["debug_nans_losses_equal"],
+                        "bucket_self_lengths": fixture_buckets["self_lengths"],
+                        "7b": {k: train_7b_online[k] for k in (
+                            "s_per_step", "phase_13_s_per_step", "vae_encode_ms_per_step",
+                            "loader_wait_ms_per_step", "idle_share", "phase_13_idle_share",
+                            "max_memory_allocated_gb", "allocated_at_start_gb",
+                            "phase_13_max_memory_allocated_gb")}}}))
+    log(f"chip_smoke total: {time.perf_counter() - t_total:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

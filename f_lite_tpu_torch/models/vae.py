@@ -250,10 +250,20 @@ class AutoencoderKL(nn.Module):
         mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """The posterior's mean (the mode): deterministic, as the pipeline
-        encodes."""
-        return self.encode_moments(x)[0]
+    def encode(self, x: torch.Tensor, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """The posterior's mean (the mode) with neither `generator` nor
+        `noise`, as the pipeline encodes; else a sample of the posterior,
+        mean + exp(logvar / 2) * eps, eps being `noise` or a standard
+        normal draw from `generator` in the mean's dtype (the trainer's
+        online path)."""
+        mean, logvar = self.encode_moments(x)
+        if generator is None and noise is None:
+            return mean
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device, dtype=mean.dtype)
+        return mean + torch.exp(0.5 * logvar) * noise
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         dtype = self.decoder.conv_in.weight.dtype
@@ -280,14 +290,18 @@ class AutoencoderKL(nn.Module):
 
 
 class IdentityVAE:
-    """Pixel-space stand-in: decode is the identity (there is no encode:
-    image-to-image needs a VAE). `config` has spatial scale 1, 3 latent
-    channels, shift 0 and scale 1, so `normalize_latents` and
-    `denormalize_latents` leave pixels unchanged."""
+    """Pixel-space stand-in: encode and decode are the identity (the
+    trainer's online path encodes through it; the pipeline's image to
+    image needs a VAE). `config` has spatial scale 1, 3 latent channels,
+    shift 0 and scale 1, so `normalize_latents` and `denormalize_latents`
+    leave pixels unchanged."""
 
     def __init__(self):
         self.config = VAEConfig(latent_channels=3, block_out_channels=(4,),
                                 scaling_factor=1.0, shift_factor=0.0)
+
+    def encode(self, x: torch.Tensor, generator=None, noise=None) -> torch.Tensor:
+        return x
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return z

@@ -1,42 +1,51 @@
 """Training entry point: `python -m f_lite_tpu_torch.train` (counterpart of
-`python -m f_lite_tpu.train`, with the same option names).
+`python -m f_lite_tpu.train`, with the same option names and defaults).
 
-Ported: the DiT model options, `--pixel_space`, the precomputed-data path
-(`--use_precomputed_data --precomputed_data_dir`, caption dropout 0.01,
-`--use_resolution_buckets`), batch size / epochs / max_steps, the optimizer
-and schedule options, `--use_8bit_adam`, `--max_grad_norm`,
-`--mixed_precision bf16` (fp32 master weights, bf16 compute),
-`--gradient_checkpointing` with `--remat_policy full|dots`, `--seed`,
-`--output_dir`, `--log_every`, `--report_to none`, and the run state and
-recipe options:
-- `--pretrained_model_path` (fine-tune a pipeline dir of any layout, loaded
-  strictly into the model the arguments build; its VAE unless
-  `--vae_path`);
-- `--checkpointing_steps`, `--checkpoints_total_limit`,
+Ported:
+- the DiT model options and `--pixel_space`;
+- the online image path (the JAX trainer's default): `--train_data_path`
+  with `--root_dir_type json|parquet`, `--base_url dummy://|file://|
+  http(s)://|s3://`, `--base_image_dir`, `--image_column`,
+  `--caption_column`, `--resolution`, `--center_crop`, `--random_flip`,
+  `--use_resolution_buckets`, `--num_workers` and `--loader_worker_type`
+  (`data/dataset.py`, `data/loader.py`); each batch's images are VAE
+  encoded on the device (a posterior sample, fp32) and its captions by
+  `--text_encoder_type` (`t5`, `qwen2`, `torch` with `--text_encoder_path`
+  and `--processor_path`, else the hermetic `ZeroTextEncoder`), caption
+  dropout `--uncond_prob`;
+- the precomputed-data path (`--use_precomputed_data
+  --precomputed_data_dir`, caption dropout 0.01, `--use_resolution_buckets`,
+  `--random_flip` as a latent flip);
+- batch size / epochs / max_steps, the optimizer and schedule options,
+  `--use_8bit_adam`, `--max_grad_norm`, `--mixed_precision bf16` (fp32
+  master weights, bf16 compute), `--gradient_checkpointing` with
+  `--remat_policy full|dots`, `--seed`, `--output_dir`;
+- the run state and recipe options: `--pretrained_model_path`,
+  `--checkpointing_steps`, `--checkpoints_total_limit`,
   `--resume_from_checkpoint latest|DIR`, `--async_checkpoint`,
   `--graceful_term` (`train/checkpoint.py`; the port's own format);
-- `--use_lora` with `--lora_rank`, `--lora_alpha`, `--lora_target_modules`
-  and `--lora_checkpoint` (the base frozen, the factors merged in the step;
-  `lora_weights.safetensors` in the final checkpoint);
-- `--ema_decay`, `--ema_dtype`; `--bs_rampup`;
-  `--gradient_accumulation_steps` (`optim.Accumulate`; `global_step`
-  counts micro-batches, as in the JAX trainer) and `--batch_multiplicity`;
-  `--sequence_dropout`;
-- `--export_pipeline` (writes `pipeline/` through
-  `FLitePipeline.save_pretrained`, which both packages load: the DiT, with
-  the EMA and the merged factors where they are on, and, but in pixel
-  space, the run's VAE).
-Each step's draws come from a generator keyed by (seed, step), so a resumed
-run repeats the straight run's. The log line and the returned dict are the
+  `--use_lora` with `--lora_rank`, `--lora_alpha`,
+  `--lora_target_modules` and `--lora_checkpoint`; `--ema_decay`,
+  `--ema_dtype`; `--bs_rampup`; `--gradient_accumulation_steps` and
+  `--batch_multiplicity`; `--sequence_dropout`; `--export_pipeline`;
+- what runs during training: `--log_every` with `--report_to
+  tensorboard|wandb|all|none` (`MetricsLogger`: tensorboardX, wandb, each
+  imported where it is used), `--val_data_path` with `--eval_every` and
+  `--eval_batch_size`, `--sample_every` with `--sample_prompts_file`
+  (`samples/step_N.png`, from the EMA where it is on), `--profile_steps
+  a,b` (a torch.profiler trace under `{output_dir}/profile/`) and
+  `--debug_nans` (the step under `torch.autograd.detect_anomaly()`, a
+  FloatingPointError at the first loss or gradient norm that is not
+  finite, before the update).
+Each step's draws come from generators keyed by (seed, step), so a resumed
+run repeats the straight run's. The log lines and the returned dict are the
 JAX trainer's.
 
-Every other option raises "not ported yet" when set to a value that would
-do something (the online image path with its buckets, validation and
-sampling, metrics backends, profiling, NaN checks, `--scan_layers` and
-multi-GPU). `--train_only_lora` is accepted and unused, as in the JAX
-trainer. Options that only the JAX program or the online image path
-read (text encoder, resolution, worker counts) are accepted and unused.
-The run is on the card (`--device cuda`) unless `--device cpu` is given.
+`--scan_layers` and multi-GPU (`--dp`, `--fsdp`, `--tp`,
+`--sequence_parallel`, `--pp`, `--pp_microbatches`, `--multihost`) raise
+"not ported yet" when set to a value that would do something.
+`--train_only_lora` is accepted and unused, as in the JAX trainer. The run
+is on the card (`--device cuda`) unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -96,13 +105,19 @@ def parse_args(argv=None):
     p.add_argument("--resolution", type=int, default=256)
     p.add_argument("--center_crop", action="store_true")
     p.add_argument("--random_flip", action="store_true",
-                   help="on the precomputed path: latent h-flip")
+                   help="online path: a per-item image h-flip (drawn per "
+                        "epoch); precomputed path: a latent h-flip")
     p.add_argument("--use_resolution_buckets", action="store_true",
-                   help="batches of one latent shape (precomputed path)")
+                   help="batches of one shape: the crop's aspect bucket "
+                        "(online path) or the latent shape (precomputed "
+                        "path)")
     p.add_argument("--num_workers", type=int, default=4,
-                   help="accepted; the port loads in-process")
+                   help="the online path's loader workers")
     p.add_argument("--loader_worker_type", choices=("thread", "process"),
-                   default="thread")
+                   default="thread",
+                   help="the online path's loader workers: threads "
+                        "(network-backed default) or forkserver processes "
+                        "(decode-bound local data)")
     # Training
     p.add_argument("--train_batch_size", type=int, default=1)
     p.add_argument("--eval_batch_size", type=int, default=1)
@@ -161,28 +176,32 @@ def parse_args(argv=None):
                    default="full")
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--debug_nans", action="store_true")
-    # Logging / eval ("none" and 0 until metrics backends, sampling and
-    # eval are ported; the JAX defaults are tensorboard and 500)
+    p.add_argument("--debug_nans", action="store_true",
+                   help="run each step under torch.autograd.detect_anomaly() "
+                        "and raise FloatingPointError at the first loss or "
+                        "gradient norm that is not finite")
+    # Logging / eval
     p.add_argument("--logging_dir", type=str, default="logs")
-    p.add_argument("--report_to", type=str, default="none",
+    p.add_argument("--report_to", type=str, default="tensorboard",
                    choices=["tensorboard", "wandb", "all", "none"])
     p.add_argument("--project_name", type=str, default="dit-finetune")
     p.add_argument("--run_name", type=str, default=None)
-    p.add_argument("--sample_every", type=int, default=0)
-    p.add_argument("--eval_every", type=int, default=0)
+    p.add_argument("--sample_every", type=int, default=500,
+                   help="write samples/step_N.png every N steps (0: never)")
+    p.add_argument("--eval_every", type=int, default=500,
+                   help="validation loss every N steps with --val_data_path")
     p.add_argument("--sample_prompts_file", type=str, default=None)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--export_pipeline", action="store_true")
-    p.add_argument("--profile_steps", type=str, default=None)
+    p.add_argument("--profile_steps", type=str, default=None,
+                   help="'start,stop': a torch.profiler trace of those steps "
+                        "under {output_dir}/profile/")
     return p.parse_args(argv)
 
 
 # option -> (value that does nothing, what it needs)
 _NOT_PORTED = {
     "scan_layers": (False, "scan-stacked blocks"),
-    "train_data_path": (None, "the online image path"),
-    "val_data_path": (None, "validation"),
     "dp": (1, "data parallelism"),
     "fsdp": (1, "fsdp"),
     "tp": (1, "tensor parallelism"),
@@ -190,12 +209,6 @@ _NOT_PORTED = {
     "pp": (1, "pipeline parallelism"),
     "pp_microbatches": (1, "pipeline parallelism"),
     "multihost": (False, "multihost"),
-    "debug_nans": (False, "NaN checking"),
-    "report_to": ("none", "metrics backends"),
-    "sample_every": (0, "sampling during training"),
-    "sample_prompts_file": (None, "sampling during training"),
-    "eval_every": (0, "eval during training"),
-    "profile_steps": (None, "profiling"),
 }
 
 
@@ -218,12 +231,27 @@ def check_ported(args) -> None:
         if getattr(args, name) != inert:
             raise SystemExit(
                 f"--{name} {getattr(args, name)!r}: {what} is not ported yet")
-    if not args.use_precomputed_data:
-        raise SystemExit(
-            "the online image path (VAE encode of images) is not ported yet: "
-            "pass --use_precomputed_data --precomputed_data_dir")
-    if not args.precomputed_data_dir:
+    if args.use_precomputed_data and not args.precomputed_data_dir:
         raise SystemExit("--use_precomputed_data requires --precomputed_data_dir")
+    if not args.use_precomputed_data and not args.train_data_path:
+        raise SystemExit("the online image path needs --train_data_path (or "
+                         "pass --use_precomputed_data --precomputed_data_dir)")
+    if args.use_precomputed_data and args.val_data_path:
+        # the JAX trainer builds an image loader for validation and its
+        # first eval reads latents from it (KeyError 'vae_latent')
+        raise SystemExit(
+            "--val_data_path with --use_precomputed_data: validation reads "
+            "an image table, which the precomputed path cannot encode; drop "
+            "one of the two options")
+    if args.profile_steps is not None:
+        try:
+            a, b = (int(x) for x in args.profile_steps.split(","))
+        except ValueError:
+            raise SystemExit(f"--profile_steps {args.profile_steps!r}: expected "
+                             "'start,stop'") from None
+        if not 0 <= a < b:
+            raise SystemExit(f"--profile_steps {args.profile_steps!r}: need "
+                             "0 <= start < stop")
     if args.ema_decay != 0.0 and not 0.0 < args.ema_decay < 1.0:
         # 1.0 would freeze the EMA, which the export prefers, at the start
         raise ValueError(f"--ema_decay must be 0 (off) or in (0, 1), got "
@@ -258,8 +286,9 @@ def build_vae(args, device):
     """The run's VAE, as the JAX trainer's `build_vae` makes it: None in
     pixel space (the identity), the native `vae/` dir of `--vae_path`, else
     a tiny VAE with 16 latent channels and seeded weights (flax's default
-    initializers; not `jax.random`'s draws). fp32. The precomputed path
-    trains on latents, so the VAE only goes into the export."""
+    initializers; not `jax.random`'s draws). fp32. The online path encodes
+    the images through it, sampling decodes through it and the export
+    writes it."""
     from f_lite_tpu_torch.convert.from_jax import vae_state_dict_from_jax
     from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     from f_lite_tpu_torch.utils.safetensors import load_file
@@ -322,6 +351,308 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed * 1000003 + step)
 
 
+# the salt of the VAE posterior's draws: a second stream beside
+# `step_generator`'s, as JAX splits fold_in(key(seed), step) into k_enc and
+# k_step, so the loss draws what it draws on the precomputed path
+_ENCODE_SALT = 1 << 40
+
+
+def encode_generator(device, seed: int, step: int) -> torch.Generator:
+    """The VAE posterior's draws of step `step`, keyed by (seed, step)."""
+    return torch.Generator(device).manual_seed(seed * 1000003 + step + _ENCODE_SALT)
+
+
+def build_text_encoder(args, device):
+    """The captions' encoder, as the JAX trainer's `build_text_encoder`
+    chooses it: the precomputed cache's, a T5 / Qwen2 / `transformers`
+    model from `--text_encoder_path` (chat-wrapped as in training for the
+    last two), else the hermetic `ZeroTextEncoder` (32 tokens)."""
+    from f_lite_tpu_torch.text.encoder import (
+        PrecomputedTextEncoder,
+        T5TextEncoder,
+        TorchTextEncoder,
+        ZeroTextEncoder,
+    )
+    from f_lite_tpu_torch.text.templates import training_chat_messages
+
+    kind, path = args.text_encoder_type, args.text_encoder_path
+    if args.use_precomputed_data or kind == "precomputed":
+        return PrecomputedTextEncoder(args.precomputed_data_dir)
+    if kind == "t5" and path:
+        return T5TextEncoder(path, tokenizer_path=args.processor_path, device=device)
+    if kind == "qwen2" and path:
+        from f_lite_tpu_torch.text.qwen2 import Qwen2TextEncoder
+
+        return Qwen2TextEncoder(path, processor_path=args.processor_path,
+                                message_fn=training_chat_messages, device=device)
+    if kind == "torch" and path:
+        return TorchTextEncoder(path, processor_path=args.processor_path,
+                                message_fn=training_chat_messages, device=device)
+    return ZeroTextEncoder(embed_dim=args.cross_attn_input_size, seq_len=32)
+
+
+def build_dataloader(args, batch_size, train=True, sampler_state=None):
+    """(loader, sampler) of the online path over `--train_data_path` (or,
+    with train=False, `--val_data_path`: no shuffle, no flip), batched in
+    aspect buckets with `--use_resolution_buckets`; `sampler_state` resumes
+    inside the saved epoch."""
+    from f_lite_tpu_torch.data.dataset import ImageDataset
+    from f_lite_tpu_torch.data.loader import DataLoader
+    from f_lite_tpu_torch.data.samplers import (
+        ResolutionBucketSampler,
+        StatefulDistributedSampler,
+    )
+
+    seed = args.seed or 0
+    ds = ImageDataset(
+        args.train_data_path if train else args.val_data_path,
+        base_image_dir=args.base_image_dir, image_column=args.image_column,
+        caption_column=args.caption_column, resolution=args.resolution,
+        center_crop=args.center_crop, random_flip=args.random_flip and train,
+        root_dir_type=args.root_dir_type, base_url=args.base_url,
+        debug=args.debug, seed=seed)
+    if args.use_resolution_buckets:
+        sampler = ResolutionBucketSampler(ds, batch_size, shuffle=train, seed=seed)
+        loader = DataLoader(ds, batch_sampler=sampler, num_workers=args.num_workers,
+                            worker_type=args.loader_worker_type)
+    else:
+        sampler = StatefulDistributedSampler(ds, batch_size, shuffle=train, seed=seed)
+        loader = DataLoader(ds, batch_size=batch_size, sampler=sampler,
+                            num_workers=args.num_workers, drop_last=True,
+                            worker_type=args.loader_worker_type)
+    if sampler_state:
+        sampler.load_state_dict(sampler_state)
+    return loader, sampler
+
+
+def encode_batch(batch, vae, text_encoder, *, generator, dtype, device,
+                 batch_multiplicity: int = 1):
+    """A loader's batch -> (latents (B, h, w, C), context (B, S, Ctx), mask
+    (B, S)) on `device`, latents and context in `dtype`. A precomputed
+    batch carries its latents and embeddings; an image batch is VAE
+    encoded here (a posterior sample from `generator`, fp32, no autograd)
+    and normalized, and its captions encoded by `text_encoder`. Every row
+    is repeated `batch_multiplicity` times."""
+    from f_lite_tpu_torch.models.vae import normalize_latents
+
+    if "vae_latent" in batch:
+        latents = torch.from_numpy(batch["vae_latent"]).to(device, torch.float32)
+        ctx, mask = batch["text_embedding"], batch["text_mask"]
+    else:
+        images = torch.from_numpy(batch["image"]).to(device, torch.float32)
+        with torch.no_grad():
+            latents = normalize_latents(vae.encode(images, generator=generator),
+                                        vae.config)
+        ctx, mask = text_encoder.encode(batch["caption"])
+    ctx = torch.from_numpy(np.asarray(ctx)).to(device, dtype)
+    mask = torch.from_numpy(np.asarray(mask)).to(device)
+    latents = latents.to(dtype)
+    if batch_multiplicity > 1:
+        reps = batch_multiplicity
+        latents = latents.repeat(reps, 1, 1, 1)
+        ctx = ctx.repeat(reps, 1, 1)
+        mask = mask.repeat(reps, 1)
+    return latents, ctx, mask
+
+
+class MetricsLogger:
+    """Scalars, the timestep-bin histogram and the sample grid to
+    tensorboard (tensorboardX) and / or wandb, as `--report_to` says;
+    each package is imported here, where it is used."""
+
+    def __init__(self, args):
+        self.tb = None
+        if args.report_to in ("tensorboard", "all"):
+            try:
+                from tensorboardX import SummaryWriter
+
+                self.tb = SummaryWriter(str(Path(args.output_dir) / args.logging_dir))
+            except ImportError:
+                self.tb = None
+        self.wandb = None
+        if args.report_to in ("wandb", "all"):
+            try:
+                import wandb
+
+                wandb.init(project=args.project_name, name=args.run_name,
+                           config=vars(args))
+                self.wandb = wandb
+            except ImportError:
+                logger.warning("wandb not installed; skipping wandb logging")
+        if args.report_to != "none" and self.tb is None and self.wandb is None:
+            # never silence: a long run with no metrics backend is almost
+            # certainly a misconfiguration
+            logger.error(
+                "NO metrics backend is active (--report_to %s, tensorboardX"
+                " %savailable, wandb %savailable) — training metrics will "
+                "only appear in stdout logs. Install tensorboardX/wandb or "
+                "pass --report_to none to silence this.",
+                args.report_to,
+                "" if self.tb is not None else "un",
+                "" if self.wandb is not None else "un",
+            )
+
+    def log(self, scalars: dict, step: int):
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, float(v), step)
+        if self.wandb is not None:
+            self.wandb.log(scalars, step=step)
+
+    def log_histogram(self, tag, bin_counts, step):
+        """The timestep bins' occupancy: [bin] * count raw samples, as the
+        reference builds its wandb.Histogram."""
+        counts = [int(c) for c in bin_counts]
+        if not any(counts):
+            return
+        raw = [i for i, c in enumerate(counts) for _ in range(c)]
+        if self.tb is not None:
+            self.tb.add_histogram(tag, np.asarray(raw), step, bins=10)
+        if self.wandb is not None:
+            self.wandb.log({tag: self.wandb.Histogram(raw)}, step=step)
+
+    def log_image(self, tag, image: np.ndarray, step):
+        """`image`: uint8 (H, W, 3)."""
+        if self.tb is not None:
+            self.tb.add_image(tag, np.asarray(image).transpose(2, 0, 1), step)
+        if self.wandb is not None:
+            self.wandb.log({tag: self.wandb.Image(image)}, step=step)
+
+    def close(self):
+        if self.tb is not None:
+            self.tb.close()
+
+
+DEFAULT_SAMPLE_PROMPTS = [
+    "a beautiful photograph of a mountain landscape at sunset",
+    "a cute cat playing with a ball of yarn",
+    "a futuristic cityscape with flying cars",
+    "an oil painting of a flower garden",
+]
+
+
+def sample_prompts(prompts_file=None, prompts=None) -> list[str]:
+    """The non-empty lines of `prompts_file` (when it exists and has any),
+    else `prompts`, else `DEFAULT_SAMPLE_PROMPTS`."""
+    if prompts_file and Path(prompts_file).exists():
+        lines = [line.strip() for line in Path(prompts_file).read_text().splitlines()
+                 if line.strip()]
+        prompts = lines or prompts
+    return list(prompts or DEFAULT_SAMPLE_PROMPTS)
+
+
+@torch.no_grad()
+def sample_decoded(model, vae, text_encoder, global_step, *, image_size=256,
+                   num_inference_steps=50, cfg_scale=6.0, prompts=None,
+                   prompts_file=None, latents=None) -> np.ndarray:
+    """The sample grid's images, float32 (N, H, W, 3) in [-1, 1]: the
+    prompts denoised from latents drawn from `torch.Generator(device)
+    .manual_seed(global_step)` (or `latents`) at `cfg_scale`, with zeros
+    as the negative context, then decoded by `vae`."""
+    from f_lite_tpu_torch.models.vae import denormalize_latents
+    from f_lite_tpu_torch.sampling.euler import DenoiseSettings, denoise
+
+    prompts = sample_prompts(prompts_file, prompts)
+    embeds, mask = text_encoder.encode(prompts)
+    param = next(model.parameters())
+    device, dtype = param.device, model.config.dtype or param.dtype
+    if latents is None:
+        lh = lw = image_size // vae.config.spatial_scale
+        latents = torch.randn(
+            (len(prompts), lh, lw, model.config.in_channels), dtype=dtype,
+            device=device,
+            generator=torch.Generator(device).manual_seed(global_step))
+    pos = torch.from_numpy(np.asarray(embeds)).to(device, dtype)
+    settings = DenoiseSettings(num_inference_steps=num_inference_steps,
+                               guidance_scale=cfg_scale)
+    final = denoise(model, latents.to(device, dtype), pos, torch.zeros_like(pos),
+                    torch.from_numpy(np.asarray(mask)).to(device), settings)
+    z = denormalize_latents(final.float(), vae.config)
+    return vae.decode(z).float().cpu().numpy()
+
+
+def sample_images(model, vae, text_encoder, global_step, *, image_size=256,
+                  num_inference_steps=50, cfg_scale=6.0, prompts=None,
+                  prompts_file=None, output_dir=None, latents=None) -> np.ndarray:
+    """The eval-time sample grid (uint8 (H, W, 3), 3 images a row) of
+    `sample_decoded`, written to `{output_dir}/samples/step_{N}.png`."""
+    from f_lite_tpu_torch.data.image_ops import denormalize_to_u8
+    from f_lite_tpu_torch.utils.image import make_image_grid, png_bytes_with_metadata
+
+    images = sample_decoded(model, vae, text_encoder, global_step,
+                            image_size=image_size,
+                            num_inference_steps=num_inference_steps,
+                            cfg_scale=cfg_scale, prompts=prompts,
+                            prompts_file=prompts_file, latents=latents)
+    grid = make_image_grid(denormalize_to_u8(images), nrow=3)
+    if output_dir is not None:
+        out = Path(output_dir) / "samples"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"step_{global_step}.png").write_bytes(png_bytes_with_metadata(grid))
+    return grid
+
+
+class swapped_weights:
+    """Within the block, each trained tensor holds `values[name]` (cast to
+    its dtype); its own storage is put back on exit, so the tensors, their
+    autograd state and the optimizer are as they were. None: no swap."""
+
+    def __init__(self, trained: dict, values: dict | None):
+        self.trained, self.values, self.saved = trained, values, {}
+
+    def __enter__(self):
+        if self.values is not None:
+            for name, t in self.trained.items():
+                self.saved[name] = t.data
+                t.data = self.values[name].to(t.dtype)
+
+    def __exit__(self, *exc):
+        for name, data in self.saved.items():
+            self.trained[name].data = data
+        self.saved = {}
+
+
+@torch.no_grad()
+def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
+             dtype, device, batch_multiplicity: int = 1, uncond_prob: float,
+             patch_size: int, token_keep_ratio: float = 1.0) -> float | None:
+    """The mean loss over at most 20 validation batches, without
+    gradients; batch vi's draws come from the generators of step
+    (1 << 30) + global_step * 32 + vi, so no draw of the training run
+    moves. None without a batch."""
+    from f_lite_tpu_torch.train.loss import flow_matching_loss
+
+    losses = []
+    for vi, vbatch in enumerate(val_dl):
+        key = (1 << 30) + global_step * 32 + vi
+        latents, ctx, mask = encode_batch(
+            vbatch, vae, text_encoder, generator=encode_generator(device, seed, key),
+            dtype=dtype, device=device, batch_multiplicity=batch_multiplicity)
+        loss, _ = flow_matching_loss(
+            model, latents, ctx, mask, generator=step_generator(device, seed, key),
+            uncond_prob=uncond_prob, patch_size=patch_size,
+            token_keep_ratio=token_keep_ratio)
+        losses.append(float(loss))
+        if vi >= 19:  # the reference's 20 batches
+            break
+    return sum(losses) / len(losses) if losses else None
+
+
+def _timed(iterable, clock: dict):
+    """`iterable`'s items; the time spent waiting for each is added to
+    clock["s"]."""
+    it = iter(iterable)
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            clock["s"] += time.perf_counter() - t
+        yield item
+
+
 def state_tensors(trained: dict, opt) -> dict:
     """The checkpoint's tensors: the trained tensors and the optimizer's
     moments (and accumulator) under the trained tensors' names."""
@@ -360,6 +691,31 @@ def ema_update(ema: dict, trained: dict, decay: float) -> None:
         e.copy_((e.float() * decay + p.float() * (1.0 - decay)).to(e.dtype))
 
 
+def _start_profile(device):
+    """A running torch.profiler session (CPU, and CUDA on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, device, out_dir: Path, steps) -> Path:
+    """End `prof` once the device is idle and write its Chrome trace to
+    `out_dir/steps_{a}_{b}.json`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"steps_{steps[0]}_{steps[1]}.json"
+    prof.export_chrome_trace(str(path))
+    logger.info("profile of steps %d-%d written to %s", steps[0] + 1, steps[1], path)
+    return path
+
+
 def train(args, on_step=None) -> dict:
     """Train as `args` say; `on_step(state, metrics)`, when given, is called
     after every step with the `TrainState` and the step's metrics (device
@@ -367,6 +723,7 @@ def train(args, on_step=None) -> dict:
     from f_lite_tpu_torch.convert.from_jax import unflatten
     from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
     from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.models.vae import IdentityVAE
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.train.checkpoint import Checkpointer
     from f_lite_tpu_torch.train.lora import (
@@ -381,13 +738,17 @@ def train(args, on_step=None) -> dict:
     from f_lite_tpu_torch.train.optim import build_lr_schedule, build_optimizer
     from f_lite_tpu_torch.train.step import TrainState, train_step
     from f_lite_tpu_torch.utils.device import resolve_device
+    from f_lite_tpu_torch.utils.env import load_dotenv
 
     t_start = time.time()
+    load_dotenv()  # S3KEY / S3SECRET and the like, from ./.env
     check_ported(args)
     device = resolve_device(args.device)
     seed = args.seed or 0
     if args.seed is not None:
-        random.seed(args.seed)  # the latent flip's draws
+        # the global draws: the latent flip, collate's donors, the
+        # placeholders' refresh
+        random.seed(args.seed)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     k_acc = args.gradient_accumulation_steps
 
@@ -416,13 +777,24 @@ def train(args, on_step=None) -> dict:
     else:
         trained = dict(model.named_parameters())
 
+    # the online path encodes (and sampling decodes) through the identity
+    # in pixel space
+    coder = vae if vae is not None else IdentityVAE()
+    text_encoder = build_text_encoder(args, device)
+
     def loader(sampler_state=None):
-        return create_precomputed_data_loader(
-            args.precomputed_data_dir, args.train_batch_size, seed=seed,
-            use_buckets=args.use_resolution_buckets,
-            latent_flip=args.random_flip, sampler_state=sampler_state)
+        if args.use_precomputed_data:
+            return create_precomputed_data_loader(
+                args.precomputed_data_dir, args.train_batch_size, seed=seed,
+                use_buckets=args.use_resolution_buckets,
+                latent_flip=args.random_flip, sampler_state=sampler_state)
+        return build_dataloader(args, args.train_batch_size, train=True,
+                                sampler_state=sampler_state)
 
     dl, sampler = loader()
+    val_dl = None
+    if args.val_data_path:
+        val_dl, _ = build_dataloader(args, args.eval_batch_size, train=False)
     # the JAX trainer's count: global_step counts micro-batches, the
     # default max_steps is the epochs' batches / k
     max_steps = args.max_steps or len(dl) * args.num_epochs // k_acc
@@ -437,7 +809,8 @@ def train(args, on_step=None) -> dict:
                               num_warmup_steps=args.num_warmup_steps,
                               max_steps=max_steps)
     state = TrainState(model, opt)
-    uncond_prob = 0.01  # the precomputed path's caption dropout
+    # caption dropout: 0.01 on the precomputed path, as in the JAX trainer
+    uncond_prob = 0.01 if args.use_precomputed_data else args.uncond_prob
 
     ckpt = Checkpointer(args.output_dir, total_limit=args.checkpoints_total_limit)
     global_step = 0
@@ -464,9 +837,23 @@ def train(args, on_step=None) -> dict:
             for name, e in ema.items():
                 e.copy_(restored[name])
 
+    if args.sample_every and hasattr(text_encoder, "has"):
+        # a precomputed cache holds its captions' embeddings only: the JAX
+        # trainer raises KeyError at the first sample; this raises it
+        # before the first step
+        first = (global_step // args.sample_every + 1) * args.sample_every
+        missing = [q for q in sample_prompts(args.sample_prompts_file)
+                   if not text_encoder.has(q)]
+        if first <= max_steps and missing:
+            raise KeyError(
+                f"no precomputed embedding for sample prompt {missing[0]!r} "
+                f"(--sample_every {args.sample_every} samples at step {first}); "
+                "pass --sample_prompts_file with cached captions or "
+                "--sample_every 0")
+
     logger.info("device=%s params=%d trained=%d dtype=%s", device, n_params,
                 sum(t.numel() for t in trained.values()), dtype)
-    logger.info("dataset=%d items, %d batches/epoch, max_steps=%d",
+    logger.info("dataset=%d images, %d batches/epoch, max_steps=%d",
                 len(dl.dataset), len(dl), max_steps)
 
     def save(step, wait=True):
@@ -494,23 +881,29 @@ def train(args, on_step=None) -> dict:
         except ValueError:
             prev_handlers = {}  # not the main thread (in-process callers)
 
+    metrics_logger = MetricsLogger(args)
+    profile_range = (tuple(int(x) for x in args.profile_steps.split(","))
+                     if args.profile_steps else None)
+    prof = None
     bin_sums = torch.zeros(10, device=device)
     bin_counts = torch.zeros(10, device=device)
+    loader_wait = {"s": 0.0}
     result: dict = {}
     stop = False
     # resume continues inside the saved epoch (the sampler's state)
     for epoch in range(int(sampler.epoch), args.num_epochs):
         sampler.set_epoch(epoch)
+        if hasattr(dl.dataset, "set_epoch"):  # fresh flips and caption picks
+            dl.dataset.set_epoch(epoch)
         epoch_start = time.time()
-        for batch in dl:
-            latents = torch.from_numpy(batch["vae_latent"]).to(device, dtype)
-            ctx = torch.from_numpy(batch["text_embedding"]).to(device, dtype)
-            mask = torch.from_numpy(batch["text_mask"]).to(device)
-            if args.batch_multiplicity > 1:
-                reps = args.batch_multiplicity
-                latents = latents.repeat(reps, 1, 1, 1)
-                ctx = ctx.repeat(reps, 1, 1)
-                mask = mask.repeat(reps, 1)
+        for batch in _timed(dl, loader_wait):
+            if profile_range and global_step == profile_range[0]:
+                prof = _start_profile(device)
+            latents, ctx, mask = encode_batch(
+                batch, coder, text_encoder,
+                generator=encode_generator(device, seed, global_step),
+                dtype=dtype, device=device,
+                batch_multiplicity=args.batch_multiplicity)
             weight = rampup_weights(global_step, latents.shape[0],
                                     args.bs_rampup, seed)
             metrics = train_step(
@@ -519,10 +912,15 @@ def train(args, on_step=None) -> dict:
                 uncond_prob=uncond_prob, patch_size=cfg.patch_size,
                 token_keep_ratio=1.0 - args.sequence_dropout,
                 sample_weight=None if weight is None
-                else torch.from_numpy(weight).to(device))
+                else torch.from_numpy(weight).to(device),
+                debug_nans=args.debug_nans)
             if ema is not None:
                 ema_update(ema, trained, args.ema_decay)
             global_step += 1
+            if prof is not None and global_step == profile_range[1]:
+                _stop_profile(prof, device, Path(args.output_dir) / "profile",
+                              profile_range)
+                prof = None
             if on_step is not None:
                 on_step(state, metrics)
             bin_sums += metrics["bin_sums"]
@@ -540,6 +938,9 @@ def train(args, on_step=None) -> dict:
                 for i in range(10):
                     if bc[i] > 0:
                         logs[f"metrics/avg_loss_bin_{i}"] = float(bs[i] / bc[i])
+                metrics_logger.log(logs, global_step)
+                metrics_logger.log_histogram("metrics/diffusion_loss_bin_counts",
+                                             bc, global_step)
                 logger.info("step %d loss %.4f lr %.2e grad %.3f",
                             global_step, logs["train/loss"], logs["train/lr"],
                             logs["train/grad_norm"])
@@ -550,6 +951,30 @@ def train(args, on_step=None) -> dict:
                 save(global_step, wait=not args.async_checkpoint)
                 logger.info("saved checkpoint @ %d%s", global_step,
                             " (async)" if args.async_checkpoint else "")
+            if args.sample_every and global_step % args.sample_every == 0:
+                # from the EMA where it is on (the merged factors under
+                # LoRA), the trained tensors swapped back after
+                with swapped_weights(trained, ema):
+                    grid = sample_images(
+                        model, coder, text_encoder, global_step,
+                        image_size=args.resolution,
+                        num_inference_steps=8 if args.debug else 50,
+                        prompts_file=args.sample_prompts_file,
+                        output_dir=args.output_dir)
+                metrics_logger.log_image("samples", grid, global_step)
+            if val_dl is not None and args.eval_every \
+                    and global_step % args.eval_every == 0:
+                v = evaluate(model, val_dl, coder, text_encoder,
+                             global_step=global_step, seed=seed, dtype=dtype,
+                             device=device,
+                             batch_multiplicity=args.batch_multiplicity,
+                             uncond_prob=uncond_prob, patch_size=cfg.patch_size,
+                             token_keep_ratio=1.0 - args.sequence_dropout)
+                if v is not None:
+                    metrics_logger.log({"val/loss": v, "val/diffusion_loss": v},
+                                       global_step)
+                    logger.info("validation loss: %.4f", v)
+                    result["val/loss"] = v
             if preempt["sig"] is not None:
                 logger.warning("stopping on signal %d at step %d; saving final "
                                "checkpoint", preempt["sig"], global_step)
@@ -566,9 +991,14 @@ def train(args, on_step=None) -> dict:
 
     for s, h in prev_handlers.items():
         signal.signal(s, h)
+    if prof is not None:  # the run ended inside the profiled range
+        _stop_profile(prof, device, Path(args.output_dir) / "profile",
+                      profile_range)
+    metrics_logger.close()
 
     final_dir = save(global_step)
     result["checkpoints"] = ckpt.timings
+    result["loader_wait_s"] = loader_wait["s"]
     if lora is not None:
         save_lora_weights(lora, final_dir)
         logger.info("saved LoRA weights to %s", final_dir)

@@ -65,6 +65,8 @@ EXTRAS_MODULES = ("f_lite_tpu_torch.convert.ingest",
 FRONTEND_MODULES = ("f_lite_tpu_torch.generate", "f_lite_tpu_torch.serve",
                     "f_lite_tpu_torch.comfyui", "f_lite_tpu_torch.gui",
                     "f_lite_tpu_torch.utils.image")
+ONLINE_MODULES = ("f_lite_tpu_torch.data.dataset", "f_lite_tpu_torch.data.loader",
+                  "f_lite_tpu_torch.data.image_ops", "f_lite_tpu_torch.utils.env")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -84,10 +86,10 @@ def test_port_imports_without_jax_or_reference_package():
     out = _run(BLOCKED_IMPORTS.replace("BUILT_BEFORE", str(before)))
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
-    assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES
-               + EXTRAS_MODULES + FRONTEND_MODULES) <= set(names.split()), names
+    assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES + EXTRAS_MODULES
+               + FRONTEND_MODULES + ONLINE_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 43, out.stdout
+    assert n_modules >= 47, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -277,6 +279,100 @@ def test_train_state_and_recipe_options_run_without_jax_or_safetensors():
     out = _run(TRAIN_STATE_WITHOUT_JAX_OR_SAFETENSORS)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok"), out.stdout
+
+
+ONLINE_WITHOUT_PIL_PANDAS_OR_METRICS = textwrap.dedent("""
+    import importlib, importlib.abc, json, logging, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "f_lite_tpu", "PIL", "pandas",
+               "tensorboardX", "wandb", "safetensors")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from f_lite_tpu_torch.data.dataset import ImageDataset
+    from f_lite_tpu_torch.train.trainer import parse_args, train
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
+
+    torch.set_num_threads(1)
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.ERROR:
+                errors.append(record.getMessage())
+
+    logging.getLogger("f_lite_tpu_torch.train").addHandler(Errors())
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rs = np.random.RandomState(0)
+        rows = []
+        for i, (w, h) in enumerate([(48, 48), (32, 64), (64, 32), (48, 48)] * 2):
+            f = d / f"{i}.png"
+            f.write_bytes(png_bytes_with_metadata(rs.randint(0, 256, (h, w, 3))
+                                                  .astype(np.uint8)))
+            rows.append({"media_path": str(f), "captions": [f"c{i}", "x"],
+                         "width": w, "height": h})
+        (d / "t.json").write_text(json.dumps(rows))
+        for url in ("file://", "dummy://"):
+            ds = ImageDataset(str(d / "t.json"), root_dir_type="json", base_url=url,
+                              resolution=32, center_crop=False, random_flip=True)
+            items = [ds[i] for i in range(len(ds))]
+            assert all(it["_id"] != "-1" for it in items), url
+            assert {it["image"].shape for it in items} == {(48, 48, 3), (64, 32, 3),
+                                                           (32, 64, 3)}
+        try:
+            ImageDataset("coll", base_image_dir=str(d), root_dir_type="parquet")
+        except ImportError as e:
+            assert "pandas" in str(e), e
+        else:
+            raise SystemExit("read a parquet table without pandas")
+        argv = ["--device", "cpu", "--train_data_path", str(d / "t.json"),
+                "--root_dir_type", "json", "--base_url", "file://",
+                "--resolution", "32", "--use_resolution_buckets", "--pixel_space",
+                "--model_width", "32", "--model_depth", "2", "--model_head_dim", "16",
+                "--cross_attn_input_size", "16", "--train_batch_size", "2",
+                "--max_steps", "2", "--num_epochs", "2", "--log_every", "1",
+                "--seed", "0", "--num_workers", "2", "--output_dir", str(d / "out"),
+                "--val_data_path", str(d / "t.json"), "--eval_every", "2",
+                "--sample_every", "2", "--debug"]
+        result = train(parse_args(argv))
+        assert result["global_step"] == 2 and "val/loss" in result, result
+        assert (d / "out" / "samples" / "step_2.png").exists()
+    assert any("NO metrics backend is active" in e for e in errors), errors
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_online_path_runs_without_pil_pandas_or_metrics_packages():
+    """What the card's machine has: no JAX, PIL, pandas, tensorboardX,
+    wandb or safetensors. A JSON table of PNG files at their buckets' sizes
+    (file backend) and the dummy backend yield items; a 2-step online run
+    with buckets, validation and sampling finishes, and the missing
+    metrics backend is logged as an error, as the JAX trainer logs it."""
+    out = _run(ONLINE_WITHOUT_PIL_PANDAS_OR_METRICS)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
+def test_dataset_module_imports_no_torch():
+    """The loader's forkserver preloads `f_lite_tpu_torch.data.dataset`; it
+    imports no torch (nor JAX), so the server never initializes CUDA."""
+    out = _run("import sys; import f_lite_tpu_torch.data.dataset, "
+               "f_lite_tpu_torch.data.loader; "
+               "print([m for m in sys.modules if m.split('.')[0] in "
+               "('torch', 'jax', 'f_lite_tpu')])")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 FRONTENDS_WITHOUT_PIL = textwrap.dedent("""

@@ -517,7 +517,7 @@ def test_sigterm_checkpoints_exits_zero_and_resumes(tmp_path):
     # far more steps than the test waits for: only the signal ends the run
     argv = [sys.executable, "-m", "f_lite_tpu_torch.train",
             *_argv(cache, out, "--max_steps", "100000", "--num_epochs", "100000",
-                   "--checkpointing_steps", "0")]
+                   "--checkpointing_steps", "0", "--sample_every", "0")]
     log = tmp_path / "run.log"
     with open(log, "w") as lf:
         proc = subprocess.Popen(argv, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT,
