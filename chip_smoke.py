@@ -224,8 +224,25 @@ Phases (any failed check raises and the run exits non-zero):
    grad norm, 46/31/31 launches a step, peak under 80 GB; s/step, the VAE
    encode's ms a step, the loader's wait ms, idle share and peak GB
    beside phase 13's;
-14. a `{"kernels": [...]}` line, the script's total seconds, then the card
-   line, then the last line `{"ok": true, "device": {...}}`.
+12g. the trainer under torchrun (`torchrun --standalone --nproc_per_node 1
+   -m f_lite_tpu_torch.train --fsdp 0`, a subprocess: a real NCCL process
+   group of one rank, the DiT under FSDP2's `fully_shard`), phase 12b's
+   straight run (40 steps, an async save at 20): every step's loss (read
+   from the run's `metrics.jsonl`) bit-equal to 12b's unwrapped run, or
+   within 1e-6 relative with the gap printed; exactly 12 launches of each
+   kernel a step, read from the same file (none in this process); the
+   step-20 checkpoint resumed in an unwrapped run gives 12b's steps 21-40;
+   s/step beside phase 12's;
+13e. `f_lite_7b_width_d20_train512` under torchrun with `--fsdp 0`, 10
+   steps: finite loss and grad norm, 46/31/31 launches a step, peak under
+   80 GB; whether its losses equal phase 13's bit for bit (printed), its
+   s/step, peak GB and idle share (the run's own trace of step 9)
+   beside phase 13's, the final full-state checkpoint's gather and write
+   seconds beside 13c's sync save;
+14. a `{"gpus": N, "multi_rank_checks": "cpu/gloo"}` line (runs of 2 and 4
+   ranks are checked on the CPU with gloo: the card's machine has one
+   GPU), a `{"kernels": [...]}` line, the script's total seconds, then the
+   card line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of another path launched there fails the run.
 
@@ -1287,6 +1304,7 @@ def run_fixture_resume(tmp: Path, steps=40) -> dict:
                launches_straight=straight_counts, launches_resumed=resumed_counts,
                s_per_step=statistics.median(straight_watch.times[2:]))
     log("fixture_resume", json.dumps(res))
+    res["straight_losses"] = straight
     if not res["losses_equal"] or len(straight) != steps:
         raise AssertionError(f"fixture resume: losses {straight} against {first + rest}")
     if unequal or set(want) != set(got):
@@ -1734,6 +1752,18 @@ def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20) -> list:
             "--report_to", "none", "--sample_every", "0", "--eval_every", "0"]
 
 
+def train_7b_launches(depth: int) -> dict:
+    """Launches of each flash kernel in one 7B-width training step at
+    `depth`, checkpointing from block 8: every attention forward once, the
+    recomputed blocks' again in the backward, and one dq and dkv each."""
+    from f_lite_tpu_torch.models.dit import DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    n_attn = depth + sum(cfg.block_has_cross_attn(i) for i in range(depth))
+    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
+    return dict(fwd=n_attn + n_remat, dq=n_attn, dkv=n_attn)
+
+
 def disk_gb(path: Path) -> float:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
 
@@ -1751,21 +1781,15 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
 
     import torch
 
-    from f_lite_tpu_torch.models.dit import DiTConfig
-
-    cfg = DiTConfig.f_lite_7b(depth=depth)
     out = tmp / label
     argv = argv_7b(tmp, out, steps, batch, depth) + list(extra)
-    n_self = depth
-    n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
-    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
-    expected = launches(fwd=n_self + n_cross + n_remat, dq=n_self + n_cross,
-                        dkv=n_self + n_cross)
-    finite = []
+    expected = launches(**train_7b_launches(depth))
+    finite, losses = [], []
 
     def check(step, metrics):
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         finite.append(math.isfinite(loss) and math.isfinite(gnorm))
+        losses.append(loss)
         log(f"  {label} step {step}: loss {loss} grad_norm {gnorm}")
 
     watch = StepWatch(profile_window=(steps - 2, steps - 1), check=check)
@@ -1787,7 +1811,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
                launches=counts, per_step=watch.per_step[0],
                per_step_expected=expected, all_finite=all(finite),
                checkpoints=result["checkpoints"], final_checkpoint_gb=disk_gb(final),
-               step_profile=watch.profile)
+               step_profile=watch.profile, losses=losses)
     log(label, json.dumps(res))
     shutil.rmtree(out, ignore_errors=True)
     if result["global_step"] != steps or not all(finite) or len(finite) != steps:
@@ -1979,6 +2003,157 @@ def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20) -> dict
         raise AssertionError(f"7b_online peak {res['max_memory_allocated_gb']} GB")
     del watch
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 12g and 13e: the trainer under torchrun, the DiT under FSDP2
+# ---------------------------------------------------------------------------
+
+def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900) -> tuple:
+    """`torchrun --standalone --nproc_per_node 1 -m f_lite_tpu_torch.train`
+    with `argv` as a subprocess (a real NCCL process group of one rank, the
+    DiT under `fully_shard`), its output in `log_path`: (the step lines of
+    its `metrics.jsonl`, its result line, the subprocess' seconds)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("torchrun_parent_reserved_gb", torch.cuda.memory_reserved() / 1e9)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "f_lite_tpu_torch.train", *argv]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as lf:
+        proc = subprocess.run(cmd, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT,
+                              timeout=timeout)
+    wall = time.perf_counter() - t0
+    text = log_path.read_text()
+    if proc.returncode != 0 or "mesh: dp=1 fsdp=1 world=1 nodes=1" not in text:
+        raise AssertionError(f"torchrun exit {proc.returncode}:\n{text[-4000:]}")
+    lines = [json.loads(x) for x in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = [x for x in lines if "train/loss" in x]
+    return steps, lines[-1]["result"], wall
+
+
+def per_step_launches(records: list) -> list:
+    """Each logged step's launches, from the cumulative counts of
+    `metrics.jsonl` (`--log_every 1`)."""
+    out, last = [], dict(fwd=0, dq=0, dkv=0)
+    for r in records:
+        out.append({k: r["launches"][k] - last[k] for k in last})
+        last = r["launches"]
+    return out
+
+
+def step_seconds(records: list) -> float:
+    """The median of the logged steps' wall-clock gaps, the first two
+    left out."""
+    times = [r["time"] for r in records]
+    return statistics.median(b - a for a, b in zip(times[2:], times[3:]))
+
+
+def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict) -> dict:
+    """Phase 12g: phase 12b's straight run (the fixture recipe on phase 12's
+    cache, `--checkpointing_steps` half-way, `--async_checkpoint`) under
+    torchrun with `--fsdp 0`: every step's loss bit-equal to 12b's
+    unwrapped run (or within 1e-6 relative, the gap printed), exactly 12
+    launches of each kernel a step; the step-`steps` / 2 checkpoint
+    resumed in an unwrapped run gives 12b's losses after it; s/step beside
+    phase 12's."""
+    import shutil
+
+    cache = tmp / "shapes_cache"
+    steps, half = phase12b["steps"], phase12b["resumed_at"]
+    straight = phase12b["straight_losses"]
+    out = tmp / "fsdp_fixture"
+    argv = fixture_argv(cache, out, steps) + [
+        "--checkpointing_steps", str(half), "--async_checkpoint", "--fsdp", "0",
+        "--log_every", "1"]
+    reset_counts()
+    records, result, wall = run_torchrun(argv, out, tmp / "fsdp_fixture.log")
+    parent = read_counts()
+    losses = [r["train/loss"] for r in records]
+    per = fixture_attention_calls()
+    expected = dict(fwd=per, dq=per, dkv=per)
+    per_step = per_step_launches(records)
+
+    def rel_gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+
+    resume = tmp / "fsdp_fixture_resume"
+    shutil.copytree(out / "checkpoints" / str(half), resume / "checkpoints" / str(half))
+    reset_counts()
+    _, _, watch, resumed = run_counted(fixture_argv(cache, resume, steps)
+                                       + ["--resume_from_checkpoint", "latest"])
+    res = dict(steps=len(losses), losses_bit_equal=losses == straight,
+               max_rel_gap=rel_gap(losses, straight),
+               resumed_unwrapped_bit_equal=resumed == straight[half:],
+               resumed_max_rel_gap=rel_gap(resumed, straight[half:]),
+               per_step_launches=per_step[0], s_per_step=step_seconds(records),
+               phase_12_s_per_step=phase12["s_per_step"], subprocess_s=wall,
+               checkpoints=result["checkpoints"], parent_launches=parent,
+               resumed_launches=read_counts())
+    log("fixture_fsdp", json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(resume, ignore_errors=True)
+    if len(losses) != steps or res["max_rel_gap"] > 1e-6 \
+            or res["resumed_max_rel_gap"] > 1e-6:
+        raise AssertionError(f"fixture fsdp: losses {losses} against {straight}, "
+                             f"resumed {resumed}")
+    if any(c != expected for c in per_step) or any(parent.values()):
+        raise AssertionError(f"fixture fsdp: launch counts {per_step[:3]}, parent {parent}")
+    if any(c != launches(**expected) for c in watch.per_step):
+        raise AssertionError(f"fixture fsdp resume: launch counts {watch.per_step[:3]}")
+    return res
+
+
+def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20) -> dict:
+    """Phase 13e: `f_lite_7b_width_d20_train512` (phase 13's arguments)
+    under torchrun with `--fsdp 0`, `steps` steps and a profile of the
+    last but one: finite loss and grad norm, 46 / 31 / 31 launches a step,
+    peak under 80 GB; s/step, peak GB and idle share beside phase 13's,
+    and the final full-state checkpoint's gather and write seconds beside
+    phase 13c's sync save."""
+    import shutil
+
+    out = tmp / "fsdp_7b"
+    window = (steps - 2, steps - 1)
+    argv = argv_7b(tmp, out, steps, depth=depth) + [
+        "--fsdp", "0", "--profile_steps", f"{window[0]},{window[1]}"]
+    expected = train_7b_launches(depth)
+    reset_counts()
+    records, result, wall = run_torchrun(argv, out, tmp / "fsdp_7b.log")
+    per_step = per_step_launches(records)
+    trace = trace_summary(out / "profile" / f"steps_{window[0]}_{window[1]}.json")
+    finite = all(math.isfinite(r["train/loss"]) and math.isfinite(r["train/grad_norm"])
+                 for r in records)
+    save = result["checkpoints"][-1]
+    phase13c_sync = next(s for s in phase13c["saves"] if s["wait"])
+    res = dict(config="f_lite_7b_width_d20_train512", steps=len(records),
+               losses=[r["train/loss"] for r in records],
+               losses_equal_phase_13=[r["train/loss"] for r in records] == phase13["losses"],
+               grad_norms=[r["train/grad_norm"] for r in records], all_finite=finite,
+               per_step_launches=per_step[0], per_step_expected=expected,
+               s_per_step=step_seconds(records),
+               phase_13_s_per_step=phase13["s_per_step"],
+               max_memory_allocated_gb=records[-1]["peak_gb"],
+               phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+               idle_share=trace["idle_share"],
+               phase_13_idle_share=phase13["step_profile"]["idle_share"],
+               trace_kernels=trace["names"], final_save=save,
+               final_checkpoint_gb=disk_gb(out / "checkpoints" / str(steps)),
+               phase_13c_sync_save=phase13c_sync, subprocess_s=wall,
+               parent_launches=read_counts())
+    log("7b_fsdp", json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
+    if len(records) != steps or not finite:
+        raise AssertionError(f"7b fsdp: {len(records)} steps, finite {finite}")
+    if any(c != expected for c in per_step) or any(res["parent_launches"].values()):
+        raise AssertionError(f"7b fsdp: launch counts {per_step[:3]}, expected {expected}")
+    if not res["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"7b fsdp peak {res['max_memory_allocated_gb']} GB")
     return res
 
 
@@ -3501,6 +3676,7 @@ def main() -> int:
         fixture_online_resume = phase(run_fixture_online_resume, Path(tmp),
                                       fixture_online["tables"])
         fixture_buckets = phase(run_fixture_buckets, Path(tmp))
+        fixture_fsdp = phase(run_fixture_fsdp, Path(tmp), fixture_train, fixture_resume)
         train_7b = phase(run_7b_training, Path(tmp))
         train_7b_dots = phase(run_7b_training, Path(tmp), 10, 4, 20,
                               ("--remat_policy", "dots"), "7b_train_dots")
@@ -3510,6 +3686,7 @@ def main() -> int:
                               ("--use_lora", "--lora_rank", "64"), "7b_train_lora")
         checkpoint_7b = phase(run_7b_checkpoint, Path(tmp))
         train_7b_online = phase(run_7b_online, Path(tmp), train_7b)
+        fsdp_7b = phase(run_7b_fsdp, Path(tmp), train_7b, checkpoint_7b)
     log("7b_train_options", json.dumps({
         r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
             "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
@@ -3561,6 +3738,8 @@ def main() -> int:
             "per_fixture_sample_grid": fixture_online["sample_grids"][0]["fwd"],
             "per_fixture_bucket_step": fixture_buckets["per_step"]["fwd"],
             "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
+        launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"]["fwd"],
+                       "per_7b_step": fsdp_7b["per_step_launches"]["fwd"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -3597,6 +3776,8 @@ def main() -> int:
                 "per_fixture_sample_grid": fixture_online["sample_grids"][0][which],
                 "per_fixture_bucket_step": fixture_buckets["per_step"][which],
                 "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
+            launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"][which],
+                           "per_7b_step": fsdp_7b["per_step_launches"][which]},
             max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
             max_err_over_tolerance=max(r["max_abs_err"][gname] / r["tolerance"][gname]
                                        for r in bwd_rows for gname in grads),
@@ -3695,6 +3876,8 @@ def main() -> int:
         missing = [key for key in KERNEL_KEYS if key not in k]
         if missing:
             raise AssertionError(f"kernels line: {k['name']} lacks {missing}")
+    # where the checks of 2 and 4 ranks ran (tests/test_torch_parallel.py)
+    log(json.dumps({"gpus": torch.cuda.device_count(), "multi_rank_checks": "cpu/gloo"}))
     log(json.dumps({"kernels": kernels,
                     "block_grads_max_rel": block["max_rel"],
                     "backward_shapes": bwd_rows,
@@ -3756,7 +3939,16 @@ def main() -> int:
                             "s_per_step", "phase_13_s_per_step", "vae_encode_ms_per_step",
                             "loader_wait_ms_per_step", "idle_share", "phase_13_idle_share",
                             "max_memory_allocated_gb", "allocated_at_start_gb",
-                            "phase_13_max_memory_allocated_gb")}}}))
+                            "phase_13_max_memory_allocated_gb")}},
+                    "fsdp": {
+                        "fixture": {k: fixture_fsdp[k] for k in (
+                            "losses_bit_equal", "max_rel_gap", "resumed_unwrapped_bit_equal",
+                            "resumed_max_rel_gap", "s_per_step", "phase_12_s_per_step")},
+                        "7b": {k: fsdp_7b[k] for k in (
+                            "losses_equal_phase_13", "s_per_step", "phase_13_s_per_step",
+                            "max_memory_allocated_gb",
+                            "phase_13_max_memory_allocated_gb", "idle_share",
+                            "phase_13_idle_share", "final_save", "phase_13c_sync_save")}}}))
     log(f"chip_smoke total: {time.perf_counter() - t_total:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {

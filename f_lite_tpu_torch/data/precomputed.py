@@ -154,19 +154,21 @@ class PrecomputedLoader:
 
 def create_precomputed_data_loader(root, batch_size, *, shuffle=True, seed=0,
                                    use_buckets=False, latent_flip=False,
-                                   sampler_state=None):
+                                   sampler_state=None, num_replicas=1, rank=0):
     """(loader, sampler) over the cache at `root`; `use_buckets` batches
     within latent-shape buckets; `sampler_state` (a sampler's
-    `state_dict`) resumes inside the saved epoch."""
+    `state_dict`) resumes inside the saved epoch; replica `rank` of
+    `num_replicas` (a node) takes its stride of the items or batches."""
     ds = PrecomputedDataset(root, latent_flip=latent_flip)
     if use_buckets:
         ds.setup_latent_buckets()
-        sampler = ResolutionBucketSampler(ds, batch_size, shuffle=shuffle,
-                                          seed=seed)
+        sampler = ResolutionBucketSampler(ds, batch_size, num_replicas=num_replicas,
+                                          rank=rank, shuffle=shuffle, seed=seed)
         loader = PrecomputedLoader(ds, None, sampler)
     else:
-        sampler = StatefulDistributedSampler(ds, batch_size, shuffle=shuffle,
-                                             seed=seed)
+        sampler = StatefulDistributedSampler(ds, batch_size,
+                                             num_replicas=num_replicas, rank=rank,
+                                             shuffle=shuffle, seed=seed)
         loader = PrecomputedLoader(ds, batch_size, sampler)
     if sampler_state:
         sampler.load_state_dict(sampler_state)

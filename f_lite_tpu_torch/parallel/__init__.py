@@ -1,0 +1,21 @@
+"""Data-parallel and FSDP training across GPUs (counterpart of
+`f_lite_tpu/parallel/`): the process group and mesh (`mesh.py`), FSDP2
+sharding of the DiT and the batch and state across ranks (`sharding.py`).
+`pipeline.py` (`--pp`) and tensor parallelism wait for ROADMAP A 12b."""
+
+from f_lite_tpu_torch.parallel.mesh import (
+    create_mesh,
+    init_distributed,
+    process_replica_info,
+)
+from f_lite_tpu_torch.parallel.sharding import (
+    copy_full_,
+    full_state_dict,
+    load_full_state_dict,
+    local_rows,
+    shard_dit,
+)
+
+__all__ = ["copy_full_", "create_mesh", "full_state_dict", "init_distributed",
+           "load_full_state_dict", "local_rows", "process_replica_info",
+           "shard_dit"]

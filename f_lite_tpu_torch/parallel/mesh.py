@@ -1,0 +1,131 @@
+"""Process group and device mesh (counterpart of
+`f_lite_tpu/parallel/mesh.py`).
+
+JAX runs one process per host, driving all of its chips; PyTorch runs one
+process per GPU, started by `torchrun`, which sets `WORLD_SIZE`, `RANK`,
+`LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT`. A JAX
+process is a port node: `num_nodes = WORLD_SIZE // LOCAL_WORLD_SIZE`,
+`node_rank = RANK // LOCAL_WORLD_SIZE`. Without those variables the world
+is one rank and no process group is formed; under `torchrun` a group is
+formed at every world size, one rank included (NCCL on the card, gloo on
+the CPU, as the caller's device says).
+
+The mesh is `("dp", "fsdp")`: `dp` replicates (the reference's
+inter-node `replicate` axis), `fsdp` shards the parameters (its
+intra-node `shard` axis, `distributed.py:46-100`); both above 1 is HSDP.
+Tensor and pipeline axes are not ported yet (ROADMAP A 12b).
+
+`LOGICAL_RULES`, `SP_RULES`, `mesh_rules` and `use_mesh_rules` have no
+counterpart: PyTorch places each tensor by the module's sharding plan
+(`parallel/sharding.py` `shard_dit`), not by logical axes read while a
+program is traced. Sequence parallelism comes with A 12b.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT")
+
+
+def under_torchrun() -> bool:
+    """Whether `torchrun`'s variables are set."""
+    return all(v in os.environ for v in TORCHRUN_VARS)
+
+
+def launch_info() -> tuple[int, int, int, int]:
+    """(world, rank, local_world, local_rank) from `torchrun`'s variables;
+    (1, 0, 1, 0) without them."""
+    if not under_torchrun():
+        return 1, 0, 1, 0
+    world, rank, local_world, local_rank = (
+        int(os.environ[v]) for v in ("WORLD_SIZE", "RANK", "LOCAL_WORLD_SIZE",
+                                     "LOCAL_RANK"))
+    if local_world < 1 or world % local_world or not 0 <= rank < world \
+            or not 0 <= local_rank < local_world:
+        raise ValueError(f"inconsistent torchrun variables: WORLD_SIZE={world} "
+                         f"RANK={rank} LOCAL_WORLD_SIZE={local_world} "
+                         f"LOCAL_RANK={local_rank}")
+    return world, rank, local_world, local_rank
+
+
+def process_replica_info() -> tuple[int, int]:
+    """(num_nodes, node_rank): the data loader's replicas, one a node, as
+    JAX's `process_replica_info` gives one a host. (1, 0) without
+    `torchrun`."""
+    world, rank, local_world, _ = launch_info()
+    return world // local_world, rank // local_world
+
+
+def init_distributed(device) -> tuple[int, int, int, int]:
+    """Form the process group from `torchrun`'s variables: on `cuda` bind
+    this process to GPU `LOCAL_RANK` and use NCCL, on `cpu` use gloo.
+    Returns (world, rank, local_world, local_rank). Without `torchrun`'s
+    variables it forms no group and returns (1, 0, 1, 0). A group that
+    fails to form raises: no rank carries on alone."""
+    info = launch_info()
+    if not under_torchrun() or dist.is_initialized():
+        return info
+    world, rank, _, local_rank = info
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(local_rank)
+        dist.init_process_group("nccl", world_size=world, rank=rank,
+                                device_id=torch.device("cuda", local_rank))
+    elif device.type == "cpu":
+        dist.init_process_group("gloo", world_size=world, rank=rank)
+    else:
+        raise ValueError(f"no process group for device {device}")
+    return info
+
+
+def host_group():
+    """A group for host-side values (stop flags, counts, barriers): gloo,
+    so that agreeing on a Python value never waits for the device. The
+    default group where it is gloo already (created once per call: call
+    it once and keep it)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(minutes=30))
+
+
+def host_all_reduce(values, op=dist.ReduceOp.SUM, group=None) -> list[float]:
+    """`values` (floats) reduced over `group`'s ranks on the host."""
+    t = torch.tensor(list(values), dtype=torch.float64)
+    dist.all_reduce(t, op=op, group=group)
+    return t.tolist()
+
+
+def resolve_mesh(dp: int, fsdp: int, world: int) -> tuple[int, int]:
+    """(dp, fsdp) for a world of `world` ranks: `fsdp` 0 takes every rank
+    that `dp` leaves. dp x fsdp must equal the world (JAX's
+    `fsdp = args.fsdp or n_dev // dp` may leave chips idle; here a rank
+    left out would have nothing to do)."""
+    if dp < 1 or fsdp < 0:
+        raise ValueError(f"--dp {dp} --fsdp {fsdp}: dp must be >= 1, fsdp >= 0")
+    if fsdp == 0:
+        if world % dp:
+            raise ValueError(f"--dp {dp} does not divide the world of {world} "
+                             "ranks, so --fsdp 0 cannot fill it")
+        fsdp = world // dp
+    if dp * fsdp != world:
+        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} = {dp * fsdp} != {world} "
+                         f"ranks: dp x fsdp must equal WORLD_SIZE ({world})")
+    return dp, fsdp
+
+
+def create_mesh(dp: int = 1, fsdp: int = 1, *, device_type: str):
+    """The `("dp", "fsdp")` device mesh over the process group's ranks
+    (dp outermost: across nodes where it spans them; `fsdp` 0 as in
+    `resolve_mesh`). Tensor and pipeline axes come with ROADMAP A 12b:
+    until then the trainer rejects `--tp` and `--pp` before it gets here."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dp, fsdp = resolve_mesh(dp, fsdp, world)
+    return init_device_mesh(device_type, (dp, fsdp), mesh_dim_names=("dp", "fsdp"))

@@ -18,8 +18,19 @@ Layout and rules are the JAX package's:
   flight, and the next save or `wait_until_finished` drains it (raising
   what the writer raised).
 `timings` lists each save's step, mode, the seconds it waited for the
-write before it (`drain_s`), the seconds the caller was blocked in all and
-the seconds its own write took.
+write before it (`drain_s`), the seconds the caller was blocked in all,
+the seconds its own write took and, of those, the seconds spent gathering
+the tensors whole (`gather_s`).
+
+Across ranks (FSDP2: the tensors are DTensor shards) every rank calls
+`save` with the same names; each tensor is gathered whole, one at a time,
+and rank 0 writes it (a sync save streams: at most one whole tensor is in
+host memory; an async one gathers to rank 0's host memory, then its thread
+writes). `prune` runs on rank 0 with the write, and every rank waits at a
+barrier of `group` for the write in flight before the next save. The
+files are the one-rank files, so a checkpoint resumes at any world size.
+Reading is lazy (`read_entry`): each tensor is read from its file when it
+is taken.
 """
 
 from __future__ import annotations
@@ -29,40 +40,68 @@ import os
 import shutil
 import threading
 import time
+from collections.abc import Mapping
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from f_lite_tpu_torch.utils.safetensors import raw_arrays, save_file
+from f_lite_tpu_torch.parallel.sharding import full_tensor
+from f_lite_tpu_torch.utils.safetensors import order, raw_arrays, writer
 
 TENSORS = "tensors.safetensors"
 META = "meta.json"
 
 
-def _write_entry(path: Path, tensors: dict, meta: dict) -> None:
-    path.mkdir(parents=True, exist_ok=True)
-    save_file(tensors, path / TENSORS)
-    (path / META).write_text(json.dumps(meta, indent=2))
+def _gathered(entries: dict, gather):
+    """(entry, name, `gather(tensor)`) for every tensor of `entries`, in
+    the one order in which every rank gathers them and rank 0 writes
+    them: the entries in turn (the extras, then `state`), each in its
+    file's order."""
+    for entry, tensors in entries.items():
+        for name in order(tensors):
+            yield entry, name, gather(tensors[name])
 
 
-def read_entry(path: Path) -> tuple[dict, dict]:
-    """(meta, {name: CPU tensor}) of a saved entry, in the saved dtypes."""
-    meta = json.loads((path / META).read_text())
-    tensors = {}
-    for name, dt, arr in raw_arrays(path / TENSORS):
+class _Entry(Mapping):
+    """A saved entry's tensors by name, each read into a CPU tensor, in
+    its saved dtype, when it is taken."""
+
+    def __init__(self, path: Path):
+        self._arrays = {name: (dt, arr) for name, dt, arr in raw_arrays(path)}
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        dt, arr = self._arrays[name]
         if dt == "BF16":  # uint16 bits
-            tensors[name] = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
-        else:
-            tensors[name] = torch.from_numpy(np.array(arr))
-    return meta, tensors
+            return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(np.array(arr))
+
+    def __iter__(self):
+        return iter(self._arrays)
+
+    def __len__(self) -> int:
+        return len(self._arrays)
+
+
+def read_entry(path: Path) -> tuple[dict, Mapping]:
+    """(meta, {name: CPU tensor}) of a saved entry, in the saved dtypes;
+    each tensor is read when it is taken."""
+    return json.loads((path / META).read_text()), _Entry(path / TENSORS)
 
 
 class Checkpointer:
-    def __init__(self, output_dir: str | Path, total_limit: int | None = None):
+    def __init__(self, output_dir: str | Path, total_limit: int | None = None, *,
+                 rank: int = 0, group=None):
+        """`rank` writes where it is 0; `group` (a host-side process group,
+        None for one rank) holds every rank at each save until the write
+        before it is done."""
         self.root = Path(output_dir).resolve() / "checkpoints"
         self.root.mkdir(parents=True, exist_ok=True)
         self.total_limit = total_limit
+        self.rank = rank
+        self.group = group
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
         self.timings: list[dict] = []
@@ -89,44 +128,73 @@ class Checkpointer:
         by a thread."""
         t0 = time.perf_counter()
         self.wait_until_finished()
+        if self.group is not None:
+            dist.barrier(group=self.group)
         t1 = time.perf_counter()
         d = self.dir(step)
-        extra = extra or {}
-        timing = {"step": step, "wait": wait, "drain_s": t1 - t0}
+        entries = {**(extra or {}), "state": tensors}  # `state` last
+        timing = {"step": step, "wait": wait, "drain_s": t1 - t0, "gather_s": 0.0}
         self.timings.append(timing)
-        if wait:
-            self._write(d, tensors, meta, sampler_state, extra)
+
+        def gather(t):
+            tic = time.perf_counter()
+            whole = full_tensor(t.detach())
+            timing["gather_s"] += time.perf_counter() - tic
+            return whole
+
+        if wait:  # streamed: one whole tensor at a time on rank 0's host
+            with self._writing(d, entries, meta, sampler_state) as put:
+                for entry, name, whole in _gathered(entries, gather):
+                    if put is not None:
+                        put(entry, name, whole)
             timing["write_s"] = time.perf_counter() - t1
             timing["blocked_s"] = time.perf_counter() - t0
             return d
-        host = {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
-        host_extra = {name: {k: v.detach().to("cpu", copy=True) for k, v in t.items()}
-                      for name, t in extra.items()}
+        host: dict = {entry: {} for entry in entries}
+        for entry, name, whole in _gathered(entries, gather):
+            if self.rank == 0:
+                host[entry][name] = whole.to("cpu", copy=True)
         timing["blocked_s"] = time.perf_counter() - t0
-        self._writer = threading.Thread(
-            target=self._write_async,
-            args=(timing, d, host, meta, sampler_state, host_extra),
-            name=f"checkpoint-{step}", daemon=False)
-        self._writer.start()
+        if self.rank == 0:
+            self._writer = threading.Thread(
+                target=self._write_async, args=(timing, d, host, meta, sampler_state),
+                name=f"checkpoint-{step}", daemon=False)
+            self._writer.start()
         return d
 
-    def _write_async(self, timing: dict, *args) -> None:
+    def _write_async(self, timing: dict, d: Path, host: dict, meta, sampler_state) -> None:
         t0 = time.perf_counter()
         try:
-            self._write(*args)
+            with self._writing(d, host, meta, sampler_state) as put:
+                for entry, name, whole in _gathered(host, lambda t: t):
+                    put(entry, name, whole)
         except Exception as e:  # re-raised by the next drain
             self._error = e
         timing["write_s"] = time.perf_counter() - t0
 
-    def _write(self, d: Path, tensors, meta, sampler_state, extra) -> None:
+    @contextmanager
+    def _writing(self, d: Path, entries: dict, meta, sampler_state):
+        """On rank 0: open each entry's file (`state` under a temporary
+        name) and yield `put(entry, name, whole)`, which writes one whole
+        tensor; then write the metas and the sampler state, commit `state`
+        by its rename and prune. On the other ranks: yield None."""
+        if self.rank != 0:
+            yield None
+            return
         d.mkdir(parents=True, exist_ok=True)
-        for name, t in extra.items():
-            _write_entry(d / name, t, {})
-        if sampler_state is not None:
-            (d / "sampler_state.json").write_text(json.dumps(sampler_state, indent=2))
         tmp = d / f"state.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
-        _write_entry(tmp, tensors, meta)
+        paths = {name: tmp if name == "state" else d / name for name in entries}
+        with ExitStack() as files:
+            puts = {}
+            for name, path in paths.items():
+                path.mkdir(parents=True, exist_ok=True)
+                puts[name] = files.enter_context(writer(entries[name], path / TENSORS))
+            yield lambda entry, name, whole: puts[entry](name, whole)
+        for name, path in paths.items():
+            (path / META).write_text(json.dumps(meta if name == "state" else {}, indent=2))
+        if sampler_state is not None:
+            (d / "sampler_state.json").write_text(json.dumps(sampler_state, indent=2))
         if (d / "state").exists():  # a save at a step saved before
             shutil.rmtree(d / "state")
         os.replace(tmp, d / "state")
@@ -148,12 +216,13 @@ class Checkpointer:
             return self.latest
         return int(Path(str(which)).name)
 
-    def load(self, step: int) -> tuple[dict, dict]:
-        """(meta, tensors) of checkpoint `step`'s state."""
+    def load(self, step: int) -> tuple[dict, Mapping]:
+        """(meta, tensors) of checkpoint `step`'s state, read lazily."""
         return read_entry(self.dir(step) / "state")
 
-    def load_extra(self, step: int, name: str) -> dict | None:
-        """An extra's tensors, None if the checkpoint has none."""
+    def load_extra(self, step: int, name: str) -> Mapping | None:
+        """An extra's tensors (read lazily), None if the checkpoint has
+        none."""
         p = self.dir(step) / name
         return read_entry(p)[1] if p.is_dir() else None
 

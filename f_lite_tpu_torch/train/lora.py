@@ -13,7 +13,12 @@ Training merges inside the step, with autograd: `attach_lora` puts a
 parametrization on each target weight that returns `W + alpha / rank *
 (a @ b)^T` in fp32 (the JAX order: the product in fp32, cast to the
 weight's dtype, then the scaled add) and freezes the DiT, so only the
-factors train. `detach_lora` takes the parametrizations off again.
+factors train. `detach_lora` takes the parametrizations off again. Under
+FSDP2 the parametrization is attached first: `fully_shard` then shards the
+frozen base and the factors with their block, and its all-gather hands the
+parametrization whole tensors inside the block's forward, so the merge is
+the one-card merge; `attached_factors` finds the factors again after
+`fully_shard` has replaced the Parameters with sharded ones.
 """
 
 from __future__ import annotations
@@ -112,6 +117,22 @@ def attach_lora(dit, tree: dict, *, alpha: float, rank: int) -> dict:
     if not trained:
         raise ValueError("LoRA factors matched no layer of the DiT")
     return trained
+
+
+def attached_factors(dit) -> dict:
+    """The factor tree of the Parameters `attach_lora` put on `dit` (as
+    they are now: DTensors under FSDP2)."""
+    found = {}
+    for name, layer in dit.named_modules():
+        parts = name.split(".")
+        if len(parts) == 4 and parts[0] == "blocks" \
+                and parametrize.is_parametrized(layer, "weight"):
+            found[(f"blocks_{parts[1]}", parts[2], parts[3])] = \
+                layer.parametrizations.weight[0]
+    tree: dict = {}
+    for path, merge in sorted(found.items()):
+        _node(tree, path).update(lora_a=merge.lora_a, lora_b=merge.lora_b)
+    return tree
 
 
 def detach_lora(dit) -> None:

@@ -14,10 +14,12 @@ binning (counterpart of `f_lite_tpu/train/loss.py`).
 - per-decile sums and counts of the per-sample losses (bin = min(int(10 t),
   9)).
 `timesteps=`, `noise=` and `token_indices=` replace the random draws
-(tests, parity). The
-random draws come from a `torch.Generator` on the latents' device; they are
-not the JAX package's numbers. Inputs are normalized latents; all
-reductions are fp32.
+(tests, parity), and `draws=` all of them. The random draws
+(`draw_loss_inputs`) come from a `torch.Generator` on the latents' device;
+they are not the JAX package's numbers. Across ranks each rank draws a
+step's values over the global batch, as one rank would, and keeps its rows
+(`LossDraws.rows`); `weight_sum` is then the global batch's weight sum.
+Inputs are normalized latents; all reductions are fp32.
 """
 
 from __future__ import annotations
@@ -28,6 +30,41 @@ import torch
 
 from f_lite_tpu_torch.ops.patching import patchify
 from f_lite_tpu_torch.ops.timesteps import sample_train_timesteps
+
+
+class LossDraws(NamedTuple):
+    drop: torch.Tensor | None           # (B,) bool, caption dropout
+    timesteps: torch.Tensor             # (B,)
+    noise: torch.Tensor                 # (B, h, w, C) fp32
+    token_indices: torch.Tensor | None  # (B, K) int64, sequence dropout
+
+    def rows(self, lo: int, hi: int) -> "LossDraws":
+        """The draws of rows lo..hi-1 of the batch."""
+        return LossDraws(*(None if x is None else x[lo:hi] for x in self))
+
+
+def draw_loss_inputs(generator: torch.Generator | None, shape, device, *,
+                     uncond_prob: float = 0.05, patch_size: int = 2,
+                     token_keep_ratio: float = 1.0, timesteps=None, noise=None,
+                     token_indices=None) -> LossDraws:
+    """A step's draws for a batch of latents of `shape` (B, h, w, C), in
+    `flow_matching_loss`'s order: caption dropout, t, noise, the kept
+    tokens' scores; a value passed in is not drawn."""
+    b, h, w, _ = shape
+    drop = None
+    if uncond_prob > 0:
+        drop = torch.rand(b, generator=generator, device=device) < uncond_prob
+    if timesteps is None:
+        timesteps = sample_train_timesteps(generator, b, h * w)
+    if noise is None:
+        noise = torch.randn(tuple(shape), generator=generator, device=device,
+                            dtype=torch.float32)
+    if token_indices is None and token_keep_ratio < 1.0:
+        n_patches = (h // patch_size) * (w // patch_size)
+        keep = max(1, int(n_patches * token_keep_ratio))
+        scores = torch.rand(b, n_patches, generator=generator, device=device)
+        token_indices = torch.argsort(scores, dim=1)[:, :keep]
+    return LossDraws(drop, timesteps, noise, token_indices)
 
 
 class LossAux(NamedTuple):
@@ -52,33 +89,31 @@ def flow_matching_loss(
     noise: torch.Tensor | None = None,
     token_indices: torch.Tensor | None = None,  # (B, K) int64
     sample_weight: torch.Tensor | None = None,  # (B,) 0/1
+    draws: LossDraws | None = None,
+    weight_sum: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, LossAux]:
-    b, h, w, _ = latents.shape
+    """The loss and its aux. With `weight_sum` the loss is the weighted
+    sum of these rows' losses over `weight_sum` (a larger batch's weight
+    sum; rows weigh 1 without `sample_weight`), so that the ranks' losses
+    add up to the global batch's."""
     device = latents.device
+    if draws is None:
+        draws = draw_loss_inputs(
+            generator, latents.shape, device, uncond_prob=uncond_prob,
+            patch_size=patch_size, token_keep_ratio=token_keep_ratio,
+            timesteps=timesteps, noise=noise, token_indices=token_indices)
+    drop, timesteps, noise, token_indices = draws
 
-    if uncond_prob > 0:
-        drop = torch.rand(b, generator=generator, device=device) < uncond_prob
+    if drop is not None:
         context = torch.where(drop[:, None, None], torch.zeros_like(context),
                               context)
         if context_mask is not None:
             context_mask = context_mask | drop[:, None]
 
-    if timesteps is None:
-        timesteps = sample_train_timesteps(generator, b, h * w)
-    if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=device,
-                            dtype=torch.float32)
-
     t = timesteps.float()[:, None, None, None]
     x = latents.float()
     z_t = x * (1.0 - t) + noise * t
     v_target = x - noise
-
-    if token_indices is None and token_keep_ratio < 1.0:
-        n_patches = (h // patch_size) * (w // patch_size)
-        keep = max(1, int(n_patches * token_keep_ratio))
-        scores = torch.rand(b, n_patches, generator=generator, device=device)
-        token_indices = torch.argsort(scores, dim=1)[:, :keep]
 
     pred = dit(z_t.to(latents.dtype), context, context_mask,
                timesteps.to(latents.dtype), token_indices)
@@ -89,12 +124,13 @@ def flow_matching_loss(
         pred_tok = pred.float()
         targ_tok = torch.take_along_dim(targ_tok, token_indices[..., None], dim=1)
     per_sample = ((targ_tok - pred_tok) ** 2).mean(dim=(1, 2))  # (B,)
-    if sample_weight is None:
+    weight = (torch.ones_like(per_sample) if sample_weight is None
+              else sample_weight.float())
+    if sample_weight is None and weight_sum is None:
         loss = per_sample.mean()
-        weight = torch.ones_like(per_sample)
     else:
-        weight = sample_weight.float()
-        loss = (per_sample * weight).sum() / weight.sum().clamp_min(1.0)
+        total = weight.sum() if weight_sum is None else weight_sum
+        loss = (per_sample * weight).sum() / total.clamp_min(1.0)
 
     bins = torch.clamp((timesteps * 10).to(torch.int64), max=9)
     zeros = torch.zeros(10, device=device, dtype=torch.float32)

@@ -20,6 +20,13 @@ What differs from PyTorch's defaults, and is matched here:
 micro-batch gradients, applied by `opt` on every k-th call. Both keep
 their state in `state_dict()` / `load_state_dict()` (counts as ints,
 moments and the accumulator as tensors), which the checkpoint writes.
+
+Under FSDP2 the parameters and gradients are DTensor shards: the moments
+and the accumulator are shards beside them (`zeros_like`), every update
+runs on the local shards, `global_norm` is the norm of the whole
+gradient, `state_dict()` hands out the DTensors (the checkpoint gathers
+them) and `load_state_dict` takes whole tensors and keeps this rank's
+shard. Each micro-batch's gradients are reduced by FSDP2 as they come.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from f_lite_tpu_torch.parallel.sharding import copy_full_, local
 
 _F32 = np.float32
 
@@ -91,11 +102,37 @@ def build_lr_schedule(name: str, learning_rate: float, *,
     return lambda step: float(joined(int(step)))
 
 
+def _shard_groups(tensors) -> list:
+    """The process groups over which DTensor `tensors` are split (their
+    mesh dims of more than one rank that shard); [] for plain tensors or a
+    mesh of one rank. All must share one mesh and placements."""
+    layouts = {(t.device_mesh, tuple(t.placements)) for t in tensors
+               if isinstance(t, DTensor)}
+    if not layouts:
+        return []
+    if len(layouts) > 1 or any(not isinstance(t, DTensor) for t in tensors):
+        raise ValueError("global_norm needs every tensor on one mesh and placement")
+    mesh, placements = layouts.pop()
+    return [mesh.get_group(d) for d, p in enumerate(placements)
+            if p.is_shard() and mesh.size(d) > 1]
+
+
 @torch.no_grad()
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, fp32 (`optax.global_norm`)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt(sum of squares) over all tensors, fp32 (`optax.global_norm`).
+    DTensor shards give the norm of the whole tensors: the local sum of
+    squares is summed over the ranks that split them (every one of them
+    must call this)."""
+    tensors = list(tensors)
+    norms = torch._foreach_norm([local(t).float() for t in tensors])
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    groups = _shard_groups(tensors)
+    if groups:
+        squares = norm.square()
+        for group in groups:
+            dist.all_reduce(squares, group=group)
+        norm = squares.sqrt()
+    return norm
 
 
 class AdamW:
@@ -125,6 +162,7 @@ class AdamW:
         scalar; nothing here waits for the device)."""
         grads = list(grads)
         norm = global_norm(grads)
+        grads = [local(g) for g in grads]
         if self.max_grad_norm is not None:
             factor = torch.where(norm < self.max_grad_norm,
                                  torch.ones_like(norm),
@@ -135,7 +173,8 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         bc1 = float(_F32(1) - _F32(b1) ** _F32(self.count))
         bc2 = float(_F32(1) - _F32(b2) ** _F32(self.count))
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu in zip(map(local, self.params), grads,
+                                map(local, self.mu), map(local, self.nu)):
             if mu.dtype == g.dtype:
                 mu.mul_(b1).add_(g, alpha=1 - b1)
                 mu_new = mu
@@ -159,7 +198,7 @@ class AdamW:
         self.count = int(state["count"])
         for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
             for t, v in zip(dst, state[key], strict=True):
-                t.copy_(v)
+                copy_full_(t, v)
 
 
 class Accumulate:
@@ -187,7 +226,7 @@ class Accumulate:
         grads = list(grads)
         norm = global_norm(grads)
         n = self.mini_step
-        for acc, g in zip(self.acc, grads):
+        for acc, g in zip(map(local, self.acc), map(local, grads)):
             acc.add_((g - acc) / (n + 1))
         self.mini_step = (n + 1) % self.k
         if self.mini_step == 0:
@@ -204,7 +243,7 @@ class Accumulate:
         self.opt.load_state_dict(state)
         self.mini_step = int(state["mini_step"])
         for t, v in zip(self.acc, state["acc"], strict=True):
-            t.copy_(v)
+            copy_full_(t, v)
 
 
 def build_optimizer(params, *, learning_rate: float = 1e-4,

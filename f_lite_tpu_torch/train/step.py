@@ -7,7 +7,16 @@ what trains: the DiT's, or the LoRA factors of a frozen DiT
 `debug_nans` is the counterpart of `jax_debug_nans`: the step runs under
 `torch.autograd.detect_anomaly()` and raises FloatingPointError at a loss
 or gradient norm that is not finite (or a backward that gives NaN), before
-the update."""
+the update.
+
+Across `world` ranks (FSDP2, which averages the ranks' gradients) each
+rank passes its rows, their draws and the global batch's weight sum: its
+loss is its share of the global loss, scaled by `world` for the backward,
+and the metrics are the global batch's (the loss and the decile sums
+all-reduced; the norm is the whole gradient's). Under `debug_nans` the
+checks read those global values, so every rank stops at the same step;
+anomaly mode stays off there, since it would stop one rank alone in the
+middle of the backward's collectives."""
 
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from f_lite_tpu_torch.train.loss import flow_matching_loss
 from f_lite_tpu_torch.train.optim import Accumulate, AdamW, global_norm
@@ -32,18 +42,23 @@ def train_step(state: TrainState, latents, context, context_mask, *,
                generator: torch.Generator | None = None,
                uncond_prob: float = 0.05, patch_size: int = 2,
                token_keep_ratio: float = 1.0, sample_weight=None,
-               timesteps=None, noise=None, token_indices=None,
+               timesteps=None, noise=None, token_indices=None, draws=None,
+               weight_sum=None, world: int = 1,
                debug_nans: bool = False) -> dict:
     """Run one step in place on `state` and return its metrics as device
     tensors: loss, grad_norm (the global norm of this call's gradients,
     before clipping), bin_sums and bin_counts (per-decile loss sums and
     counts). With `debug_nans` the step is checked (see the module
-    docstring); without it nothing waits for the device."""
+    docstring); without it nothing waits for the device. With `world` > 1
+    (every rank of the default group calls this) `weight_sum` is the
+    global batch's weight sum (its row count without `sample_weight`)."""
     model, opt = state.model, state.optimizer
     n = state.step + 1
+    if world > 1 and weight_sum is None:
+        raise ValueError("a step across ranks needs the global batch's weight_sum")
     for p in opt.params:
         p.grad = None
-    anomaly = (torch.autograd.detect_anomaly() if debug_nans
+    anomaly = (torch.autograd.detect_anomaly() if debug_nans and world == 1
                else contextlib.nullcontext())
     with anomaly:
         loss, aux = flow_matching_loss(
@@ -51,9 +66,19 @@ def train_step(state: TrainState, latents, context, context_mask, *,
             uncond_prob=uncond_prob, patch_size=patch_size,
             token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
             timesteps=timesteps, noise=noise, token_indices=token_indices,
+            draws=draws, weight_sum=weight_sum if world > 1 else None,
         )
+        metrics = {"loss": loss.detach(), "bin_sums": aux.bin_sums,
+                   "bin_counts": aux.bin_counts}
+        if world > 1:
+            packed = torch.cat([loss.detach().reshape(1), aux.bin_sums,
+                                aux.bin_counts])
+            dist.all_reduce(packed)
+            metrics = {"loss": packed[0], "bin_sums": packed[1:11],
+                       "bin_counts": packed[11:]}
+            loss = loss * world
         if debug_nans:
-            _check_finite(loss.detach(), "loss", n)
+            _check_finite(metrics["loss"], "loss", n)
         try:
             loss.backward()
         except RuntimeError as e:
@@ -68,12 +93,7 @@ def train_step(state: TrainState, latents, context, context_mask, *,
     for p in opt.params:
         p.grad = None
     state.step += 1
-    return {
-        "loss": loss.detach(),
-        "grad_norm": grad_norm,
-        "bin_sums": aux.bin_sums,
-        "bin_counts": aux.bin_counts,
-    }
+    return {**metrics, "grad_norm": grad_norm}
 
 
 def _check_finite(value: torch.Tensor, what: str, step: int) -> None:

@@ -39,13 +39,33 @@ Ported:
   finite, before the update).
 Each step's draws come from generators keyed by (seed, step), so a resumed
 run repeats the straight run's. The log lines and the returned dict are the
-JAX trainer's.
+JAX trainer's; on rank 0 every logged step is also a line of
+`{output_dir}/{logging_dir}/metrics.jsonl` (the scalars at full precision,
+the wall clock and, on the card, the kernels' launch counts and the peak
+memory), and the returned dict its last line.
 
-`--scan_layers` and multi-GPU (`--dp`, `--fsdp`, `--tp`,
-`--sequence_parallel`, `--pp`, `--pp_microbatches`, `--multihost`) raise
-"not ported yet" when set to a value that would do something.
-`--train_only_lora` is accepted and unused, as in the JAX trainer. The run
-is on the card (`--device cuda`) unless `--device cpu` is given.
+Across GPUs (`parallel/`): `torchrun --nproc_per_node N -m
+f_lite_tpu_torch.train --dp D --fsdp F ...` (`--fsdp 0`: every rank `--dp`
+leaves; dp x fsdp = WORLD_SIZE; `--multihost` across nodes, `torchrun
+--nnodes M`). The DiT is under FSDP2 (`shard_dit`: HSDP where both are
+above 1) and computes the run that the JAX trainer computes on a (dp,
+fsdp) mesh: each node loads the batch a JAX host loads (the samplers
+strided by node, both paths), each of its ranks keeps its contiguous rows,
+each rank draws the step's values over the global batch and keeps its rows
+(also `--bs_rampup`'s weights, normalized by their global sum), the logged
+loss and deciles are the global batch's, and the gradient norm the whole
+gradient's. Rank 0 logs and writes the files (the checkpoint from whole
+tensors, gathered one at a time, so it resumes at any world size; samples;
+the export; the LoRA factors); every rank joins each collective, and a
+signal to any rank stops all of them at the same step. Under torchrun a
+group is formed at every world size (NCCL on the card, gloo with `--device
+cpu`); without it the run is one rank, unwrapped.
+
+`--scan_layers`, `--tp`, `--sequence_parallel`, `--pp` and
+`--pp_microbatches` raise "not ported yet (ROADMAP A 12b)" when set to a
+value that would do something. `--train_only_lora` is accepted and unused,
+as in the JAX trainer. The run is on the card (`--device cuda`) unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -60,6 +80,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from f_lite_tpu_torch.parallel.mesh import (
+    TORCHRUN_VARS,
+    launch_info,
+    process_replica_info,
+    resolve_mesh,
+    under_torchrun,
+)
+from f_lite_tpu_torch.parallel.sharding import load_full_state_dict, local
 
 logger = logging.getLogger("f_lite_tpu_torch.train")
 
@@ -202,14 +232,42 @@ def parse_args(argv=None):
 # option -> (value that does nothing, what it needs)
 _NOT_PORTED = {
     "scan_layers": (False, "scan-stacked blocks"),
-    "dp": (1, "data parallelism"),
-    "fsdp": (1, "fsdp"),
     "tp": (1, "tensor parallelism"),
     "sequence_parallel": (False, "sequence parallelism"),
     "pp": (1, "pipeline parallelism"),
     "pp_microbatches": (1, "pipeline parallelism"),
-    "multihost": (False, "multihost"),
 }
+
+
+def check_mesh(args) -> None:
+    """Raise SystemExit where the mesh options do not fit the processes
+    `torchrun` started (or did not start), or the batch does not divide
+    over a node's ranks."""
+    world, _, local_world, _ = launch_info()
+    if not under_torchrun():
+        if args.dp > 1 or args.fsdp > 1:
+            raise SystemExit(
+                f"--dp {args.dp} --fsdp {args.fsdp}: a mesh of more than one "
+                "rank runs one process a GPU, under torchrun: torchrun "
+                "--nproc_per_node N -m f_lite_tpu_torch.train ...")
+        if args.multihost:
+            raise SystemExit(
+                "--multihost: the process group forms from torchrun's "
+                f"variables ({', '.join(TORCHRUN_VARS)}), which are not set: "
+                "run under torchrun --nnodes M --nproc_per_node N ...")
+    else:
+        try:
+            resolve_mesh(args.dp, args.fsdp, world)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        if args.multihost and world == local_world:
+            raise SystemExit(f"--multihost: torchrun started one node "
+                             f"({world} ranks); --multihost is for more than one")
+    for name in ("train_batch_size", "eval_batch_size"):
+        b = getattr(args, name)
+        if b % local_world and (name == "train_batch_size" or args.val_data_path):
+            raise SystemExit(f"--{name} {b} does not divide evenly over the "
+                             f"{local_world} ranks of a node (LOCAL_WORLD_SIZE)")
 
 
 def check_ported(args) -> None:
@@ -229,8 +287,9 @@ def check_ported(args) -> None:
             "--sequence_dropout for regularization instead.")
     for name, (inert, what) in _NOT_PORTED.items():
         if getattr(args, name) != inert:
-            raise SystemExit(
-                f"--{name} {getattr(args, name)!r}: {what} is not ported yet")
+            raise SystemExit(f"--{name} {getattr(args, name)!r}: {what} is not "
+                             "ported yet (ROADMAP A 12b)")
+    check_mesh(args)
     if args.use_precomputed_data and not args.precomputed_data_dir:
         raise SystemExit("--use_precomputed_data requires --precomputed_data_dir")
     if not args.use_precomputed_data and not args.train_data_path:
@@ -395,7 +454,8 @@ def build_dataloader(args, batch_size, train=True, sampler_state=None):
     """(loader, sampler) of the online path over `--train_data_path` (or,
     with train=False, `--val_data_path`: no shuffle, no flip), batched in
     aspect buckets with `--use_resolution_buckets`; `sampler_state` resumes
-    inside the saved epoch."""
+    inside the saved epoch. The sampler strides by node
+    (`process_replica_info`)."""
     from f_lite_tpu_torch.data.dataset import ImageDataset
     from f_lite_tpu_torch.data.loader import DataLoader
     from f_lite_tpu_torch.data.samplers import (
@@ -404,6 +464,7 @@ def build_dataloader(args, batch_size, train=True, sampler_state=None):
     )
 
     seed = args.seed or 0
+    num_replicas, rank = process_replica_info()
     ds = ImageDataset(
         args.train_data_path if train else args.val_data_path,
         base_image_dir=args.base_image_dir, image_column=args.image_column,
@@ -412,11 +473,13 @@ def build_dataloader(args, batch_size, train=True, sampler_state=None):
         root_dir_type=args.root_dir_type, base_url=args.base_url,
         debug=args.debug, seed=seed)
     if args.use_resolution_buckets:
-        sampler = ResolutionBucketSampler(ds, batch_size, shuffle=train, seed=seed)
+        sampler = ResolutionBucketSampler(ds, batch_size, num_replicas=num_replicas,
+                                          rank=rank, shuffle=train, seed=seed)
         loader = DataLoader(ds, batch_sampler=sampler, num_workers=args.num_workers,
                             worker_type=args.loader_worker_type)
     else:
-        sampler = StatefulDistributedSampler(ds, batch_size, shuffle=train, seed=seed)
+        sampler = StatefulDistributedSampler(ds, batch_size, num_replicas=num_replicas,
+                                             rank=rank, shuffle=train, seed=seed)
         loader = DataLoader(ds, batch_size=batch_size, sampler=sampler,
                             num_workers=args.num_workers, drop_last=True,
                             worker_type=args.loader_worker_type)
@@ -426,50 +489,66 @@ def build_dataloader(args, batch_size, train=True, sampler_state=None):
 
 
 def encode_batch(batch, vae, text_encoder, *, generator, dtype, device,
-                 batch_multiplicity: int = 1):
+                 batch_multiplicity: int = 1, rows=None):
     """A loader's batch -> (latents (B, h, w, C), context (B, S, Ctx), mask
     (B, S)) on `device`, latents and context in `dtype`. A precomputed
     batch carries its latents and embeddings; an image batch is VAE
-    encoded here (a posterior sample from `generator`, fp32, no autograd)
-    and normalized, and its captions encoded by `text_encoder`. Every row
-    is repeated `batch_multiplicity` times."""
-    from f_lite_tpu_torch.models.vae import normalize_latents
+    encoded here (a posterior sample, fp32, no autograd: the noise drawn
+    from `generator` over the whole batch, as one rank draws it) and
+    normalized, and its captions encoded by `text_encoder` (the whole
+    batch's). The result holds the batch's rows `rows` (a rank's rows,
+    `parallel.sharding.rank_rows`), by default every row repeated
+    `batch_multiplicity` times; each distinct row is encoded once."""
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, normalize_latents
 
+    b = len(batch["caption"])
+    if rows is None:
+        rows = np.tile(np.arange(b), batch_multiplicity)
+    uniq, inverse = np.unique(rows, return_inverse=True)
+    take = torch.from_numpy(inverse).to(device)
     if "vae_latent" in batch:
-        latents = torch.from_numpy(batch["vae_latent"]).to(device, torch.float32)
+        latents = torch.from_numpy(batch["vae_latent"][uniq]).to(device, torch.float32)
         ctx, mask = batch["text_embedding"], batch["text_mask"]
     else:
-        images = torch.from_numpy(batch["image"]).to(device, torch.float32)
+        images = batch["image"]
+        x = torch.from_numpy(images[uniq]).to(device, torch.float32)
+        noise = None
+        if isinstance(vae, AutoencoderKL):
+            sf, c = vae.config.spatial_scale, vae.config.latent_channels
+            noise = torch.randn((b, images.shape[1] // sf, images.shape[2] // sf, c),
+                                generator=generator, device=device)
+            noise = noise[torch.from_numpy(uniq).to(device)]
         with torch.no_grad():
-            latents = normalize_latents(vae.encode(images, generator=generator),
+            latents = normalize_latents(vae.encode(x, generator=generator, noise=noise),
                                         vae.config)
         ctx, mask = text_encoder.encode(batch["caption"])
-    ctx = torch.from_numpy(np.asarray(ctx)).to(device, dtype)
-    mask = torch.from_numpy(np.asarray(mask)).to(device)
-    latents = latents.to(dtype)
-    if batch_multiplicity > 1:
-        reps = batch_multiplicity
-        latents = latents.repeat(reps, 1, 1, 1)
-        ctx = ctx.repeat(reps, 1, 1)
-        mask = mask.repeat(reps, 1)
-    return latents, ctx, mask
+    ctx = torch.from_numpy(np.asarray(ctx)[uniq]).to(device, dtype)
+    mask = torch.from_numpy(np.asarray(mask)[uniq]).to(device)
+    return latents.to(dtype)[take], ctx[take], mask[take]
 
 
 class MetricsLogger:
     """Scalars, the timestep-bin histogram and the sample grid to
     tensorboard (tensorboardX) and / or wandb, as `--report_to` says;
-    each package is imported here, where it is used."""
+    each package is imported here, where it is used; `record` writes a
+    line of `{output_dir}/{logging_dir}/metrics.jsonl`. With
+    `enabled=False` (every rank but 0) it does nothing."""
 
-    def __init__(self, args):
+    def __init__(self, args, enabled: bool = True):
         self.tb = None
+        self.wandb = None
+        self.jsonl = None
+        self.enabled = enabled
+        if not enabled:
+            return
+        log_dir = self.log_dir = Path(args.output_dir) / args.logging_dir
         if args.report_to in ("tensorboard", "all"):
             try:
                 from tensorboardX import SummaryWriter
 
-                self.tb = SummaryWriter(str(Path(args.output_dir) / args.logging_dir))
+                self.tb = SummaryWriter(str(log_dir))
             except ImportError:
                 self.tb = None
-        self.wandb = None
         if args.report_to in ("wandb", "all"):
             try:
                 import wandb
@@ -485,8 +564,8 @@ class MetricsLogger:
             logger.error(
                 "NO metrics backend is active (--report_to %s, tensorboardX"
                 " %savailable, wandb %savailable) — training metrics will "
-                "only appear in stdout logs. Install tensorboardX/wandb or "
-                "pass --report_to none to silence this.",
+                "only appear in stdout logs and metrics.jsonl. Install "
+                "tensorboardX/wandb or pass --report_to none to silence this.",
                 args.report_to,
                 "" if self.tb is not None else "un",
                 "" if self.wandb is not None else "un",
@@ -498,6 +577,17 @@ class MetricsLogger:
                 self.tb.add_scalar(k, float(v), step)
         if self.wandb is not None:
             self.wandb.log(scalars, step=step)
+
+    def record(self, values: dict):
+        """One line of metrics.jsonl (numbers at full precision; the file
+        is opened, for appending, at the first line)."""
+        if not self.enabled:
+            return
+        if self.jsonl is None:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            self.jsonl = open(self.log_dir / "metrics.jsonl", "a")
+        self.jsonl.write(json.dumps(values, default=float) + "\n")
+        self.jsonl.flush()
 
     def log_histogram(self, tag, bin_counts, step):
         """The timestep bins' occupancy: [bin] * count raw samples, as the
@@ -521,6 +611,9 @@ class MetricsLogger:
     def close(self):
         if self.tb is not None:
             self.tb.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
+            self.jsonl = None
 
 
 DEFAULT_SAMPLE_PROMPTS = [
@@ -595,47 +688,78 @@ def sample_images(model, vae, text_encoder, global_step, *, image_size=256,
 class swapped_weights:
     """Within the block, each trained tensor holds `values[name]` (cast to
     its dtype); its own storage is put back on exit, so the tensors, their
-    autograd state and the optimizer are as they were. None: no swap."""
+    autograd state and the optimizer are as they were. None: no swap.
+    A DTensor shard (FSDP2 all-gathers from the shard's own storage) gets
+    the values copied in, and its own copied back."""
 
     def __init__(self, trained: dict, values: dict | None):
         self.trained, self.values, self.saved = trained, values, {}
 
+    @torch.no_grad()
     def __enter__(self):
         if self.values is not None:
             for name, t in self.trained.items():
-                self.saved[name] = t.data
-                t.data = self.values[name].to(t.dtype)
+                if t is not local(t):
+                    self.saved[name] = local(t).clone()
+                    local(t).copy_(local(self.values[name]))
+                else:
+                    self.saved[name] = t.data
+                    t.data = self.values[name].to(t.dtype)
 
+    @torch.no_grad()
     def __exit__(self, *exc):
         for name, data in self.saved.items():
-            self.trained[name].data = data
+            t = self.trained[name]
+            if t is not local(t):
+                local(t).copy_(data)
+            else:
+                t.data = data
         self.saved = {}
 
 
 @torch.no_grad()
 def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
              dtype, device, batch_multiplicity: int = 1, uncond_prob: float,
-             patch_size: int, token_keep_ratio: float = 1.0) -> float | None:
+             patch_size: int, token_keep_ratio: float = 1.0, ranks=(1, 0, 1),
+             group=None) -> float | None:
     """The mean loss over at most 20 validation batches, without
     gradients; batch vi's draws come from the generators of step
     (1 << 30) + global_step * 32 + vi, so no draw of the training run
-    moves. None without a batch."""
-    from f_lite_tpu_torch.train.loss import flow_matching_loss
+    moves. None without a batch. Across `ranks` (world, rank,
+    local_world) each rank takes its rows of each batch and its rows of
+    the global batch's draws, every rank runs the least batch count of
+    all ranks, and the losses and their count are summed over `group` (a
+    host-side group of every rank)."""
+    from f_lite_tpu_torch.parallel.mesh import host_all_reduce
+    from f_lite_tpu_torch.parallel.sharding import rank_rows
+    from f_lite_tpu_torch.train.loss import draw_loss_inputs, flow_matching_loss
 
+    world, rank, local_world = ranks
+    # every rank runs as many wrapped forwards: the least batch count of
+    # the nodes' strides, and at most the reference's 20
+    n = min(len(val_dl), 20)
+    if world > 1:
+        n = int(host_all_reduce([n], dist.ReduceOp.MIN, group)[0])
     losses = []
-    for vi, vbatch in enumerate(val_dl):
+    for vi, vbatch in zip(range(n), val_dl):
         key = (1 << 30) + global_step * 32 + vi
+        rows, lo, n_global = rank_rows(len(vbatch["caption"]), world=world, rank=rank,
+                                       local_world=local_world,
+                                       multiplicity=batch_multiplicity)
         latents, ctx, mask = encode_batch(
             vbatch, vae, text_encoder, generator=encode_generator(device, seed, key),
-            dtype=dtype, device=device, batch_multiplicity=batch_multiplicity)
-        loss, _ = flow_matching_loss(
-            model, latents, ctx, mask, generator=step_generator(device, seed, key),
+            dtype=dtype, device=device, rows=rows)
+        draws = draw_loss_inputs(
+            step_generator(device, seed, key), (n_global, *latents.shape[1:]), device,
             uncond_prob=uncond_prob, patch_size=patch_size,
-            token_keep_ratio=token_keep_ratio)
+            token_keep_ratio=token_keep_ratio).rows(lo, lo + len(rows))
+        loss, _ = flow_matching_loss(model, latents, ctx, mask, draws=draws,
+                                     patch_size=patch_size)
         losses.append(float(loss))
-        if vi >= 19:  # the reference's 20 batches
-            break
-    return sum(losses) / len(losses) if losses else None
+    total, count = sum(losses), len(losses)
+    if world > 1:
+        total, count = host_all_reduce([total, count], group=group)
+    return total / count if count else None
 
 
 def _timed(iterable, clock: dict):
@@ -665,29 +789,30 @@ def state_tensors(trained: dict, opt) -> dict:
     return out
 
 
-def restore_state(trained: dict, opt, tensors: dict, meta: dict) -> None:
-    """Copy a checkpoint's tensors back into the trained tensors and the
-    optimizer (which must have been built with the same options)."""
+def restore_state(trained: dict, opt, tensors, meta: dict) -> None:
+    """Copy a checkpoint's tensors (a mapping of whole tensors, read one
+    at a time) back into the trained tensors and the optimizer (which must
+    have been built with the same options); a sharded tensor keeps its
+    shard."""
     expected = state_tensors(trained, opt)
     if set(tensors) != set(expected):
         raise ValueError(
             "checkpoint does not match this run's trained tensors and "
             f"optimizer: {sorted(set(tensors) ^ set(expected))[:5]}")
-    with torch.no_grad():
-        for name, t in trained.items():
-            t.copy_(tensors[name])
+    load_full_state_dict(trained, tensors)
     state = {"count": meta["count"], "mini_step": meta["mini_step"]}
     for key in ("mu", "nu", "acc"):
         if f"opt.{key}/{next(iter(trained))}" in tensors:
-            state[key] = [tensors[f"opt.{key}/{name}"] for name in trained]
+            state[key] = map(tensors.__getitem__, [f"opt.{key}/{n}" for n in trained])
     opt.load_state_dict(state)
 
 
 @torch.no_grad()
 def ema_update(ema: dict, trained: dict, decay: float) -> None:
-    """e <- (e * d + p * (1 - d)) in fp32, cast back to e's dtype."""
+    """e <- (e * d + p * (1 - d)) in fp32, cast back to e's dtype (on the
+    local shards, under FSDP2)."""
     for name, e in ema.items():
-        p = trained[name].detach()
+        p, e = local(trained[name].detach()), local(e)
         e.copy_((e.float() * decay + p.float() * (1.0 - decay)).to(e.dtype))
 
 
@@ -703,40 +828,67 @@ def _start_profile(device):
     return prof
 
 
-def _stop_profile(prof, device, out_dir: Path, steps) -> Path:
+def _stop_profile(prof, device, out_dir: Path, steps, rank=None) -> Path:
     """End `prof` once the device is idle and write its Chrome trace to
-    `out_dir/steps_{a}_{b}.json`."""
+    `out_dir/steps_{a}_{b}.json` (`steps_{a}_{b}_rank{r}.json` across
+    ranks)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.__exit__(None, None, None)
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / f"steps_{steps[0]}_{steps[1]}.json"
+    suffix = "" if rank is None else f"_rank{rank}"
+    path = out_dir / f"steps_{steps[0]}_{steps[1]}{suffix}.json"
     prof.export_chrome_trace(str(path))
     logger.info("profile of steps %d-%d written to %s", steps[0] + 1, steps[1], path)
     return path
 
 
+def device_stats(device) -> dict:
+    """What metrics.jsonl records of the card at a logged step: the port's
+    kernel launches so far and the peak allocated memory (nothing on the
+    CPU)."""
+    if device.type != "cuda":
+        return {}
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    return {"launches": {"fwd": fa.LAUNCHES.count, "dq": fa.DQ_LAUNCHES.count,
+                         "dkv": fa.DKV_LAUNCHES.count},
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def export_dit(model, cfg, *, ema, lora, lora_alpha, lora_rank, rank: int):
+    """The DiT to export, whole and on the CPU, on rank 0 (None on the
+    others; every rank gathers): the trained weights, the EMA where it is
+    on, the LoRA factors (or their EMA) merged into the frozen base."""
+    from f_lite_tpu_torch.convert.from_jax import unflatten
+    from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.parallel.sharding import full_state_dict
+    from f_lite_tpu_torch.train.lora import apply_lora, flatten_lora
+
+    state = full_state_dict(model)
+    source = ema if ema is not None else (flatten_lora(lora) if lora is not None else {})
+    override = full_state_dict(source)
+    if rank != 0:
+        return None
+    if lora is not None:  # the frozen base, its parametrizations' originals
+        state = {k.replace(".parametrizations.weight.original", ".weight"): v
+                 for k, v in state.items() if "parametrizations.weight.0." not in k}
+    else:
+        state.update({k: v.to(state[k].dtype) for k, v in override.items()})
+    with torch.device("meta"):
+        dit = DiT(cfg)
+    dit.load_state_dict(state, strict=True, assign=True)
+    if lora is not None:
+        apply_lora(dit, unflatten(override), alpha=lora_alpha, rank=lora_rank)
+    return dit
+
+
 def train(args, on_step=None) -> dict:
     """Train as `args` say; `on_step(state, metrics)`, when given, is called
     after every step with the `TrainState` and the step's metrics (device
-    tensors)."""
-    from f_lite_tpu_torch.convert.from_jax import unflatten
-    from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
-    from f_lite_tpu_torch.models.dit import DiT
-    from f_lite_tpu_torch.models.vae import IdentityVAE
-    from f_lite_tpu_torch.pipeline import FLitePipeline
-    from f_lite_tpu_torch.train.checkpoint import Checkpointer
-    from f_lite_tpu_torch.train.lora import (
-        apply_lora,
-        attach_lora,
-        detach_lora,
-        flatten_lora,
-        init_lora_params,
-        load_lora_weights,
-        save_lora_weights,
-    )
-    from f_lite_tpu_torch.train.optim import build_lr_schedule, build_optimizer
-    from f_lite_tpu_torch.train.step import TrainState, train_step
+    tensors). Under torchrun the process group is formed here and
+    destroyed on the way out, on success and on error alike."""
+    from f_lite_tpu_torch.parallel.mesh import init_distributed
     from f_lite_tpu_torch.utils.device import resolve_device
     from f_lite_tpu_torch.utils.env import load_dotenv
 
@@ -744,10 +896,54 @@ def train(args, on_step=None) -> dict:
     load_dotenv()  # S3KEY / S3SECRET and the like, from ./.env
     check_ported(args)
     device = resolve_device(args.device)
+    owned = under_torchrun() and not dist.is_initialized()
+    ranks = init_distributed(device)
+    try:
+        if under_torchrun() and device.type == "cuda":
+            device = torch.device("cuda", ranks[3])
+        return _train(args, on_step, device, ranks, t_start)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, on_step, device, ranks, t_start) -> dict:
+    from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
+    from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.models.vae import IdentityVAE
+    from f_lite_tpu_torch.parallel.mesh import (
+        create_mesh,
+        host_all_reduce,
+        host_group,
+    )
+    from f_lite_tpu_torch.parallel.sharding import (
+        full_state_dict,
+        rank_rows,
+        shard_dit,
+    )
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.train.checkpoint import Checkpointer
+    from f_lite_tpu_torch.train.lora import (
+        attach_lora,
+        attached_factors,
+        flatten_lora,
+        init_lora_params,
+        load_lora_weights,
+        save_lora_weights,
+    )
+    from f_lite_tpu_torch.train.loss import draw_loss_inputs
+    from f_lite_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from f_lite_tpu_torch.train.step import TrainState, train_step
+
+    world, rank, local_world, local_rank = ranks
+    nodes, node_rank = process_replica_info()
+    grouped = dist.is_initialized()
+    dp, fsdp = resolve_mesh(args.dp, args.fsdp, world)
+    host = host_group() if grouped else None
     seed = args.seed or 0
     if args.seed is not None:
         # the global draws: the latent flip, collate's donors, the
-        # placeholders' refresh
+        # placeholders' refresh (the same on every rank)
         random.seed(args.seed)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     k_acc = args.gradient_accumulation_steps
@@ -772,7 +968,12 @@ def train(args, on_step=None) -> dict:
         tree = (load_lora_weights(args.lora_checkpoint) if args.lora_checkpoint
                 else init_lora_params(model, rank=args.lora_rank, targets=targets,
                                       generator=torch.Generator(device).manual_seed(7)))
-        lora = attach_lora(model, tree, alpha=args.lora_alpha, rank=args.lora_rank)
+        attach_lora(model, tree, alpha=args.lora_alpha, rank=args.lora_rank)
+    if grouped:
+        shard_dit(model, create_mesh(dp, fsdp, device_type=device.type))
+    # after fully_shard: its Parameters replace the module's
+    if args.use_lora:
+        lora = attached_factors(model)
         trained = flatten_lora(lora)
     else:
         trained = dict(model.named_parameters())
@@ -787,17 +988,23 @@ def train(args, on_step=None) -> dict:
             return create_precomputed_data_loader(
                 args.precomputed_data_dir, args.train_batch_size, seed=seed,
                 use_buckets=args.use_resolution_buckets,
-                latent_flip=args.random_flip, sampler_state=sampler_state)
+                latent_flip=args.random_flip, sampler_state=sampler_state,
+                num_replicas=nodes, rank=node_rank)
         return build_dataloader(args, args.train_batch_size, train=True,
                                 sampler_state=sampler_state)
 
     dl, sampler = loader()
+    # a whole epoch's batches, the same on every rank: the least that any
+    # node's stride holds (the strides may differ by a batch)
+    epoch_batches = len(dl)
+    if grouped:
+        epoch_batches = int(host_all_reduce([epoch_batches], dist.ReduceOp.MIN, host)[0])
     val_dl = None
     if args.val_data_path:
         val_dl, _ = build_dataloader(args, args.eval_batch_size, train=False)
     # the JAX trainer's count: global_step counts micro-batches, the
     # default max_steps is the epochs' batches / k
-    max_steps = args.max_steps or len(dl) * args.num_epochs // k_acc
+    max_steps = args.max_steps or epoch_batches * args.num_epochs // k_acc
     opt = build_optimizer(
         list(trained.values()), learning_rate=args.learning_rate,
         lr_scheduler=args.lr_scheduler, num_warmup_steps=args.num_warmup_steps,
@@ -812,10 +1019,14 @@ def train(args, on_step=None) -> dict:
     # caption dropout: 0.01 on the precomputed path, as in the JAX trainer
     uncond_prob = 0.01 if args.use_precomputed_data else args.uncond_prob
 
-    ckpt = Checkpointer(args.output_dir, total_limit=args.checkpoints_total_limit)
+    ckpt = Checkpointer(args.output_dir, total_limit=args.checkpoints_total_limit,
+                        rank=rank, group=host)
     global_step = 0
     if args.resume_from_checkpoint:
-        step_no = ckpt.resolve(args.resume_from_checkpoint)
+        step_no = [ckpt.resolve(args.resume_from_checkpoint)]
+        if grouped:  # rank 0's `latest`
+            dist.broadcast_object_list(step_no, src=0, group=host)
+        step_no = step_no[0]
         if step_no is not None:
             meta, tensors = ckpt.load(step_no)
             restore_state(trained, opt, tensors, meta)
@@ -834,8 +1045,7 @@ def train(args, on_step=None) -> dict:
                for name, t in trained.items()}
         restored = ckpt.load_extra(global_step, "ema") if global_step else None
         if restored is not None:
-            for name, e in ema.items():
-                e.copy_(restored[name])
+            load_full_state_dict(ema, restored)
 
     if args.sample_every and hasattr(text_encoder, "has"):
         # a precomputed cache holds its captions' embeddings only: the JAX
@@ -853,15 +1063,27 @@ def train(args, on_step=None) -> dict:
 
     logger.info("device=%s params=%d trained=%d dtype=%s", device, n_params,
                 sum(t.numel() for t in trained.values()), dtype)
+    logger.info("mesh: dp=%d fsdp=%d world=%d nodes=%d", dp, fsdp, world, nodes)
     logger.info("dataset=%d images, %d batches/epoch, max_steps=%d",
-                len(dl.dataset), len(dl), max_steps)
+                len(dl.dataset), epoch_batches, max_steps)
+    # the batches each replica has run in the sampler's epoch (those the
+    # resumed epoch ran before, to begin with)
+    epoch_step = sampler.batches_skipped()
+
+    def sampler_state():
+        """The sampler's JSON at the batches this replica ran in the epoch
+        (JAX's `global_step` arithmetic lands elsewhere after epoch 0
+        under several replicas or an uneven last batch, R4); a finished
+        epoch resumes at the start of the next."""
+        if epoch_step < epoch_batches:
+            return sampler.state_dict(epoch_step)
+        return {**sampler.state_dict(0), "epoch": int(sampler.epoch) + 1}
 
     def save(step, wait=True):
         meta = {"step": step, "epoch": int(sampler.epoch), "count": opt.count,
                 "mini_step": getattr(opt, "mini_step", 0)}
-        return ckpt.save(step, state_tensors(trained, opt), meta,
-                         sampler.state_dict(step), wait=wait,
-                         extra={"ema": ema} if ema is not None else None)
+        return ckpt.save(step, state_tensors(trained, opt), meta, sampler_state(),
+                         wait=wait, extra={"ema": ema} if ema is not None else None)
 
     # finish the step in flight on SIGTERM / SIGINT, checkpoint and stop;
     # the handlers are restored after the loop (a second signal kills)
@@ -881,7 +1103,7 @@ def train(args, on_step=None) -> dict:
         except ValueError:
             prev_handlers = {}  # not the main thread (in-process callers)
 
-    metrics_logger = MetricsLogger(args)
+    metrics_logger = MetricsLogger(args, enabled=rank == 0)
     profile_range = (tuple(int(x) for x in args.profile_steps.split(","))
                      if args.profile_steps else None)
     prof = None
@@ -891,35 +1113,49 @@ def train(args, on_step=None) -> dict:
     result: dict = {}
     stop = False
     # resume continues inside the saved epoch (the sampler's state)
-    for epoch in range(int(sampler.epoch), args.num_epochs):
+    first_epoch = int(sampler.epoch)
+    for epoch in range(first_epoch, args.num_epochs):
+        if epoch > first_epoch:  # a restored offset holds for its own epoch only
+            sampler.reset(0)
+            epoch_step = 0
         sampler.set_epoch(epoch)
         if hasattr(dl.dataset, "set_epoch"):  # fresh flips and caption picks
             dl.dataset.set_epoch(epoch)
         epoch_start = time.time()
         for batch in _timed(dl, loader_wait):
+            if epoch_step >= epoch_batches:  # every rank takes as many steps
+                break
             if profile_range and global_step == profile_range[0]:
                 prof = _start_profile(device)
+            rows, lo, n_global = rank_rows(
+                len(batch["caption"]), world=world, rank=rank,
+                local_world=local_world, multiplicity=args.batch_multiplicity)
             latents, ctx, mask = encode_batch(
                 batch, coder, text_encoder,
                 generator=encode_generator(device, seed, global_step),
-                dtype=dtype, device=device,
-                batch_multiplicity=args.batch_multiplicity)
-            weight = rampup_weights(global_step, latents.shape[0],
-                                    args.bs_rampup, seed)
+                dtype=dtype, device=device, rows=rows)
+            # the step's draws and weights over the global batch; this
+            # rank's rows of them
+            draws = draw_loss_inputs(
+                step_generator(device, seed, global_step),
+                (n_global, *latents.shape[1:]), device, uncond_prob=uncond_prob,
+                patch_size=cfg.patch_size,
+                token_keep_ratio=1.0 - args.sequence_dropout).rows(lo, lo + len(rows))
+            weight = rampup_weights(global_step, n_global, args.bs_rampup, seed)
             metrics = train_step(
-                state, latents, ctx, mask,
-                generator=step_generator(device, seed, global_step),
-                uncond_prob=uncond_prob, patch_size=cfg.patch_size,
-                token_keep_ratio=1.0 - args.sequence_dropout,
+                state, latents, ctx, mask, draws=draws, patch_size=cfg.patch_size,
                 sample_weight=None if weight is None
-                else torch.from_numpy(weight).to(device),
-                debug_nans=args.debug_nans)
+                else torch.from_numpy(weight[lo:lo + len(rows)]).to(device),
+                weight_sum=torch.tensor(
+                    float(n_global if weight is None else weight.sum()), device=device),
+                world=world, debug_nans=args.debug_nans)
             if ema is not None:
                 ema_update(ema, trained, args.ema_decay)
             global_step += 1
+            epoch_step += 1
             if prof is not None and global_step == profile_range[1]:
                 _stop_profile(prof, device, Path(args.output_dir) / "profile",
-                              profile_range)
+                              profile_range, rank if world > 1 else None)
                 prof = None
             if on_step is not None:
                 on_step(state, metrics)
@@ -939,6 +1175,8 @@ def train(args, on_step=None) -> dict:
                     if bc[i] > 0:
                         logs[f"metrics/avg_loss_bin_{i}"] = float(bs[i] / bc[i])
                 metrics_logger.log(logs, global_step)
+                metrics_logger.record({**logs, "step": global_step, "time": time.time(),
+                                       **device_stats(device)})
                 metrics_logger.log_histogram("metrics/diffusion_loss_bin_counts",
                                              bc, global_step)
                 logger.info("step %d loss %.4f lr %.2e grad %.3f",
@@ -953,14 +1191,15 @@ def train(args, on_step=None) -> dict:
                             " (async)" if args.async_checkpoint else "")
             if args.sample_every and global_step % args.sample_every == 0:
                 # from the EMA where it is on (the merged factors under
-                # LoRA), the trained tensors swapped back after
+                # LoRA), the trained tensors swapped back after; every rank
+                # runs the wrapped forward, rank 0 writes
                 with swapped_weights(trained, ema):
                     grid = sample_images(
                         model, coder, text_encoder, global_step,
                         image_size=args.resolution,
                         num_inference_steps=8 if args.debug else 50,
                         prompts_file=args.sample_prompts_file,
-                        output_dir=args.output_dir)
+                        output_dir=args.output_dir if rank == 0 else None)
                 metrics_logger.log_image("samples", grid, global_step)
             if val_dl is not None and args.eval_every \
                     and global_step % args.eval_every == 0:
@@ -969,15 +1208,23 @@ def train(args, on_step=None) -> dict:
                              device=device,
                              batch_multiplicity=args.batch_multiplicity,
                              uncond_prob=uncond_prob, patch_size=cfg.patch_size,
-                             token_keep_ratio=1.0 - args.sequence_dropout)
+                             token_keep_ratio=1.0 - args.sequence_dropout,
+                             ranks=(world, rank, local_world), group=host)
                 if v is not None:
                     metrics_logger.log({"val/loss": v, "val/diffusion_loss": v},
                                        global_step)
+                    metrics_logger.record({"val/loss": v, "step": global_step})
                     logger.info("validation loss: %.4f", v)
                     result["val/loss"] = v
-            if preempt["sig"] is not None:
-                logger.warning("stopping on signal %d at step %d; saving final "
-                               "checkpoint", preempt["sig"], global_step)
+            # a signal to any rank stops every rank here (agreed on the
+            # host, once a step)
+            signalled = preempt["sig"] is not None
+            if grouped:
+                signalled = host_all_reduce([signalled], dist.ReduceOp.MAX, host)[0] > 0
+            if signalled:
+                logger.warning("stopping on signal %s at step %d; saving final "
+                               "checkpoint", preempt["sig"] or "(another rank's)",
+                               global_step)
                 result["preempted_at"] = global_step
                 stop = True
                 break
@@ -987,42 +1234,41 @@ def train(args, on_step=None) -> dict:
         logger.info("epoch %d done in %.1fs", epoch, time.time() - epoch_start)
         if stop:
             break
-        sampler.reset(0)  # a restored offset holds for its own epoch only
 
     for s, h in prev_handlers.items():
         signal.signal(s, h)
     if prof is not None:  # the run ended inside the profiled range
         _stop_profile(prof, device, Path(args.output_dir) / "profile",
-                      profile_range)
-    metrics_logger.close()
+                      profile_range, rank if world > 1 else None)
 
     final_dir = save(global_step)
     result["checkpoints"] = ckpt.timings
     result["loader_wait_s"] = loader_wait["s"]
     if lora is not None:
-        save_lora_weights(lora, final_dir)
-        logger.info("saved LoRA weights to %s", final_dir)
+        factors = full_state_dict(flatten_lora(lora))
+        if rank == 0:
+            save_lora_weights(factors, final_dir)
+            logger.info("saved LoRA weights to %s", final_dir)
 
     if args.export_pipeline:
-        export = ema if ema is not None else trained
-        with torch.no_grad():
-            if lora is not None:
-                detach_lora(model)
-                apply_lora(model, unflatten(export), alpha=args.lora_alpha,
-                           rank=args.lora_rank)
-            elif ema is not None:
-                for name, p in model.named_parameters():
-                    p.copy_(ema[name])
-        export_dir = Path(args.output_dir) / "pipeline"
-        FLitePipeline(model, vae).save_pretrained(export_dir)
-        logger.info("exported pipeline to %s", export_dir)
+        dit = export_dit(model, cfg, ema=ema, lora=lora, lora_alpha=args.lora_alpha,
+                         lora_rank=args.lora_rank, rank=rank)
+        if rank == 0:
+            export_dir = Path(args.output_dir) / "pipeline"
+            FLitePipeline(dit, vae).save_pretrained(export_dir)
+            logger.info("exported pipeline to %s", export_dir)
+    if grouped:  # every rank returns once rank 0 has written
+        dist.barrier(group=host)
     result["global_step"] = global_step
     result["wall_s"] = time.time() - t_start
+    metrics_logger.record({"result": result})
+    metrics_logger.close()
     logger.info("training completed after %d steps (%.1fs)", global_step,
                 result["wall_s"])
     return result
 
 
 def main(argv=None):
-    logging.basicConfig(level=logging.INFO)
+    # one rank's log lines: the others log warnings only
+    logging.basicConfig(level=logging.INFO if launch_info()[1] == 0 else logging.WARNING)
     return train(parse_args(argv))

@@ -8,13 +8,14 @@ BF16 widens exactly to float32 (numpy has no bfloat16). `raw_arrays` yields
 each tensor as a view of a map of the file (BF16 as its uint16 bits), so a
 caller can take one tensor at a time without reading the whole file. The
 writer stores float32 and int8 arrays and float32, bfloat16 and int8
-tensors, in name order.
+tensors, in name order (`order`), one tensor at a time (`writer`).
 """
 
 from __future__ import annotations
 
 import json
 import struct
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Iterator
 
@@ -66,7 +67,7 @@ def _meta(name: str, value) -> tuple[str, list[int], int]:
     """(safetensors dtype, shape, byte count) of one tensor."""
     if isinstance(value, torch.Tensor):
         dt = _WRITE_TORCH.get(value.dtype)
-        itemsize = value.element_size()
+        itemsize = value.dtype.itemsize
     else:
         value = np.asarray(value)
         dt = _WRITE.get(value.dtype)
@@ -89,20 +90,47 @@ def _bytes(value) -> np.ndarray:
     return arr.astype(arr.dtype.newbyteorder("<"), copy=False).view(np.uint8)
 
 
-def save_file(tensors: dict, path: str | Path) -> None:
-    """Write `tensors` ({name: array or tensor}) as one safetensors file,
-    one tensor's bytes in memory at a time."""
+def order(tensors) -> list[str]:
+    """The names of `tensors` in the order a file holds them."""
+    return sorted(tensors)
+
+
+@contextmanager
+def writer(tensors: dict, path: str | Path):
+    """Open `path` for `tensors` ({name: array or tensor}; a DTensor's
+    shape and dtype are its whole tensor's) and write the header; yields
+    `put(name, value)`, which writes one whole value's bytes. Call it once
+    for each name, in `order(tensors)`; a name out of that order raises."""
+    names = order(tensors)
     header: dict = {}
     offset = 0
-    for name in sorted(tensors):
+    for name in names:
         dt, shape, n = _meta(name, tensors[name])
         header[name] = {"dtype": dt, "shape": shape,
                         "data_offsets": [offset, offset + n]}
         offset += n
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    pending = iter(names)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for name in sorted(tensors):
-            f.write(_bytes(tensors[name]))
+
+        def put(name: str, value) -> None:
+            want = next(pending, None)
+            if name != want:
+                raise ValueError(f"{path}: got tensor {name!r} where {want!r} is next")
+            f.write(_bytes(value))
+
+        yield put
+        missing = next(pending, None)
+        if missing is not None:
+            raise ValueError(f"{path}: tensor {missing!r} was never written")
+
+
+def save_file(tensors: dict, path: str | Path) -> None:
+    """Write `tensors` ({name: array or tensor}) as one safetensors file,
+    one tensor's bytes in memory at a time."""
+    with writer(tensors, path) as put:
+        for name in order(tensors):
+            put(name, tensors[name])

@@ -1,7 +1,8 @@
 """The port stands alone: with `jax`, `flax`, `optax` and `f_lite_tpu`
 blocked by an import hook, every module of `f_lite_tpu_torch` (the training
 path's, the text encoders' and the front-ends' included) and
-`chip_smoke.py` import (and do no work at import time); with
+`chip_smoke.py` import (and do no work at import time; the multi-GPU
+`parallel` package among them); with
 `transformers`, `tokenizers` and `safetensors` blocked too, every text
 module imports and the text stacks build, load an HF folder and run; with
 PIL blocked too, the front-ends import and the PNG codec writes and reads.
@@ -67,6 +68,8 @@ FRONTEND_MODULES = ("f_lite_tpu_torch.generate", "f_lite_tpu_torch.serve",
                     "f_lite_tpu_torch.utils.image")
 ONLINE_MODULES = ("f_lite_tpu_torch.data.dataset", "f_lite_tpu_torch.data.loader",
                   "f_lite_tpu_torch.data.image_ops", "f_lite_tpu_torch.utils.env")
+PARALLEL_MODULES = ("f_lite_tpu_torch.parallel", "f_lite_tpu_torch.parallel.mesh",
+                    "f_lite_tpu_torch.parallel.sharding")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -87,7 +90,8 @@ def test_port_imports_without_jax_or_reference_package():
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
     assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES + EXTRAS_MODULES
-               + FRONTEND_MODULES + ONLINE_MODULES) <= set(names.split()), names
+               + FRONTEND_MODULES + ONLINE_MODULES + PARALLEL_MODULES) \
+        <= set(names.split()), names
     n_modules = int(summary.split()[0])
     assert n_modules >= 47, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
