@@ -107,6 +107,17 @@ Phases (any failed check raises and the run exits non-zero):
    /metrics equal to what was sent, and a drain that finishes the request
    in flight and answers 503 to a new one (the fixture has no VAE, so its
    image-to-image request runs in phase 9e);
+8g. the converter CLI (`f_lite_tpu_torch.tools.convert_checkpoint`): the
+   fixture exported with `--export_torch --pt_file` and ingested back from
+   the `.pt` (`--pt --width 256 --head_dim 64`) and from the export
+   (`--hf_dir`): each loaded with `from_pretrained` gives phase 7's images
+   bit for bit with phase 7's launch counts, the conversions launch
+   nothing; `--test_image` on the card (pixel space: latents) finite with
+   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 8
+   (full width; the depth cut stated in the output), seeded, saved
+   natively, `--export_torch --pt_file` and `--pt` back: each direction's
+   host seconds, GB written and GB/s, the re-ingested tensors bit-equal to
+   the saved ones;
 9a. T5-XXL at full width and depth (`T5Config()`: 24 blocks, d_model
    4096, 64 heads x 64, d_ff 10240, gated-gelu), seeded bf16 weights, at
    return_index -8 (blocks 0-16): one prompt of 77 seeded ids padded to
@@ -239,6 +250,17 @@ Phases (any failed check raises and the run exits non-zero):
    s/step, peak GB and idle share (the run's own trace of step 9)
    beside phase 13's, the final full-state checkpoint's gather and write
    seconds beside 13c's sync save;
+13f. the cache builder (`f_lite_tpu_torch.tools.precompute_embeddings`): the
+   first 256 rows of phase 12d's PNG table with a seeded tiny VAE
+   (`--vae_path`), the zero encoder and `--center_crop`, built on the card
+   and with `--device cpu`: the indexes equal, the embeddings bit-equal,
+   every latent within 1e-5 x max |CPU| (fp32, TF32 off, the same CPU-drawn
+   noise), no kernel launched; then phase 13d's 512 px dummy-backed table
+   (64 rows) through the Flux VAE at full width and `ZeroTextEncoder(4096,
+   32)`: s/image split into the VAE encode (CUDA events) and the text
+   encode (host clock), the cache's GB on disk and peak GB; and
+   `f_lite_7b_width_d20_train512` for 10 steps from that cache with phase
+   13's checks, s/step beside phase 13's;
 14. a `{"gpus": N, "multi_rank_checks": "cpu/gloo"}` line (runs of 2 and 4
    ranks are checked on the CPU with gloo: the card's machine has one
    GPU), a `{"kernels": [...]}` line, the script's total seconds, then the
@@ -252,6 +274,7 @@ false or the package is missing.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -1769,20 +1792,22 @@ def disk_gb(path: Path) -> float:
 
 
 def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
-                    label="7b_train") -> dict:
+                    label="7b_train", cache=None) -> dict:
     """The 7B's widths at depth 20, 512 px (64x64x16 latents), batch 4, text
     embeddings of 77 and 128 real rows (padded to 128), bf16 compute over
     fp32 master weights, checkpointing from block 8, AdamW, `steps` steps,
     with `extra` options: finite loss and grad norm, exactly 46 forward, 31
     dq and 31 dkv launches a step, peak memory under 80 GB, a profile of
     one step, and the final checkpoint's seconds and GB (its dir removed
-    after)."""
+    after). `cache`: another precomputed cache to train from."""
     import shutil
 
     import torch
 
     out = tmp / label
     argv = argv_7b(tmp, out, steps, batch, depth) + list(extra)
+    if cache is not None:
+        argv[argv.index("--precomputed_data_dir") + 1] = str(cache)
     expected = launches(**train_7b_launches(depth))
     finite, losses = [], []
 
@@ -2155,6 +2180,190 @@ def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20) ->
     if not res["max_memory_allocated_gb"] < 80:
         raise AssertionError(f"7b fsdp peak {res['max_memory_allocated_gb']} GB")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13f: the cache builder (`python -m f_lite_tpu_torch.tools.precompute_embeddings`)
+# ---------------------------------------------------------------------------
+
+def write_tiny_vae(root: Path, seed=5) -> Path:
+    """A tiny VAE (16 latent channels, scale 2) with seeded weights drawn
+    on the CPU, written as a native `vae/` dir; the dir."""
+    import torch
+
+    from f_lite_tpu_torch.convert.to_jax import vae_state_dict_to_jax
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    root.mkdir(parents=True)
+    vae = AutoencoderKL(VAEConfig.tiny(latent_channels=16))
+    vae.init_weights(torch.Generator().manual_seed(seed))
+    (root / "config.json").write_text(json.dumps(vae.config.to_json_dict()))
+    save_file(vae_state_dict_to_jax(vae.state_dict(), vae.config),
+              root / "flax_params.safetensors")
+    return root
+
+
+def exact_latents(table: Path, vae_dir: Path, batch_size=8, seed=0,
+                  nudge=False) -> list:
+    """The cache builder's latents for `table` (64 px, center crop) in
+    float64 on the CPU: the same images, batches and posterior draws
+    (`posterior_noise`), the VAE's weights widened. `nudge`: every input
+    value moved one fp32 ulp up or down first (seeded signs), to measure
+    how far the input's own rounding moves the encode."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.data.dataset import ImageDataset
+    from f_lite_tpu_torch.data.loader import DataLoader
+    from f_lite_tpu_torch.tools import precompute_embeddings
+    from f_lite_tpu_torch.train.trainer import build_vae
+
+    vae = build_vae(argparse.Namespace(pixel_space=False, vae_path=str(vae_dir)),
+                    "cpu").double()
+    ds = ImageDataset(str(table), resolution=64, center_crop=True,
+                      root_dir_type="json", base_url="file://")
+    out, rs = [], np.random.RandomState(1)
+    for index, batch in enumerate(DataLoader(ds, batch_size=batch_size, num_workers=4)):
+        images = batch["image"]
+        if nudge:
+            images = np.nextafter(images, np.where(rs.rand(*images.shape) < 0.5,
+                                                   -np.inf, np.inf).astype(np.float32))
+        out += list(precompute_embeddings.encode_batch(
+            vae, images, torch.device("cpu"), seed=seed, index=index))
+    return out
+
+
+def cache_builder_parity(tmp: Path, tables: dict) -> dict:
+    """Phase 13f (a): the first 256 rows of phase 12d's PNG table (64 px,
+    `--center_crop`), a seeded tiny VAE (`--vae_path`), the zero encoder:
+    the cache built on the card and with `--device cpu`. The indexes equal,
+    the embeddings bit-equal, no kernel launched; every latent within 1e-5
+    x max |CPU| of the CPU's. Where that bar is missed, the error is
+    printed with its cause: each cache's distance to the same encode in
+    float64, beside how far that encode moves when every input value
+    moves one fp32 ulp (its conditioning); the card must be within 10
+    times that move (a fault gives errors of order 1)."""
+    import numpy as np
+
+    from f_lite_tpu_torch.tools import precompute_embeddings
+
+    table = tmp / "13f_table.json"
+    table.write_text(json.dumps(json.loads(Path(tables["train"]).read_text())[:256]))
+    vae_dir = write_tiny_vae(tmp / "13f_tiny_vae")
+    argv = ["--train_data_path", str(table), "--root_dir_type", "json",
+            "--base_url", "file://", "--resolution", "64", "--center_crop",
+            "--vae_path", str(vae_dir), "--text_encoder_type", "zero",
+            "--cross_attn_input_size", "64"]
+    caches, seconds = {"cuda": tmp / "13f_cache_cuda", "cpu": tmp / "13f_cache_cpu"}, {}
+    reset_counts()
+    for device, cache in caches.items():
+        n, seconds[device] = timed_main(precompute_embeddings.main, argv + [
+            "--output_dir", str(cache), "--device", device])
+        if n != 256:
+            raise AssertionError(f"cache builder ({device}): {n} items, expected 256")
+    counts = read_counts()
+    index = {d: json.loads((c / "precomputed_mapping.json").read_text())
+             for d, c in caches.items()}
+    exact = exact_latents(table, vae_dir)
+    nudged = exact_latents(table, vae_dir, nudge=True)
+    err, to_exact, emb_equal = [], {d: [] for d in (*caches, "ulp_nudge")}, True
+    for e, ref, moved in zip(index["cpu"]["entries"], exact, nudged):
+        lat = {d: np.load(c / "vae_latents" / e["latent_file"]) for d, c in caches.items()}
+        err.append(float(np.abs(lat["cuda"] - lat["cpu"]).max())
+                   / float(np.abs(lat["cpu"]).max()))
+        for d, z in (*lat.items(), ("ulp_nudge", moved)):
+            to_exact[d].append(float(np.abs(z - ref).max()) / float(np.abs(ref).max()))
+        emb_equal &= np.array_equal(
+            np.load(caches["cuda"] / "text_embeddings" / e["embedding_file"]),
+            np.load(caches["cpu"] / "text_embeddings" / e["embedding_file"]))
+    worst = int(np.argmax(err))
+    res = dict(items=256, index_equal=index["cuda"] == index["cpu"],
+               embeddings_bit_equal=bool(emb_equal),
+               max_latent_err_over_max_cpu=err[worst], within_1e_5=err[worst] <= 1e-5,
+               latents_over_1e_5=sum(x > 1e-5 for x in err),
+               median_latent_err_over_max_cpu=float(np.median(err)),
+               max_dist_to_float64={d: max(v) for d, v in to_exact.items()},
+               median_dist_to_float64={d: float(np.median(v)) for d, v in to_exact.items()},
+               card_s=seconds["cuda"], cpu_s=seconds["cpu"], launches=counts)
+    log("cache_builder_parity", json.dumps(res))
+    if not (res["index_equal"] and res["embeddings_bit_equal"]):
+        raise AssertionError(f"cache builder: the card's cache differs from the CPU's: {res}")
+    if counts != launches():
+        raise AssertionError(f"cache builder: launches {counts}")
+    if not res["within_1e_5"]:
+        dist = res["max_dist_to_float64"]
+        med = res["median_dist_to_float64"]
+        log(f"cache_builder_parity: the 1e-5 bar is missed: a card latent is "
+            f"{err[worst]:.3g} x max |CPU| from the CPU's ({res['latents_over_1e_5']} "
+            f"of 256 over it). Cause: the card's fp32 encode (cuDNN's convolutions "
+            f"and the rest) lands farther from the float64 encode than the CPU's "
+            f"(median {med['cuda']:.3g} "
+            f"against {med['cpu']:.3g}, largest {dist['cuda']:.3g} against "
+            f"{dist['cpu']:.3g} x max), and the encode amplifies rounding on these "
+            f"images (flat colours through a seeded VAE): one ulp on every input "
+            f"moves it by up to {dist['ulp_nudge']:.3g} x max")
+        if not dist["cuda"] <= 10 * dist["ulp_nudge"]:
+            raise AssertionError(
+                f"cache builder: the card's latents are {dist['cuda']:.3g} x max from "
+                "the float64 encode, more than 10 times what a one-ulp change of the "
+                f"input moves it ({dist['ulp_nudge']:.3g}): the miss has another cause")
+    return res
+
+
+def run_cache_builder(tmp: Path, tables: dict, phase13: dict, steps=10, batch=4,
+                      depth=20) -> dict:
+    """Phase 13f: (a) `cache_builder_parity`; (b) phase 13d's dummy-backed
+    512 px table (64 rows) through the Flux VAE at full width and
+    `ZeroTextEncoder(4096, 32)`: s/image split into the VAE encode (CUDA
+    events) and the text encode (host clock), the cache's GB on disk, peak
+    GB; then `f_lite_7b_width_d20_train512` (phase 13's arguments) for 10
+    steps from that cache with phase 13's checks (46/31/31 launches a
+    step, under 80 GB), s/step beside phase 13's; its final checkpoint goes
+    to memory where it has room (`memory_tmp`)."""
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiTConfig
+    from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+    from f_lite_tpu_torch.tools import precompute_embeddings
+
+    parity = cache_builder_parity(tmp, tables)
+    cache = tmp / "13f_cache_7b"
+    n_rows = len(json.loads((tmp / "7b_online.json").read_text()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    with EncodeTimer() as enc, Recorded(ZeroTextEncoder, "encode") as text:
+        n, build_s = timed_main(precompute_embeddings.main, [
+            "--train_data_path", str(tmp / "7b_online.json"), "--root_dir_type", "json",
+            "--base_url", "dummy://", "--resolution", "512", "--center_crop",
+            "--vae_path", str(write_flux_vae(tmp / "flux_vae")),
+            "--text_encoder_type", "zero", "--cross_attn_input_size",
+            str(DiTConfig.f_lite_7b().cross_attn_input_size), "--output_dir", str(cache)])
+        torch.cuda.synchronize()
+    encode_ms = enc.ms()
+    full = dict(items=n, batches=len(encode_ms), build_s=build_s,
+                s_per_image=build_s / n,
+                vae_encode_s_per_image=sum(encode_ms) / 1e3 / n,
+                vae_encode_ms_per_batch=encode_ms,
+                text_encode_s_per_image=sum(text.seconds) / n,
+                cache_gb=disk_gb(cache),
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=read_counts())
+    log("cache_builder_7b", json.dumps(full))
+    if n != n_rows or full["launches"] != launches():
+        raise AssertionError(f"cache builder 7B: {n} of {n_rows} items, "
+                             f"launches {full['launches']}")
+    entry = json.loads((cache / "precomputed_mapping.json").read_text())["entries"][0]
+    if entry["latent_shape"] != [64, 64, 16]:
+        raise AssertionError(f"cache builder 7B: latent shape {entry['latent_shape']}")
+    with memory_tmp(1.2 * phase13["final_checkpoint_gb"]) as (root, where):
+        train = run_7b_training(root, steps, batch, depth, (), "7b_train_from_tool_cache",
+                                cache=cache)
+    return dict(parity=parity, full_width=full, train=train, checkpoint_in=where,
+                phase_13_s_per_step=phase13["s_per_step"])
 
 
 # ---------------------------------------------------------------------------
@@ -2865,6 +3074,212 @@ def run_fixture_serve(tmp: Path, steps=30, guidance=6.0) -> dict:
     if drained != dict(new=503, healthz=503, waited=True, in_flight=200,
                        in_flight_equal=True):
         raise AssertionError(f"fixture http: drain gave {drained}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8g: the converter CLI (`python -m f_lite_tpu_torch.tools.convert_checkpoint`)
+# ---------------------------------------------------------------------------
+
+def timed_main(main, argv) -> tuple:
+    """(main(argv), host seconds)."""
+    t0 = time.perf_counter()
+    out = main(argv)
+    return out, time.perf_counter() - t0
+
+
+class Recorded:
+    """Keeps what each call of `owner.name` returns inside the block, and
+    its host seconds."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.values, self.seconds = [], []
+
+    def __enter__(self):
+        fn = self.fn
+
+        def recorded(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            self.values.append(out)
+            return out
+
+        setattr(self.owner, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def memory_tmp(need_gb: float):
+    """A temporary directory in /dev/shm where it holds `need_gb` with room
+    to spare in memory, else in the default temporary directory: the
+    card's machine limits what a run may write to its disk (about 45 GiB,
+    deleted files included), and the 7B training phases' checkpoints
+    already write most of it.
+    Yields (path, "tmpfs" or "disk")."""
+    import contextlib
+    import os
+    import shutil
+
+    shm = Path("/dev/shm")
+    avail_gb = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
+    in_memory = (shm.is_dir() and os.access(shm, os.W_OK)
+                 and min(shutil.disk_usage(shm).free / 1e9, avail_gb) > 1.5 * need_gb)
+
+    @contextlib.contextmanager
+    def scope():
+        with tempfile.TemporaryDirectory(dir=shm if in_memory else None) as d:
+            yield Path(d), "tmpfs" if in_memory else "disk"
+
+    return scope()
+
+
+def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
+                        guidance=6.0) -> dict:
+    """Phase 8g (a): the fixture through the converter CLI: `--export_torch
+    --pt_file`, then `--pt` of the `.pt` (`--width 256 --head_dim 64`, with
+    `--test_image`) and `--hf_dir` of the export. Each ingested dir gives
+    phase 7's images bit for bit with phase 7's launch counts; the
+    conversions launch no kernel; `--test_image` (pixel space: latents, 4
+    steps) is finite with 4 * 12 forward launches. Host seconds printed."""
+    import numpy as np
+    import torch
+
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.tools import convert_checkpoint
+
+    pt = tmp / "fixture_export.pt"
+    reset_counts()
+    export, export_s = timed_main(convert_checkpoint.main, [
+        "--export_torch", str(FIXTURE), "--output_dir", str(tmp / "fixture_export"),
+        "--pt_file", str(pt)])
+    res = dict(export_s=export_s, export_launches=read_counts())
+    cfg = fixture_config()
+    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+    with Recorded(FLitePipeline, "__call__") as rendered:
+        reset_counts()
+        from_pt, pt_s = timed_main(convert_checkpoint.main, [
+            "--pt", str(pt), "--width", "256", "--head_dim", "64",
+            "--output_dir", str(tmp / "fixture_from_pt"), "--test_image"])
+        torch.cuda.synchronize()
+        test_counts = read_counts()
+    latents = rendered.values[0].images
+    res["test_image"] = dict(shape=list(latents.shape),
+                             finite=bool(torch.isfinite(latents.float()).all()),
+                             launches=test_counts,
+                             expected_launches=launches(fwd=4 * n_blocks),
+                             pt_ingest_and_render_s=pt_s)
+    reset_counts()
+    from_hf, hf_s = timed_main(convert_checkpoint.main, [
+        "--hf_dir", str(export), "--output_dir", str(tmp / "fixture_from_hf")])
+    res["hf_dir_ingest_s"] = hf_s
+    res["hf_dir_ingest_launches"] = read_counts()
+    for name, path in (("pt", from_pt), ("hf_dir", from_hf)):
+        pipe, embeds, mask, classes, n_blocks = load_fixture(path=path)
+        expected = n_requests * steps * n_blocks
+        reset_counts()
+        images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
+                                     context_mask=mask, num_inference_steps=steps,
+                                     guidance_scale=guidance)
+        counts = read_counts()
+        res[name] = dict(launches=counts, expected_launches=expected,
+                         both_acc=both_acc(images, classes),
+                         equal_to_phase_7=bool(np.array_equal(images, full_images)))
+        del pipe
+        torch.cuda.empty_cache()
+    log("fixture_convert", json.dumps(res))
+    for name in ("export_launches", "hf_dir_ingest_launches"):
+        if res[name] != launches():
+            raise AssertionError(f"fixture convert: {name} {res[name]}")
+    test = res["test_image"]
+    if test["launches"] != test["expected_launches"] or not test["finite"] \
+            or test["shape"] != [1, 256, 256, 3]:
+        raise AssertionError(f"fixture convert --test_image: {test}")
+    for name in ("pt", "hf_dir"):
+        if res[name]["launches"] != launches(fwd=res[name]["expected_launches"]):
+            raise AssertionError(f"fixture convert {name}: launches {res[name]['launches']}")
+        if not res[name]["equal_to_phase_7"]:
+            raise AssertionError(f"fixture convert {name}: images differ from phase 7's")
+    return res
+
+
+def run_7b_convert(tmp: Path, depth=8, device="cuda") -> dict:
+    """Phase 8g (b): `DiTConfig.f_lite_7b()` at depth 8 (full width, the
+    depth cut to fit the script's time), seeded weights saved natively,
+    then `--export_torch --pt_file` and `--pt` of the `.pt` back: each
+    direction's host seconds, GB written and GB/s; the re-ingested DiT's
+    tensors bit-equal to the saved ones; no kernel launched. The files go
+    to memory where it has room (`memory_tmp`; where they went is
+    printed), else to `tmp`'s disk, whose free space is checked first.
+    The weights are drawn on `device`."""
+    import shutil
+
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+
+    cfg = DiTConfig.f_lite_7b(depth=depth)
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in DiT(cfg).parameters())
+    need_gb = 4 * n_params * 4 / 1e9  # native, export, .pt, re-ingested
+    with memory_tmp(need_gb) as (root, where):
+        free_gb = shutil.disk_usage(root).free / 1e9
+        log("7b_convert_disk", json.dumps(dict(params=n_params, need_gb=need_gb,
+                                               free_gb=free_gb, where=where)))
+        if where == "disk" and free_gb < need_gb * 1.1:
+            raise AssertionError(f"7B convert: {free_gb:.1f} GB free, {need_gb:.1f} needed")
+        return convert_7b_in(root, where, cfg, device)
+
+
+def convert_7b_in(root: Path, where: str, cfg, device) -> dict:
+    """`run_7b_convert`'s DiT and conversions, its files under `root`."""
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.tools import convert_checkpoint
+    from f_lite_tpu_torch.utils.random_weights import randomize_
+    from f_lite_tpu_torch.utils.safetensors import load_file
+
+    with torch.device(device):
+        dit = DiT(cfg)
+    randomize_(dit, seed=6)
+    n_params = sum(p.numel() for p in dit.parameters())
+    src, pt = root / "7b_d8", root / "7b_d8.pt"
+    t0 = time.perf_counter()
+    FLitePipeline(dit).save_pretrained(src)
+    save_s = time.perf_counter() - t0
+    del dit
+    torch.cuda.empty_cache()
+    reset_counts()
+    export, export_s = timed_main(convert_checkpoint.main, [
+        "--export_torch", str(src), "--output_dir", str(root / "7b_d8_hf"),
+        "--pt_file", str(pt)])
+    export_gb = disk_gb(export) + pt.stat().st_size / 1e9
+    back, ingest_s = timed_main(convert_checkpoint.main, [
+        "--pt", str(pt), "--width", str(cfg.hidden_size), "--head_dim",
+        str(cfg.head_dim), "--output_dir", str(root / "7b_d8_back")])
+    ingest_gb = disk_gb(back)
+    counts = read_counts()
+    a = load_file(src / "dit" / "flax_params.safetensors")
+    b = load_file(back / "dit" / "flax_params.safetensors")
+    equal = a.keys() == b.keys() and all(a[k].dtype == b[k].dtype
+                                         and a[k].tobytes() == b[k].tobytes() for k in a)
+    res = dict(config=f"f_lite_7b at depth {cfg.depth} (full width; depth cut from 40)",
+               params=n_params, files_in=where, save_native_s=save_s,
+               export=dict(s=export_s, gb_written=export_gb, gb_per_s=export_gb / export_s),
+               ingest=dict(s=ingest_s, gb_written=ingest_gb, gb_per_s=ingest_gb / ingest_s),
+               tensors=len(a), bit_equal=equal, launches=counts)
+    del a, b
+    log("7b_convert", json.dumps(res))
+    if not equal:
+        raise AssertionError("7B convert: the re-ingested DiT differs from the saved one")
+    if counts != launches():
+        raise AssertionError(f"7B convert: launches {counts}")
     return res
 
 
@@ -3646,6 +4061,8 @@ def main() -> int:
         fixture_saved = phase(run_fixture_save_ingest, full_images, Path(tmp))
         fixture_generate = phase(run_fixture_generate, Path(tmp))
         fixture_serve = phase(run_fixture_serve, Path(tmp))
+        fixture_convert = phase(run_fixture_convert, full_images, Path(tmp))
+        convert_7b = phase(run_7b_convert, Path(tmp))
     qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
     t5_res, t5_stack = phase(run_text_tower, "t5")
     pipe = build_7b_pipe()
@@ -3687,6 +4104,8 @@ def main() -> int:
         checkpoint_7b = phase(run_7b_checkpoint, Path(tmp))
         train_7b_online = phase(run_7b_online, Path(tmp), train_7b)
         fsdp_7b = phase(run_7b_fsdp, Path(tmp), train_7b, checkpoint_7b)
+        cache_builder = phase(run_cache_builder, Path(tmp), fixture_online["tables"],
+                              train_7b)
     log("7b_train_options", json.dumps({
         r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
             "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
@@ -3740,6 +4159,11 @@ def main() -> int:
             "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
         launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"]["fwd"],
                        "per_7b_step": fsdp_7b["per_step_launches"]["fwd"]},
+        launches_tools={"fixture_converted_pt": fixture_convert["pt"]["launches"]["fwd"],
+                        "fixture_converted_hf_dir": fixture_convert["hf_dir"]["launches"]["fwd"],
+                        "test_image": fixture_convert["test_image"]["launches"]["fwd"],
+                        "per_7b_step_from_tool_cache":
+                            cache_builder["train"]["per_step"]["fwd"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_err_over_tolerance=max(r["max_abs_err"] / r["tolerance"] for r in rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -3778,6 +4202,8 @@ def main() -> int:
                 "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
             launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"][which],
                            "per_7b_step": fsdp_7b["per_step_launches"][which]},
+            launches_tools={"per_7b_step_from_tool_cache":
+                            cache_builder["train"]["per_step"][which]},
             max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
             max_err_over_tolerance=max(r["max_abs_err"][gname] / r["tolerance"][gname]
                                        for r in bwd_rows for gname in grads),
@@ -3815,11 +4241,14 @@ def main() -> int:
             fixture_generate["bf16"]["launches"], fixture_generate["int8"]["launches"],
             fixture_serve["batch"]["launches"], fixture_serve["http"]["launches"],
             big_http["request"]["launches"], big_http["img2img"]["launches"],
-            big_http["cancel"]["launches"])),
+            big_http["cancel"]["launches"], fixture_convert["pt"]["launches"],
+            fixture_convert["hf_dir"]["launches"],
+            fixture_convert["test_image"]["launches"])),
         launches_training=sum(r["launches"]["variants"] for r in (
             fixture_train, fixture_finetune, train_7b, train_7b_dots, train_7b_seqdrop,
             train_7b_lora, fixture_online, fixture_online_resume, fixture_buckets,
-            train_7b_online)) + fixture_resume["launches_straight"]["variants"]
+            train_7b_online, cache_builder["train"]))
+        + fixture_resume["launches_straight"]["variants"]
         + fixture_resume["launches_resumed"]["variants"],
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
         max_err_over_tolerance=max(r["max_err_over_tolerance"] for r in variant_rows),
@@ -3948,7 +4377,26 @@ def main() -> int:
                             "losses_equal_phase_13", "s_per_step", "phase_13_s_per_step",
                             "max_memory_allocated_gb",
                             "phase_13_max_memory_allocated_gb", "idle_share",
-                            "phase_13_idle_share", "final_save", "phase_13c_sync_save")}}}))
+                            "phase_13_idle_share", "final_save", "phase_13c_sync_save")}},
+                    "tools": {
+                        "fixture_convert": {k: fixture_convert[k] for k in (
+                            "export_s", "hf_dir_ingest_s")}
+                        | {"pt_ingest_and_test_image_s":
+                           fixture_convert["test_image"]["pt_ingest_and_render_s"],
+                           "bit_equal_to_phase_7": [fixture_convert[k]["equal_to_phase_7"]
+                                                    for k in ("pt", "hf_dir")]},
+                        "convert_7b_d8": {k: convert_7b[k] for k in (
+                            "config", "params", "export", "ingest", "bit_equal")},
+                        "cache_builder_parity": cache_builder["parity"],
+                        "cache_builder_7b": {k: cache_builder["full_width"][k] for k in (
+                            "s_per_image", "vae_encode_s_per_image",
+                            "text_encode_s_per_image", "cache_gb",
+                            "max_memory_allocated_gb")},
+                        "train_7b_from_tool_cache": {
+                            "s_per_step": cache_builder["train"]["s_per_step"],
+                            "phase_13_s_per_step": cache_builder["phase_13_s_per_step"],
+                            "max_memory_allocated_gb":
+                                cache_builder["train"]["max_memory_allocated_gb"]}}}))
     log(f"chip_smoke total: {time.perf_counter() - t_total:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {

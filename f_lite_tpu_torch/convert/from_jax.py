@@ -23,6 +23,10 @@ them (e.g. `blocks_3.self_attn.qkv.kernel`), as numpy arrays. Layouts:
   those layouts (a padded head's scale is 1 and its w8 zero).
 Every step is a transpose, reshape, slice of zeros or unstacking, so the
 conversion is exact.
+
+`reference_dit_config` / `reference_vae_config` are the own copies of the
+reference `config.json` fields of `jax_to_torch.py` that an export to the
+reference's layout writes beside those state dicts.
 """
 
 from __future__ import annotations
@@ -319,3 +323,60 @@ def qwen2_state_dict_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
         for name in ("gate_proj", "up_proj", "down_proj"):
             _dense(layer[name], f"{base}.mlp.{name}", sd)
     return _to_torch(sd)
+
+
+def reference_dit_config(config) -> dict:
+    """The reference DiT's constructor args / diffusers `config.json`
+    fields for this architecture (`model.py:419-433`, `pt.py:85-95`); the
+    fields past v1 only where they differ from v1's defaults, so a v1
+    export matches the reference's layout and a v2 one re-ingests as
+    itself."""
+    out = {
+        "_class_name": "DiT",
+        "in_channels": config.in_channels,
+        "patch_size": config.patch_size,
+        "hidden_size": config.hidden_size,
+        "depth": config.depth,
+        "num_heads": config.num_heads,
+        "mlp_ratio": config.mlp_ratio,
+        "cross_attn_input_size": config.cross_attn_input_size,
+        "train_bias_and_rms": config.train_bias_and_rms,
+        "use_rope": config.use_rope,
+        "rope_base": config.rope_base,
+        "dynamic_softmax_temperature": config.dynamic_softmax_temperature,
+        "residual_v": config.residual_v,
+        "gradient_checkpoint": False,
+    }
+    if config.adaln_mode != "shared":
+        out["adaln_mode"] = config.adaln_mode
+    if config.cross_attn_all:
+        out["cross_attn_all"] = True
+    if config.cross_attn_first_n != 8:
+        out["cross_attn_first_n"] = config.cross_attn_first_n
+    if config.cross_attn_period != 4:
+        out["cross_attn_period"] = config.cross_attn_period
+    return out
+
+
+def reference_vae_config(config) -> dict:
+    """diffusers AutoencoderKL `config.json` for the Flux-Schnell VAE shape
+    (the fields `pt.py:143-145` and the VAE depend on)."""
+    n = len(config.block_out_channels)
+    return {
+        "_class_name": "AutoencoderKL",
+        "in_channels": 3,
+        "out_channels": 3,
+        "down_block_types": ["DownEncoderBlock2D"] * n,
+        "up_block_types": ["UpDecoderBlock2D"] * n,
+        "block_out_channels": list(config.block_out_channels),
+        "layers_per_block": config.layers_per_block,
+        "act_fn": "silu",
+        "latent_channels": config.latent_channels,
+        "norm_num_groups": config.norm_num_groups,
+        "sample_size": 1024,
+        "scaling_factor": config.scaling_factor,
+        "shift_factor": config.shift_factor,
+        "mid_block_add_attention": config.mid_block_add_attention,
+        "use_quant_conv": False,
+        "use_post_quant_conv": False,
+    }

@@ -1,7 +1,8 @@
 """Data-parallel and FSDP training across GPUs (counterpart of
 `f_lite_tpu/parallel/`): the process group and mesh (`mesh.py`), FSDP2
 sharding of the DiT and the batch and state across ranks (`sharding.py`).
-`pipeline.py` (`--pp`) and tensor parallelism wait for ROADMAP A 12b."""
+Tensor parallelism waits for ROADMAP A 12b, `pipeline.py` (`--pp`) for
+A 12c."""
 
 from f_lite_tpu_torch.parallel.mesh import (
     create_mesh,

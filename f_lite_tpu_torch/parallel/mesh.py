@@ -13,7 +13,7 @@ the CPU, as the caller's device says).
 The mesh is `("dp", "fsdp")`: `dp` replicates (the reference's
 inter-node `replicate` axis), `fsdp` shards the parameters (its
 intra-node `shard` axis, `distributed.py:46-100`); both above 1 is HSDP.
-Tensor and pipeline axes are not ported yet (ROADMAP A 12b).
+Tensor and pipeline axes are not ported yet (ROADMAP A 12b, A 12c).
 
 `LOGICAL_RULES`, `SP_RULES`, `mesh_rules` and `use_mesh_rules` have no
 counterpart: PyTorch places each tensor by the module's sharding plan
@@ -122,8 +122,9 @@ def resolve_mesh(dp: int, fsdp: int, world: int) -> tuple[int, int]:
 def create_mesh(dp: int = 1, fsdp: int = 1, *, device_type: str):
     """The `("dp", "fsdp")` device mesh over the process group's ranks
     (dp outermost: across nodes where it spans them; `fsdp` 0 as in
-    `resolve_mesh`). Tensor and pipeline axes come with ROADMAP A 12b:
-    until then the trainer rejects `--tp` and `--pp` before it gets here."""
+    `resolve_mesh`). Tensor and pipeline axes come with ROADMAP A 12b and
+    A 12c: until then the trainer rejects `--tp` and `--pp` before it gets
+    here."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1

@@ -243,8 +243,8 @@ def main(argv=None):
                 raise SystemExit(
                     f"{len(missing)} caption(s) not in the precompute "
                     f"cache {args.precomputed_dir} (first: "
-                    f"{missing[0]!r}) — run tools/precompute_embeddings"
-                    ".py on them first"
+                    f"{missing[0]!r}) — run python -m f_lite_tpu_torch."
+                    "tools.precompute_embeddings on them first"
                 )
 
     pipe = build_pipeline(args)

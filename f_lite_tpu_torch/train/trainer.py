@@ -61,9 +61,9 @@ signal to any rank stops all of them at the same step. Under torchrun a
 group is formed at every world size (NCCL on the card, gloo with `--device
 cpu`); without it the run is one rank, unwrapped.
 
-`--scan_layers`, `--tp`, `--sequence_parallel`, `--pp` and
-`--pp_microbatches` raise "not ported yet (ROADMAP A 12b)" when set to a
-value that would do something. `--train_only_lora` is accepted and unused,
+`--tp` and `--sequence_parallel` raise "not ported yet (ROADMAP A 12b)",
+and `--pp`, `--pp_microbatches` and `--scan_layers` "not ported yet
+(ROADMAP A 12c)", when set to a value that would do something. `--train_only_lora` is accepted and unused,
 as in the JAX trainer. The run is on the card (`--device cuda`) unless
 `--device cpu` is given.
 """
@@ -230,12 +230,13 @@ def parse_args(argv=None):
 
 
 # option -> (value that does nothing, what it needs)
+# option: (its inert value, what it turns on, the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "scan_layers": (False, "scan-stacked blocks"),
-    "tp": (1, "tensor parallelism"),
-    "sequence_parallel": (False, "sequence parallelism"),
-    "pp": (1, "pipeline parallelism"),
-    "pp_microbatches": (1, "pipeline parallelism"),
+    "scan_layers": (False, "scan-stacked blocks", "A 12c"),
+    "tp": (1, "tensor parallelism", "A 12b"),
+    "sequence_parallel": (False, "sequence parallelism", "A 12b"),
+    "pp": (1, "pipeline parallelism", "A 12c"),
+    "pp_microbatches": (1, "pipeline parallelism", "A 12c"),
 }
 
 
@@ -285,10 +286,10 @@ def check_ported(args) -> None:
             "cannot express per-sample branch-input dropout. The "
             "reference default is 0.0; use --uncond_prob / "
             "--sequence_dropout for regularization instead.")
-    for name, (inert, what) in _NOT_PORTED.items():
+    for name, (inert, what, item) in _NOT_PORTED.items():
         if getattr(args, name) != inert:
             raise SystemExit(f"--{name} {getattr(args, name)!r}: {what} is not "
-                             "ported yet (ROADMAP A 12b)")
+                             f"ported yet (ROADMAP {item})")
     check_mesh(args)
     if args.use_precomputed_data and not args.precomputed_data_dir:
         raise SystemExit("--use_precomputed_data requires --precomputed_data_dir")

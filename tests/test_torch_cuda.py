@@ -746,3 +746,54 @@ def test_lora_merge_and_save_on_the_card_match_the_cpu(cuda_device, tmp_path):
                                           device="cpu").dit.state_dict()
     for key, w in got.items():
         assert torch.equal(again[key], w.cpu()), key
+
+
+@pytest.mark.cuda
+def test_cache_builder_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """`tools.precompute_embeddings` on a 16-row PNG table (a seeded tiny
+    VAE as a native `vae/` dir, the zero encoder): the card's cache has the
+    CPU's index and embeddings bit for bit, and every latent within 1e-5 x
+    max |CPU| (the same CPU-drawn posterior noise, fp32, TF32 off)."""
+    import json
+
+    from f_lite_tpu_torch.convert.to_jax import vae_state_dict_to_jax
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from f_lite_tpu_torch.tools import precompute_embeddings
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
+    from f_lite_tpu_torch.utils.safetensors import save_file
+
+    rs = np.random.RandomState(0)
+    rows = []
+    for i in range(16):
+        f = tmp_path / f"{i}.png"
+        f.write_bytes(png_bytes_with_metadata(rs.randint(0, 256, (64, 64, 3))
+                                              .astype(np.uint8)))
+        rows.append({"media_path": str(f), "captions": [f"caption {i % 5}"],
+                     "width": 64, "height": 64})
+    (tmp_path / "t.json").write_text(json.dumps(rows))
+    vae = AutoencoderKL(VAEConfig.tiny(latent_channels=16))
+    vae.init_weights(torch.Generator().manual_seed(2))
+    (tmp_path / "vae").mkdir()
+    (tmp_path / "vae" / "config.json").write_text(json.dumps(vae.config.to_json_dict()))
+    save_file(vae_state_dict_to_jax(vae.state_dict(), vae.config),
+              tmp_path / "vae" / "flax_params.safetensors")
+    argv = ["--train_data_path", str(tmp_path / "t.json"), "--root_dir_type", "json",
+            "--base_url", "file://", "--resolution", "64", "--center_crop",
+            "--vae_path", str(tmp_path / "vae"), "--batch_size", "6",
+            "--cross_attn_input_size", "64"]
+    caches = {}
+    for device in ("cuda", "cpu"):
+        caches[device] = tmp_path / device
+        assert precompute_embeddings.main(
+            argv + ["--output_dir", str(caches[device]), "--device", device]) == 16
+    index = {d: json.loads((c / "precomputed_mapping.json").read_text())
+             for d, c in caches.items()}
+    assert index["cuda"] == index["cpu"]
+    for e in index["cpu"]["entries"]:
+        want = np.load(caches["cpu"] / "vae_latents" / e["latent_file"])
+        got = np.load(caches["cuda"] / "vae_latents" / e["latent_file"])
+        assert got.shape == want.shape == (32, 32, 16)
+        assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+        np.testing.assert_array_equal(
+            np.load(caches["cuda"] / "text_embeddings" / e["embedding_file"]),
+            np.load(caches["cpu"] / "text_embeddings" / e["embedding_file"]))

@@ -70,6 +70,8 @@ ONLINE_MODULES = ("f_lite_tpu_torch.data.dataset", "f_lite_tpu_torch.data.loader
                   "f_lite_tpu_torch.data.image_ops", "f_lite_tpu_torch.utils.env")
 PARALLEL_MODULES = ("f_lite_tpu_torch.parallel", "f_lite_tpu_torch.parallel.mesh",
                     "f_lite_tpu_torch.parallel.sharding")
+TOOL_MODULES = ("f_lite_tpu_torch.tools.precompute_embeddings",
+                "f_lite_tpu_torch.tools.convert_checkpoint")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -90,10 +92,10 @@ def test_port_imports_without_jax_or_reference_package():
     assert out.returncode == 0, out.stderr
     names, summary = out.stdout.strip().splitlines()[-2:]
     assert set(TRAINING_MODULES + LAB_MODULES + TEXT_MODULES + EXTRAS_MODULES
-               + FRONTEND_MODULES + ONLINE_MODULES + PARALLEL_MODULES) \
-        <= set(names.split()), names
+               + FRONTEND_MODULES + ONLINE_MODULES + PARALLEL_MODULES
+               + TOOL_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 47, out.stdout
+    assert n_modules >= 49, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -426,6 +428,84 @@ def test_frontends_and_png_codec_without_pil():
     assert out.stdout.strip().endswith("ok"), out.stdout
 
 
+TOOLS_WITHOUT_JAX_SAFETENSORS_OR_TRANSFORMERS = textwrap.dedent("""
+    import importlib, importlib.abc, json, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "f_lite_tpu",
+               "safetensors", "transformers", "tokenizers")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+    from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.tools import convert_checkpoint, precompute_embeddings
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
+    from f_lite_tpu_torch.utils.random_weights import randomize_
+    from f_lite_tpu_torch.utils.safetensors import load_file
+
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rs = np.random.RandomState(0)
+        rows = []
+        for i in range(6):
+            f = d / f"{i}.png"
+            f.write_bytes(png_bytes_with_metadata(rs.randint(0, 256, (16, 16, 3))
+                                                  .astype(np.uint8)))
+            rows.append({"media_path": str(f), "captions": [f"c{i % 4}"],
+                         "width": 16, "height": 16})
+        (d / "t.json").write_text(json.dumps(rows))
+        n = precompute_embeddings.main([
+            "--train_data_path", str(d / "t.json"), "--root_dir_type", "json",
+            "--base_url", "file://", "--resolution", "16", "--center_crop",
+            "--cross_attn_input_size", "16", "--batch_size", "4",
+            "--output_dir", str(d / "cache"), "--device", "cpu"])
+        entries = json.loads((d / "cache" / "precomputed_mapping.json").read_text())
+        assert n == 6 == len(entries["entries"]), entries
+        assert len(list((d / "cache" / "text_embeddings").iterdir())) == 4
+
+        cfg = DiTConfig(in_channels=4, patch_size=2, hidden_size=32, depth=2,
+                        num_heads=2, mlp_ratio=2.0, cross_attn_input_size=16,
+                        residual_v=True)
+        vae = AutoencoderKL(VAEConfig.tiny()).init_weights(torch.Generator().manual_seed(1))
+        FLitePipeline(randomize_(DiT(cfg), seed=0), vae).save_pretrained(d / "src")
+        convert_checkpoint.main(["--export_torch", str(d / "src"), "--output_dir",
+                                 str(d / "hf"), "--pt_file", str(d / "dit.pt"),
+                                 "--device", "cpu"])
+        back = convert_checkpoint.main([
+            "--pt", str(d / "dit.pt"), "--width", "32", "--head_dim", "16",
+            "--mlp_ratio", "2.0", "--cross_attn_input_size", "16",
+            "--vae_dir", str(d / "hf" / "vae"), "--output_dir", str(d / "back"),
+            "--device", "cpu"])
+        for sub in ("dit", "vae"):
+            a = load_file(d / "src" / sub / "flax_params.safetensors")
+            b = load_file(back / sub / "flax_params.safetensors")
+            assert a.keys() == b.keys() and all(
+                a[k].tobytes() == b[k].tobytes() for k in a), sub
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_repo_tools_run_without_jax_safetensors_or_transformers():
+    """The cache builder (zero encoder) and the converter's export and
+    re-ingest on the CPU, as on the card's machine (no JAX, safetensors or
+    transformers): the re-ingested DiT and VAE bit-equal to the source."""
+    out = _run(TOOLS_WITHOUT_JAX_SAFETENSORS_OR_TRANSFORMERS)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
 def _skip_on_a_cuda_host():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a host without CUDA")
@@ -521,3 +601,16 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("tool", ["precompute_embeddings", "convert_checkpoint"])
+def test_repo_tools_raise_without_a_card(tool, tmp_path):
+    _skip_on_a_cuda_host()
+    argv = {"precompute_embeddings": ["--train_data_path", str(tmp_path / "t.json")],
+            "convert_checkpoint": ["--export_torch", str(tmp_path / "ckpt")]}[tool]
+    out = subprocess.run([sys.executable, "-m", f"f_lite_tpu_torch.tools.{tool}", *argv,
+                          "--output_dir", str(tmp_path / "out")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "needs an NVIDIA GPU" in out.stderr, out.stderr
+    assert not (tmp_path / "out").exists()

@@ -315,9 +315,9 @@ def test_trainer_result_and_log_line(tmp_path, caplog):
     (["--fsdp", "2"], "torchrun --nproc_per_node"),
     (["--multihost"], "WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE"),
     (["--tp", "2"], r"not ported yet \(ROADMAP A 12b\)"),
-    (["--pp", "2"], r"not ported yet \(ROADMAP A 12b\)"),
+    (["--pp", "2"], r"not ported yet \(ROADMAP A 12c\)"),
     (["--sequence_parallel"], r"not ported yet \(ROADMAP A 12b\)"),
-    (["--scan_layers"], r"not ported yet \(ROADMAP A 12b\)"),
+    (["--scan_layers"], r"not ported yet \(ROADMAP A 12c\)"),
     (["--dp", "2"], "torchrun --nproc_per_node"),
 ])
 def test_unported_or_unlaunched_parallel_options_raise(tmp_path, extra, match):
