@@ -59,6 +59,13 @@ Phases (any failed check raises and the run exits non-zero):
    and three K at which the wrapper picks it (`int8_tiles.fit_k_sweep`);
    ptxas' lines of both kernels, none of which may spill or have its wgmma
    serialised;
+6b. the quantize kernel's entries for a row-parallel layer under tensor
+   parallelism (`row_amax`, and `quantize_rows_given`, which quantizes
+   with a given amax: the tp ranks' maximum, so sx is the whole row's)
+   against their plain versions bit for bit, and the given entry fed the
+   row's own amax bit-equal to the fused entry, at the row-parallel
+   layers' K at tp 2 (the 7B's proj and down, the fixture's), bf16 and
+   fp32; timed beside the plain versions, the fused entry and the bound;
 7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
@@ -69,6 +76,13 @@ Phases (any failed check raises and the run exits non-zero):
    requests of phase 7: both_acc >= 0.95 and PSNR >= 30 dB against phase
    7's bf16 images (10 log10(4 / MSE) on [-1, 1]); exactly 4 * 30 * 12
    forward and 4 * 30 * 48 launches of each int8 kernel;
+8h. int8 under tensor parallelism at tp 1 (run after 8a): phase 8a's
+   pipeline split by `parallel.tensor.parallelize_dit` over a one-rank tp
+   mesh of an NCCL group of one, formed in this process and destroyed
+   after: the first 2 of phase 8a's requests, their images bit for bit
+   (each row-parallel layer takes its rows' amax, all-reduces it and
+   quantizes with it); exactly 2 * 30 * 12 forward, 2 * 30 * 48 product
+   and 2 * 30 * (48 + 2 x 18 row-parallel layers) quantize launches;
 8b. the fixture from prompts: phase 7's requests as `pipe(prompt=
    captions)` with the port's `ZeroTextEncoder(64, seq_len=32)` attached:
    images equal to phase 7's bit for bit, both_acc >= 0.95, exactly
@@ -113,7 +127,7 @@ Phases (any failed check raises and the run exits non-zero):
    (`--hf_dir`): each loaded with `from_pretrained` gives phase 7's images
    bit for bit with phase 7's launch counts, the conversions launch
    nothing; `--test_image` on the card (pixel space: latents) finite with
-   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 8
+   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 4
    (full width; the depth cut stated in the output), seeded, saved
    natively, `--export_torch --pt_file` and `--pt` back: each direction's
    host seconds, GB written and GB/s, the re-ingested tensors bit-equal to
@@ -166,6 +180,23 @@ Phases (any failed check raises and the run exits non-zero):
    6-step trajectories, Euler and ab2: latents bit-equal to one window and
    JAX's (e, n) calls; a callback cancelling after the first window:
    exactly 5 * 56 forward launches;
+9f. head padding at load (run after 9e): phase 9's DiT padded from 10 to
+   12 heads (`convert.heads.pad_dit_heads`, what `from_pretrained(
+   pad_heads_to=12)` does), the original parked on the host: phase 9's
+   request, its final latents (the decoder's input) within the forward
+   kernel's tolerance (`flash_attention.tolerance`) of phase 9's, exactly
+   30 * 56 forward launches as unpadded, s/image and peak GB beside phase
+   9's; the padded DiT quantized in place, the same request: 30 * 56
+   forward and 30 * 248 launches of each int8 kernel, its final latents
+   against phase 11a's (printed with their gap after 11a, held to the same
+   tolerance). Then phase 9's pipeline saved (`save_pretrained`) with a
+   precompute cache of PROMPT's 77-token embedding, and `torchrun
+   --nproc_per_node 1 -m f_lite_tpu_torch.serve --precomputed_dir ...
+   --http_port 0 --dp 1 --tp 1` (an NCCL group of one, the DiT under
+   `parallelize_dit` at tp 1, TF32 off as in this process) answering
+   phase 9e's request (1024 px, 30 steps, seed 4) with phase 9e's pixels
+   bit for bit; /healthz; SIGTERM drains it; save, load, warm-up and
+   request seconds printed;
 11a. int8 serving at 7B width: the pipeline of phases 9-11 quantized in
    place (`quant.quantize_dit`), the request of phase 9: finite output,
    exactly 30 * 56 forward and 30 * 248 launches of each int8 kernel,
@@ -244,6 +275,14 @@ Phases (any failed check raises and the run exits non-zero):
    kernel a step, read from the same file (none in this process); the
    step-20 checkpoint resumed in an unwrapped run gives 12b's steps 21-40;
    s/step beside phase 12's;
+12h. tensor and sequence parallelism at tp 1: phase 12b's straight run in a
+   torchrun subprocess of this script (an NCCL group of one) in which the
+   trainer's `parallelize_dit` is applied with `sequence_parallel=True`
+   on the one-rank tp mesh (the split stream, its all-gathers and
+   reduce-scatters, and the permuted fused rows at their tp-1 identity;
+   the run logs that it was applied): every loss bit-equal to 12b's, or
+   within 1e-6 relative with the gap printed; exactly 12 launches of each
+   kernel a step; s/step beside 12g's;
 13e. `f_lite_7b_width_d20_train512` under torchrun with `--fsdp 0`, 10
    steps: finite loss and grad norm, 46/31/31 launches a step, peak under
    80 GB; whether its losses equal phase 13's bit for bit (printed), its
@@ -262,8 +301,9 @@ Phases (any failed check raises and the run exits non-zero):
    `f_lite_7b_width_d20_train512` for 10 steps from that cache with phase
    13's checks, s/step beside phase 13's;
 14. a `{"gpus": N, "multi_rank_checks": "cpu/gloo"}` line (runs of 2 and 4
-   ranks are checked on the CPU with gloo: the card's machine has one
-   GPU), a `{"kernels": [...]}` line, the script's total seconds, then the
+   ranks, tp and dp x tp among them, are checked on the CPU with gloo:
+   the card's machine has one GPU), a `{"kernels": [...]}` line, the
+   script's total seconds, then the
    card line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of another path launched there fails the run.
@@ -275,6 +315,7 @@ false or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1036,6 +1077,75 @@ def check_int8() -> tuple[list[dict], list[dict], dict]:
     fit = int8_k_fit()
     torch.cuda.empty_cache()
     return rows, edge_rows, fit
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the quantize kernel's entries for a row-parallel layer under tp
+# ---------------------------------------------------------------------------
+
+# (label, M, K): the row-parallel layers' K at tp 2 on the int8 serving
+# paths (the 7B at 1024 px: proj 2560 / 2, down 10240 / 2; the fixture)
+INT8_TP_SHAPES = [("7b_proj_tp2", 8224, 1280), ("7b_down_tp2", 8224, 5120),
+                  ("fixture_proj_tp2", 49920, 128), ("fixture_down_tp2", 49920, 512)]
+
+
+def check_int8_given() -> list[dict]:
+    """Phase 6b: `row_amax` and `quantize_rows_given` against their plain
+    versions bit for bit at INT8_TP_SHAPES (bf16 and fp32, a zero row, and
+    for half the rows a given amax 1.5 times the row's own: another rank's
+    larger one), the given entry fed the row's own amax bit-equal to the
+    fused `quantize_rows`; bf16 timed beside the plain versions, the fused
+    entry and the bounds (bytes: x read, x8 written, amax and sx read or
+    written once)."""
+    import torch
+
+    from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+
+    rows = []
+    gen = torch.Generator("cuda").manual_seed(17)
+    for label, m, k in INT8_TP_SHAPES:
+        x32 = torch.randn((m, k), generator=gen, device="cuda") * 3
+        x32[m // 2] = 0.0
+        larger = torch.where(torch.arange(m, device="cuda") % 2 == 1, 1.5, 1.0)
+        mismatches = []
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            amax = ig.row_amax(x)
+            given = ig.quantize_rows_given(x, amax)
+            other = ig.quantize_rows_given(x, amax * larger)
+            fused = ig.quantize_rows(x)
+            torch.cuda.synchronize()
+            checks = {"amax": (amax, ig.row_amax_plain(x))}
+            for what, got, want in (
+                    ("given", given, ig.quantize_rows_given_plain(x, amax)),
+                    ("given_larger", other, ig.quantize_rows_given_plain(x, amax * larger)),
+                    ("given_vs_fused", given, fused)):
+                checks[f"{what}_x8"] = (got[0], want[0])
+                checks[f"{what}_sx"] = (got[1], want[1])
+            for what, (got, want) in checks.items():
+                if not torch.equal(got, want):
+                    err = float((got.double() - want.double()).abs().max())
+                    mismatches.append(f"{what} {dtype}: max abs diff {err}")
+        if mismatches:
+            raise AssertionError(f"int8 given {label}: {mismatches}")
+        x = x32.to(torch.bfloat16)
+        del x32
+        amax = ig.row_amax(x)
+        row = dict(
+            shape=label, m=m, k=k, max_abs_err=0.0,
+            given_ms=time_ms(lambda: ig.quantize_rows_given(x, amax)),
+            given_plain_ms=time_ms(lambda: ig.quantize_rows_given_plain(x, amax)),
+            given_bound_ms=(m * k * 2 + m * k + 8 * m) / PEAK_BYTES * 1e3,
+            amax_ms=time_ms(lambda: ig.row_amax(x)),
+            amax_plain_ms=time_ms(lambda: ig.row_amax_plain(x)),
+            amax_bound_ms=(m * k * 2 + 4 * m) / PEAK_BYTES * 1e3,
+            fused_ms=time_ms(lambda: ig.quantize_rows(x)),
+            fused_bound_ms=int8_bounds_ms(m, 8, k, 2)["quantize"][0], bound_by="bytes")
+        log("int8_given", json.dumps(row))
+        rows.append(row)
+        del x, amax
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2035,11 +2145,13 @@ def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20) -> dict
 # phases 12g and 13e: the trainer under torchrun, the DiT under FSDP2
 # ---------------------------------------------------------------------------
 
-def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900) -> tuple:
+def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900,
+                 target=("-m", "f_lite_tpu_torch.train")) -> tuple:
     """`torchrun --standalone --nproc_per_node 1 -m f_lite_tpu_torch.train`
-    with `argv` as a subprocess (a real NCCL process group of one rank, the
-    DiT under `fully_shard`), its output in `log_path`: (the step lines of
-    its `metrics.jsonl`, its result line, the subprocess' seconds)."""
+    (or another `target`) with `argv` as a subprocess (a real NCCL process
+    group of one rank, the DiT under `fully_shard`), its output in
+    `log_path`: (the step lines of its `metrics.jsonl`, its result line,
+    the subprocess' seconds)."""
     import gc
 
     import torch
@@ -2048,7 +2160,7 @@ def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900) -> tuple:
     torch.cuda.empty_cache()
     log("torchrun_parent_reserved_gb", torch.cuda.memory_reserved() / 1e9)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", "-m", "f_lite_tpu_torch.train", *argv]
+           "--nproc_per_node", "1", *target, *argv]
     t0 = time.perf_counter()
     with open(log_path, "w") as lf:
         proc = subprocess.run(cmd, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT,
@@ -2131,6 +2243,65 @@ def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict) -> dict:
         raise AssertionError(f"fixture fsdp: launch counts {per_step[:3]}, parent {parent}")
     if any(c != launches(**expected) for c in watch.per_step):
         raise AssertionError(f"fixture fsdp resume: launch counts {watch.per_step[:3]}")
+    return res
+
+
+SP_WORKER = "--sequence-parallel-train-worker"
+
+
+def sequence_parallel_train_worker(argv: list) -> int:
+    """The trainer on `argv`, its `parallelize_dit` applied with
+    `sequence_parallel=True` (the trainer's flag needs --tp > 1, as in
+    JAX); run under torchrun by phase 12h."""
+    from f_lite_tpu_torch.parallel import tensor
+    from f_lite_tpu_torch.train import trainer
+
+    plain = tensor.parallelize_dit
+
+    def with_sp(model, mesh, sequence_parallel=False):
+        print(f"sequence parallelism applied on a tp mesh of {mesh.size()}", flush=True)
+        return plain(model, mesh, sequence_parallel=True)
+
+    tensor.parallelize_dit = with_sp
+    trainer.main(argv)
+    return 0
+
+
+def run_fixture_sp(tmp: Path, phase12b: dict, phase12g: dict) -> dict:
+    """Phase 12h: phase 12b's straight run under torchrun (a subprocess of
+    this script, `SP_WORKER`) with `parallelize_dit(sequence_parallel=
+    True)` on the one-rank tp mesh: every loss bit-equal to 12b's (or
+    within 1e-6 relative, the gap printed), exactly 12 launches of each
+    kernel a step; s/step beside 12g's."""
+    import shutil
+
+    cache = tmp / "shapes_cache"
+    steps = phase12b["steps"]
+    straight = phase12b["straight_losses"]
+    out = tmp / "sp_fixture"
+    argv = fixture_argv(cache, out, steps) + ["--fsdp", "0", "--log_every", "1"]
+    reset_counts()
+    log_path = tmp / "sp_fixture.log"
+    records, result, wall = run_torchrun(argv, out, log_path,
+                                         target=(str(ROOT / "chip_smoke.py"), SP_WORKER))
+    parent = read_counts()
+    losses = [r["train/loss"] for r in records]
+    per = fixture_attention_calls()
+    per_step = per_step_launches(records)
+    applied = "sequence parallelism applied on a tp mesh of 1" in log_path.read_text()
+    res = dict(steps=len(losses), losses_bit_equal=losses == straight,
+               max_rel_gap=max(abs(x - y) / abs(y) for x, y in zip(losses, straight,
+                                                                    strict=True)),
+               applied=applied, per_step_launches=per_step[0],
+               s_per_step=step_seconds(records), phase_12g_s_per_step=phase12g["s_per_step"],
+               subprocess_s=wall, parent_launches=parent)
+    log("fixture_sp", json.dumps(res))
+    shutil.rmtree(out, ignore_errors=True)
+    if not applied or len(losses) != steps or res["max_rel_gap"] > 1e-6:
+        raise AssertionError(f"fixture sp: applied {applied}, losses {losses} against "
+                             f"{straight}")
+    if any(c != dict(fwd=per, dq=per, dkv=per) for c in per_step) or any(parent.values()):
+        raise AssertionError(f"fixture sp: launch counts {per_step[:3]}, parent {parent}")
     return res
 
 
@@ -2514,8 +2685,65 @@ def run_fixture_int8(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
         raise AssertionError(f"fixture int8: both_acc {res['both_acc']} < 0.95")
     if not psnr >= 30:
         raise AssertionError(f"fixture int8: PSNR {psnr} dB < 30 against bf16")
+    res["images"] = images  # phase 8h's reference (not logged)
     del pipe
     torch.cuda.empty_cache()
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_fixture_int8_tp1(fixture_int8, n_requests=2, steps=30, guidance=6.0) -> dict:
+    """Phase 8h: phase 8a's pipeline under `parallelize_dit` on a one-rank
+    tp mesh of an NCCL group of one (formed here, destroyed after):
+    phase 8a's images bit for bit, exact launch counts (each row-parallel
+    layer: `row_amax` and `quantize_rows_given` in place of the fused
+    quantize)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from f_lite_tpu_torch.models.dit import QuantDense
+    from f_lite_tpu_torch.parallel.tensor import parallelize_dit
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        pipe, embeds, mask, classes, n_blocks = load_fixture(quantize=True)
+        per_forward = int8_layers(pipe.dit)
+        parallelize_dit(pipe.dit, init_device_mesh("cuda", (1,), mesh_dim_names=("tp",)))
+        row_layers = sum(isinstance(m, QuantDense) and m.tp_amax is not None
+                         for m in pipe.dit.modules())
+        expected = launches(fwd=n_requests * steps * n_blocks,
+                            quantize=n_requests * steps * (per_forward + row_layers),
+                            gemm=n_requests * steps * per_forward)
+        reset_counts()
+        images, seconds = fixture_requests(pipe, len(embeds), n_requests,
+                                           prompt_embeds=embeds, context_mask=mask,
+                                           num_inference_steps=steps,
+                                           guidance_scale=guidance)
+        counts = read_counts()
+        del pipe
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res = dict(requests=n_requests, bit_equal_to_phase_8a=bool(
+                   np.array_equal(images, fixture_int8["images"][:len(images)])),
+               s_per_request=seconds, phase_8a_s_per_request=fixture_int8["s_per_request"],
+               launches=counts, expected_launches=expected, int8_layers=per_forward,
+               row_parallel_layers=row_layers)
+    log("fixture_int8_tp1", json.dumps(res))
+    if counts != expected:
+        raise AssertionError(f"fixture int8 tp1: launches {counts}, expected {expected}")
+    if not res["bit_equal_to_phase_8a"]:
+        raise AssertionError("fixture int8 tp1: images differ from phase 8a's")
     return res
 
 
@@ -3207,8 +3435,8 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
     return res
 
 
-def run_7b_convert(tmp: Path, depth=8, device="cuda") -> dict:
-    """Phase 8g (b): `DiTConfig.f_lite_7b()` at depth 8 (full width, the
+def run_7b_convert(tmp: Path, depth=4, device="cuda") -> dict:
+    """Phase 8g (b): `DiTConfig.f_lite_7b()` at depth 4 (full width, the
     depth cut to fit the script's time), seeded weights saved natively,
     then `--export_torch --pt_file` and `--pt` of the `.pt` back: each
     direction's host seconds, GB written and GB/s; the re-ingested DiT's
@@ -3346,9 +3574,10 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b", profile=True) ->
     marks = {}
     finite = []
 
-    def pre_decode(_m, _inp):
+    def pre_decode(_m, inp):
         torch.cuda.synchronize()
         marks["decode_start"] = time.perf_counter()
+        marks["final"] = inp[0].detach().float()  # the final latents, denormalized
 
     def post_decode(_m, _inp, out):
         finite.append(bool(torch.isfinite(out).all()))
@@ -3394,6 +3623,7 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b", profile=True) ->
                          width=size, num_inference_steps=1,
                          guidance_scale=guidance, output_type="latent"),
             label=f"{label} step_profile")
+    res["final"] = marks["final"]  # phase 9f's reference (not logged)
     torch.cuda.empty_cache()
     return res
 
@@ -3438,6 +3668,7 @@ def run_7b_lora(pipe, big, steps=30, guidance=6.0, size=1024, rank=64) -> dict:
                return_latents_dtype=str(host.dtype),
                phase_9=dict(s_per_image=big["s_per_image"], s_per_step=big["s_per_step"],
                             max_memory_allocated_gb=big["max_memory_allocated_gb"]))
+    res.pop("final")
     log("7b_lora", json.dumps({k: v for k, v in res.items() if k != "counts"}))
     del lpipe, dit, host, device
     torch.cuda.empty_cache()
@@ -3447,6 +3678,205 @@ def run_7b_lora(pipe, big, steps=30, guidance=6.0, size=1024, rank=64) -> dict:
     if not res["return_latents_equal"]:
         raise AssertionError("7b lora: return_latents differs from output_type='latent'")
     return res
+
+
+def run_7b_padded(pipe, big) -> dict:
+    """Phase 9f, first part: phase 9's DiT padded from 10 to 12 heads
+    (`pad_dit_heads`, what `from_pretrained(pad_heads_to=12)` does) with
+    the original parked on the host: phase 9's request, its final latents
+    within the forward kernel's tolerance of phase 9's and 30 * 56
+    forward launches as unpadded; then the padded DiT quantized in place
+    and the request again (its final latents kept for the comparison with
+    phase 11a). s/image and peak GB beside phase 9's."""
+    import torch
+
+    from f_lite_tpu_torch.convert.heads import pad_dit_heads
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.quant import quantize_dit
+
+    t0 = time.perf_counter()
+    dit = pad_dit_heads(pipe.dit, 12)
+    torch.cuda.synchronize()
+    pad_s = time.perf_counter() - t0
+    pipe.dit.to("cpu")  # the padded copy keeps what it shares on the card
+    torch.cuda.empty_cache()
+    ppipe = FLitePipeline(dit, pipe.vae)
+    res = {"pad_s": pad_s, "heads": dit.config.compute_heads}
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            quantize_dit(dit)
+        run = run_7b(ppipe, label=f"7b_padded_{label}", profile=False)
+        res[label] = {k: run[k] for k in ("s_per_step", "s_per_image",
+                                          "max_memory_allocated_gb", "counts",
+                                          "expected_launches")}
+        res[label]["final"] = run["final"]
+    ref = big["final"]
+    gap = float((res["bf16"]["final"] - ref).abs().max())
+    res["bf16"].update(max_abs_err_vs_phase_9=gap,
+                       tolerance=fa.tolerance(ref, torch.bfloat16),
+                       phase_9=dict(s_per_image=big["s_per_image"],
+                                    max_memory_allocated_gb=big["max_memory_allocated_gb"]))
+    log("7b_padded", json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "final"}
+                                     if isinstance(v, dict) else v) for k, v in res.items()}))
+    del ppipe, dit
+    torch.cuda.empty_cache()
+    pipe.dit.to("cuda")
+    if not gap <= res["bf16"]["tolerance"]:
+        raise AssertionError(f"7b padded: final latents {gap} from phase 9's, "
+                             f"tolerance {res['bf16']['tolerance']}")
+    return res
+
+
+def check_7b_padded_int8(padded, big_int8) -> dict:
+    """Phase 9f's int8 comparison, after phase 11a: the padded int8 DiT's
+    final latents against phase 11a's, within the forward kernel's
+    tolerance (the gap and whether they are bit-equal printed)."""
+    import torch
+
+    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
+
+    got, ref = padded["int8"]["final"], big_int8["final"]
+    res = dict(max_abs_err_vs_phase_11a=float((got - ref).abs().max()),
+               tolerance=fa.tolerance(ref, torch.bfloat16),
+               bit_equal_to_phase_11a=bool(torch.equal(got, ref)),
+               s_per_image=padded["int8"]["s_per_image"],
+               phase_11a_s_per_image=big_int8["s_per_image"])
+    log("7b_padded_int8", json.dumps(res))
+    if not res["max_abs_err_vs_phase_11a"] <= res["tolerance"]:
+        raise AssertionError(f"7b padded int8: {res}")
+    return res
+
+
+class SavedServer:
+    """Phase 9f, second part: phase 9's pipeline saved (in `tmp`), a
+    precompute cache of PROMPT's embedding (the ZeroTextEncoder of phase
+    9e, 77 tokens), and `torchrun --nproc_per_node 1 -m
+    f_lite_tpu_torch.serve --dp 1 --tp 1 --http_port 0` on them (warmed at
+    256 px, 2 steps; TF32 off, as in this process). `finish`: phase 9e's request (1024 px, 30 steps, seed 4)
+    answers phase 9e's pixels bit for bit (the cache pads the 77 tokens to
+    80, so the unconditional branch attends to 80 identical zero-context
+    keys where phase 9e's attends to 77: the same average), with no launch
+    in this process meanwhile; /healthz; SIGTERM drains it. The save, load,
+    warm-up and request seconds are printed. `stop` ends the server and its
+    worker wherever they are."""
+
+    def __init__(self, pipe, tmp: Path, guidance=6.0):
+        import os
+
+        import numpy as np
+
+        from f_lite_tpu_torch.data.precomputed import PrecomputedCacheWriter
+        from f_lite_tpu_torch.pipeline import FLitePipeline
+        from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
+
+        self.model, cache = tmp / "7b_pipeline", tmp / "7b_prompt_cache"
+        t0 = time.perf_counter()
+        FLitePipeline(pipe.dit, pipe.vae).save_pretrained(self.model)
+        self.res = {"save_s": time.perf_counter() - t0}
+        emb, _ = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size,
+                                 seq_len=77).encode([PROMPT])
+        writer = PrecomputedCacheWriter(cache)
+        writer.add("0", PROMPT, np.zeros((1, 1, 1), np.float32), emb[0])
+        writer.finalize()
+        self.log_path = tmp / "serve_tp1.log"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "f_lite_tpu_torch.serve",
+               "--model", str(self.model), "--precomputed_dir", str(cache),
+               "--http_port", "0", "--dp", "1", "--tp", "1", "--text_bucket", "128",
+               "--width", "256", "--height", "256", "--steps", "2",
+               "--guidance_scale", str(guidance)]
+        # TF32 off in the server as in this process (cuDNN's default is on,
+        # and the VAE's fp32 convolutions would round otherwise)
+        env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0"}
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as lf:
+            # its own process group: torchrun's worker is stopped with it
+            self.proc = subprocess.Popen(cmd, stdout=lf, stderr=subprocess.STDOUT,
+                                         cwd=ROOT, env=env, start_new_session=True)
+
+    def stop(self, sig=None) -> None:
+        import os
+        import shutil
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, sig or signal.SIGKILL)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait()
+        shutil.rmtree(self.model, ignore_errors=True)
+
+    def finish(self, big_http, size=1024, steps=30) -> dict:
+        import re
+        import signal
+        import types
+
+        import numpy as np
+
+        from f_lite_tpu_torch.utils.image import read_png
+
+        res, proc = self.res, self.proc
+        marks = {"loaded_s": "DiT split over 1 ranks (dp=1, tp=1)",
+                 "ready_s": "serving on http://"}
+        try:
+            while "ready_s" not in res and time.perf_counter() - self.t0 < 600:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve tp1 exited {proc.returncode}")
+                text = self.log_path.read_text()
+                for key, mark in marks.items():
+                    if key not in res and mark in text:
+                        res[key] = time.perf_counter() - self.t0
+                time.sleep(0.2)
+            res["waited_here_s"] = time.perf_counter() - self.t0
+            text = self.log_path.read_text()
+            found = re.search(r"serving on http://[\d.]+:(\d+)", text)
+            if found is None:
+                raise AssertionError("serve tp1: not serving after 600 s")
+            warm = re.search(r"warm-up: ([\d.]+) s", text)
+            res["warm_up_s"] = float(warm.group(1)) if warm else None
+            client = Client(types.SimpleNamespace(server_address=("127.0.0.1",
+                                                                   int(found.group(1)))))
+            reset_counts()
+            t1 = time.perf_counter()
+            status, headers, body = client.post({"prompt": PROMPT, "seed": 4, "width": size,
+                                                 "height": size, "steps": steps})
+            res["s_per_request"] = time.perf_counter() - t1
+            res["parent_launches"] = read_counts()
+            if status != 200:
+                raise AssertionError(f"serve tp1: {status} {body[:500]}")
+            img = read_png(body)
+            res.update(bit_equal_to_phase_9e=bool(np.array_equal(img, big_http["image"])),
+                       max_abs_diff_to_phase_9e=int(np.abs(img.astype(np.int16)
+                                                           - big_http["image"]).max()),
+                       phase_9e_s_per_request=big_http["request"]["s_per_request"],
+                       server_s=float(headers["X-F-Lite-Seconds"]))
+            _, health = client.get("/healthz")
+            res["healthz"] = json.loads(health)
+            self.stop(signal.SIGTERM)  # torchrun and its worker drain and stop
+        finally:
+            self.stop()
+            text = self.log_path.read_text()
+            res.update(exit_code=proc.returncode, drained="drained; shutting down" in text,
+                       split_over_tp=marks["loaded_s"] in text)
+            log("7b_serve_tp1", json.dumps(res))
+        if not (res.get("bit_equal_to_phase_9e") and res["drained"] and res["split_over_tp"]):
+            raise AssertionError(f"serve tp1: {res}\n{text[-3000:]}")
+        if res["healthz"].get("tp") != 1 or res["healthz"].get("dp") != 1:
+            raise AssertionError(f"serve tp1: healthz {res['healthz']}")
+        if any(res["parent_launches"].values()):
+            raise AssertionError(f"serve tp1: launches in this process {res['parent_launches']}")
+        return res
+
+
+def start_7b_serve(pipe, tmp: Path) -> SavedServer:
+    return SavedServer(pipe, tmp)
+
+
+def finish_7b_serve(server: SavedServer, big_http) -> dict:
+    return server.finish(big_http)
 
 
 def expected_window_calls(steps: int, k: int) -> list:
@@ -3562,6 +3992,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
                 raise AssertionError(f"7b http: image {img.shape}, finite {finite}")
             if counts != expected:
                 raise AssertionError(f"7b http: launches {counts}, expected {expected}")
+            res["image"] = img  # phase 9f's reference (not logged)
 
             small = 256
             source = np.random.RandomState(8).randint(0, 256, (small, small, 3)).astype(np.uint8)
@@ -3613,7 +4044,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
                          expected_launches=launches(fwd=5 * blocks),
                          image=list(out.images.shape))
     pipe.text_encoder = None
-    log("7b_http", json.dumps(res))
+    log("7b_http", json.dumps({k: v for k, v in res.items() if k != "image"}))
     torch.cuda.empty_cache()
     for name, w in windows.items():
         if not (w["bitwise_equal"] and w["finite"]
@@ -4052,9 +4483,11 @@ def main() -> int:
     lab = phase(run_lab)
     block = phase(check_block_grads)
     int8_rows, int8_edges, int8_fit = phase(check_int8)
+    int8_given = phase(check_int8_given)
     fixture, full_images = phase(run_fixture)
     fixture_extras = phase(run_fixture_extras, full_images)
     fixture_int8 = phase(run_fixture_int8, full_images)
+    fixture_int8_tp1 = phase(run_fixture_int8_tp1, fixture_int8)
     fixture_prompts = phase(run_fixture_prompts, full_images)
     with tempfile.TemporaryDirectory() as tmp:
         fixture_lora = phase(run_fixture_lora, full_images, Path(tmp))
@@ -4074,10 +4507,21 @@ def main() -> int:
     strength_one = phase(run_strength_one, pipe)
     big_lora = phase(run_7b_lora, pipe, big)
     big_http = phase(run_7b_http, pipe, big)
+    padded_7b = phase(run_7b_padded, pipe, big)
+    with contextlib.ExitStack() as stack:
+        # 9.5 GB of files: in memory where there is room, as phase 8g's.
+        # The server loads alone: a run that loaded it beside phases 10-9f
+        # outgrew the machine's disk limit
+        tmp, where = stack.enter_context(memory_tmp(12))
+        log("7b_serve_tp1 files:", where)
+        server_tp1 = phase(start_7b_serve, pipe, tmp)
+        stack.callback(server_tp1.stop)
+        serve_tp1 = phase(finish_7b_serve, server_tp1, big_http)
     from f_lite_tpu_torch.quant import quantize_dit
 
     quantize_dit(pipe.dit)
     big_int8 = phase(run_7b, pipe, 30, 6.0, 1024, "7b_int8")
+    padded_7b_int8 = phase(check_7b_padded_int8, padded_7b, big_int8)
     log("7b_int8_vs_bf16", json.dumps({
         **{key: dict(bf16=big[key], int8=big_int8[key])
            for key in ("s_per_step", "s_per_image", "decode_s", "max_memory_allocated_gb")},
@@ -4094,6 +4538,7 @@ def main() -> int:
                                       fixture_online["tables"])
         fixture_buckets = phase(run_fixture_buckets, Path(tmp))
         fixture_fsdp = phase(run_fixture_fsdp, Path(tmp), fixture_train, fixture_resume)
+        fixture_sp = phase(run_fixture_sp, Path(tmp), fixture_resume, fixture_fsdp)
         train_7b = phase(run_7b_training, Path(tmp))
         train_7b_dots = phase(run_7b_training, Path(tmp), 10, 4, 20,
                               ("--remat_policy", "dots"), "7b_train_dots")
@@ -4159,6 +4604,11 @@ def main() -> int:
             "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
         launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"]["fwd"],
                        "per_7b_step": fsdp_7b["per_step_launches"]["fwd"]},
+        launches_tp_at_tp1={
+            "per_fixture_step_sequence_parallel": fixture_sp["per_step_launches"]["fwd"],
+            "serving_fixture_int8": fixture_int8_tp1["launches"]["fwd"]},
+        launches_serving_7b_padded_heads={k: padded_7b[k]["counts"]["fwd"]
+                                          for k in ("bf16", "int8")},
         launches_tools={"fixture_converted_pt": fixture_convert["pt"]["launches"]["fwd"],
                         "fixture_converted_hf_dir": fixture_convert["hf_dir"]["launches"]["fwd"],
                         "test_image": fixture_convert["test_image"]["launches"]["fwd"],
@@ -4202,6 +4652,8 @@ def main() -> int:
                 "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
             launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"][which],
                            "per_7b_step": fsdp_7b["per_step_launches"][which]},
+            launches_tp_at_tp1={"per_fixture_step_sequence_parallel":
+                                fixture_sp["per_step_launches"][which]},
             launches_tools={"per_7b_step_from_tool_cache":
                             cache_builder["train"]["per_step"][which]},
             max_abs_err=max(r["max_abs_err"][gname] for r in bwd_rows for gname in grads),
@@ -4281,6 +4733,8 @@ def main() -> int:
             launches_serving_fixture_lora_int8=fixture_lora["int8"]["launches"][counter],
             launches_serving_fixture_generate_int8=(
                 fixture_generate["int8"]["launches"][counter]),
+            launches_serving_fixture_int8_tp_at_tp1=fixture_int8_tp1["launches"][counter],
+            launches_serving_7b_padded_heads_int8=padded_7b["int8"]["counts"][counter],
             ms=int8_main[f"{key}_ms"], plain_ms=int8_main[f"{key}_plain_ms"],
             bound_ms=int8_main[f"{key}_bound_ms"],
             bound_by=int8_main[f"{key}_bound_by"],
@@ -4299,6 +4753,9 @@ def main() -> int:
             by_shape={r["shape"]: {f: r[f] for f in r if f.startswith(key) or (
                 key == "gemm" and f in ("library_ms", "int_mm_ms", "bf16_linear_ms"))}
                 for r in int8_rows},
+            **(dict(given_amax_entries={r["shape"]: {f: v for f, v in r.items() if f != "shape"}
+                                        for r in int8_given})
+               if key == "quantize" else {}),
         ))
     kernels = [forward, *backward, variants, *int8_kernels]
     for k in kernels:
@@ -4306,7 +4763,22 @@ def main() -> int:
         if missing:
             raise AssertionError(f"kernels line: {k['name']} lacks {missing}")
     # where the checks of 2 and 4 ranks ran (tests/test_torch_parallel.py)
-    log(json.dumps({"gpus": torch.cuda.device_count(), "multi_rank_checks": "cpu/gloo"}))
+    log(json.dumps({"gpus": torch.cuda.device_count(), "multi_rank_checks": "cpu/gloo",
+                    "tp_at_tp1": {
+                        "fixture_sequence_parallel": {k: fixture_sp[k] for k in (
+                            "losses_bit_equal", "max_rel_gap", "s_per_step",
+                            "phase_12g_s_per_step")},
+                        "fixture_int8": {k: fixture_int8_tp1[k] for k in (
+                            "bit_equal_to_phase_8a", "row_parallel_layers")},
+                        "serve_7b": {k: serve_tp1[k] for k in (
+                            "bit_equal_to_phase_9e", "save_s", "loaded_s", "ready_s",
+                            "waited_here_s", "s_per_request",
+                            "phase_9e_s_per_request")}},
+                    "padded_heads_7b": {
+                        "bf16": {k: padded_7b["bf16"][k] for k in (
+                            "max_abs_err_vs_phase_9", "tolerance", "s_per_image",
+                            "max_memory_allocated_gb", "phase_9")},
+                        "int8": padded_7b_int8}}))
     log(json.dumps({"kernels": kernels,
                     "block_grads_max_rel": block["max_rel"],
                     "backward_shapes": bwd_rows,
@@ -4406,4 +4878,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SP_WORKER]:
+        sys.exit(sequence_parallel_train_worker(sys.argv[2:]))
     sys.exit(main())

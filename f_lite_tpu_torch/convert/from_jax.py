@@ -22,7 +22,9 @@ them (e.g. `blocks_3.self_attn.qkv.kernel`), as numpy arrays. Layouts:
   w8 (N, in) int8 as the kernel above, scale (*out) -> (N,) fp32, in all of
   those layouts (a padded head's scale is 1 and its w8 zero).
 Every step is a transpose, reshape, slice of zeros or unstacking, so the
-conversion is exact.
+conversion is exact. bfloat16 tensors may come as their uint16 bit
+patterns (`utils.safetensors.load_file(bf16_bits=True)`): they are moved
+as such and stay bfloat16 in the state dict.
 
 `reference_dit_config` / `reference_vae_config` are the own copies of the
 reference `config.json` fields of `jax_to_torch.py` that an export to the
@@ -52,7 +54,15 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
 
 
 def _t(w) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(w).T)
+    """The transpose of a 2-D array, contiguous (fp32, int8 and bfloat16
+    bits copied by torch, on every core; other dtypes, such as ml_dtypes'
+    bfloat16, by numpy)."""
+    w = np.asarray(w)
+    if w.dtype == np.uint16:  # bfloat16 bits
+        return _t(w.view(np.int16)).view(np.uint16)
+    if w.dtype not in (np.float32, np.int8, np.int16):
+        return np.ascontiguousarray(w.T)
+    return torch.from_numpy(np.ascontiguousarray(w)).t().contiguous().numpy()
 
 
 def _dense(d, name, out) -> None:
@@ -98,10 +108,22 @@ def _proj(d, name, out, rows) -> None:
 
 
 def _to_torch(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """fp32 tensors, int8 weights kept int8."""
-    return {k: torch.from_numpy(np.array(
-        v, np.int8 if np.asarray(v).dtype == np.int8 else np.float32))
-        for k, v in sd.items()}
+    """fp32 tensors, int8 weights kept int8, bfloat16 bits as bfloat16. A
+    tensor shares its array's memory where that is writable and already of
+    its dtype and contiguous (a transposed copy, or a view of
+    `load_file(bf16_bits=True)`'s copy-on-write map); else it is a copy."""
+    out = {}
+    for k, v in sd.items():
+        a = np.asarray(v)
+        if a.dtype == np.uint16:
+            a = np.ascontiguousarray(a).view(np.int16)
+        else:
+            a = np.ascontiguousarray(a, np.int8 if a.dtype == np.int8 else np.float32)
+        if not a.flags.writeable:
+            a = a.copy()
+        t = torch.from_numpy(a)
+        out[k] = t.view(torch.bfloat16) if t.dtype == torch.int16 else t
+    return out
 
 
 def _tree_map(fn, tree):
@@ -158,10 +180,10 @@ def _unstack_scan(p: dict, cfg) -> dict:
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray],
                         cfg) -> dict[str, torch.Tensor]:
-    """Flat JAX DiT params -> the port's `DiT` state dict (fp32, int8
-    weights int8; the caller casts). Takes the unrolled, scan-stacked and
-    pipeline-parallel layouts, with or without padded heads, quantized or
-    not."""
+    """Flat JAX DiT params -> the port's `DiT` state dict (fp32, bfloat16
+    where given as bits, int8 weights int8; the caller casts). Takes the
+    unrolled, scan-stacked and pipeline-parallel layouts, with or without
+    padded heads, quantized or not."""
     p = unflatten(flat_params)
     p = _fold_pipeline(p.get("params", p))
     if any(k in p for k in _SCAN_KEYS):

@@ -33,8 +33,9 @@ def _cpu(t) -> torch.Tensor:
 
 
 def _kernel(w: torch.Tensor, out_shape=None) -> torch.Tensor:
-    """(N, in) -> (in, N), or (in, *out_shape)."""
-    k = _cpu(w).t().contiguous()
+    """(N, in) -> (in, N), or (in, *out_shape) (transposed where it lies,
+    then copied to the host)."""
+    k = _cpu(w.detach().t().contiguous())
     return k if out_shape is None else k.reshape(k.shape[0], *out_shape)
 
 

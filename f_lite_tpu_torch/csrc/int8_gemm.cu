@@ -8,7 +8,12 @@
 // - quantize_rows_kernel: x (M, K) bf16 or fp32 -> x8 (M, K) int8 and
 //   sx (M,) fp32, one block a row: amax of |x| over the row (fp32), sx =
 //   amax / 127 (IEEE division; 1 where it is 0), x8 = clip(rint(x / sx),
-//   -127, 127) with rint rounding half to even, as jnp.round does. Bound:
+//   -127, 127) with rint rounding half to even, as jnp.round does. Two
+//   more entries serve a row-parallel layer under tensor parallelism,
+//   whose K is split over the ranks while sx is the whole row's:
+//   `row_amax` writes each row's amax only, and `quantize_rows_given`
+//   quantizes with a given amax (the ranks' maximum) in place of its own.
+//   Bound:
 //   bytes (read x, write x8 and sx; 63 MB, 0.019 ms at (8224, 2560) bf16).
 //   The row is read twice, the second time from L1/L2.
 //
@@ -109,12 +114,20 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// What a launch of quantize_rows_kernel does with a row.
+enum QuantMode : int {
+  kFused = 0,  // amax of the row, sx, x8
+  kGiven = 1,  // sx and x8 from the given amax_in[row]
+  kAmax = 2,   // amax of the row only, written to sx[row]
+};
+
 // One row of K values a block of blockDim.x (a multiple of 32, at most
 // kQMaxThreads) threads, 8 consecutive values a thread a step.
-template <typename T>
+template <typename T, int Mode>
 __global__ void __launch_bounds__(kQMaxThreads)
     quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ x8,
-                         float* __restrict__ sx, int K) {
+                         float* __restrict__ sx,
+                         const float* __restrict__ amax_in, int K) {
   __shared__ float warp_max[kQMaxThreads / 32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * K;
@@ -122,20 +135,28 @@ __global__ void __launch_bounds__(kQMaxThreads)
   const int step = blockDim.x * 8;
 
   float amax = 0.f;
-  for (int c = threadIdx.x * 8; c < K; c += step) {
-    float v[8];
-    load8(xr + c, v);
+  if constexpr (Mode == kGiven) {
+    amax = amax_in[row];
+  } else {
+    for (int c = threadIdx.x * 8; c < K; c += step) {
+      float v[8];
+      load8(xr + c, v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    amax = warp_max[0];
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
+      amax = fmaxf(amax, warp_max[w]);
+    if constexpr (Mode == kAmax) {
+      if (threadIdx.x == 0) sx[row] = amax;
+      return;
+    }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  amax = warp_max[0];
-  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
-    amax = fmaxf(amax, warp_max[w]);
   float s = __fdiv_rn(amax, 127.f);
   s = s == 0.f ? 1.f : s;
   if (threadIdx.x == 0) sx[row] = s;
@@ -154,14 +175,14 @@ __global__ void __launch_bounds__(kQMaxThreads)
   }
 }
 
-template <typename T>
-int launch_quantize(const void* x, void* x8, float* sx, int M, int K,
-                    cudaStream_t stream) {
+template <typename T, int Mode>
+int launch_quantize(const void* x, void* x8, float* sx, const float* amax_in,
+                    int M, int K, cudaStream_t stream) {
   // one thread per 8 values of the row, whole warps, at most kQMaxThreads
   const int warps = (K / 8 + 31) / 32;
   const int threads = warps * 32 < kQMaxThreads ? warps * 32 : kQMaxThreads;
-  quantize_rows_kernel<T><<<M, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(x8), sx, K);
+  quantize_rows_kernel<T, Mode><<<M, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<int8_t*>(x8), sx, amax_in, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,16 +698,40 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <int Mode>
+int quantize_entry(const void* x, void* x8, float* sx, const float* amax_in,
+                   int M, int K, int in_dtype, cudaStream_t stream) {
+  if (!aligned16(x) || (Mode != kAmax && !aligned16(x8))) return kErrAlignment;
+  if (in_dtype == 0)
+    return launch_quantize<float, Mode>(x, x8, sx, amax_in, M, K, stream);
+  if (in_dtype == 1)
+    return launch_quantize<__nv_bfloat16, Mode>(x, x8, sx, amax_in, M, K,
+                                                stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" int quantize_rows(const void* x, void* x8, float* sx, int M, int K,
                              int in_dtype, void* stream) {
-  if (!aligned16(x) || !aligned16(x8)) return kErrAlignment;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) return launch_quantize<float>(x, x8, sx, M, K, st);
-  if (in_dtype == 1)
-    return launch_quantize<__nv_bfloat16>(x, x8, sx, M, K, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return quantize_entry<kFused>(x, x8, sx, nullptr, M, K, in_dtype,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// x8 and sx of x with each row's amax given (amax (M,) fp32): the fused
+// entry's arithmetic from its amax on.
+extern "C" int quantize_rows_given(const void* x, const float* amax, void* x8,
+                                   float* sx, int M, int K, int in_dtype,
+                                   void* stream) {
+  return quantize_entry<kGiven>(x, x8, sx, amax, M, K, in_dtype,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// amax (M,) fp32: max |x| over each row, as the fused entry takes it.
+extern "C" int row_amax(const void* x, float* amax, int M, int K,
+                        int in_dtype, void* stream) {
+  return quantize_entry<kAmax>(x, nullptr, amax, nullptr, M, K, in_dtype,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The argument list of `int8_gemm_dequant`, for tools that bind the

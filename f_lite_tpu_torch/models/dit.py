@@ -26,6 +26,22 @@ Int8 serving (`quantized=True`, `f_lite_tpu_torch/quant.py`): the
 `QUANT_TARGETS` projections are `QuantDense` layers (int8 weights, fp32
 scales, per-token activation quantization; the Hopper int8 kernels on the
 card); every other layer stays as it is.
+
+Head padding (`padded_heads`, JAX's `DiTConfig.padded_heads`): attention
+computes with `compute_heads` heads, the extra ones zero (their q/k/v rows
+and bias and their `proj` input columns are zero: `convert.heads`), so a
+tensor-parallel degree that does not divide `num_heads` still splits the
+heads evenly. `head_dim` and the softmax scale stay those of `num_heads`.
+
+Tensor and sequence parallelism (`parallel/tensor.py` `parallelize_dit`):
+the parameters become DTensors on the tp mesh, and every layer computes on
+its local shard (`parallel.sharding.local`), so no DTensor reaches a
+kernel. `Attention` reshapes by its local head count, read from the
+projection's output width. The collectives sit where JAX's `_constrain`
+hints sit: the modules call `parallel.tensor` on entering the
+column-parallel products and on leaving the row-parallel ones, and the DiT
+splits the residual stream over the tp ranks along L under sequence
+parallelism (`seq`) and gathers it whole for the final layer.
 """
 
 from __future__ import annotations
@@ -48,13 +64,17 @@ from f_lite_tpu_torch.ops.norms import rms_norm
 from f_lite_tpu_torch.ops.patching import patchify, unpatchify
 from f_lite_tpu_torch.ops.rope import apply_rotary, rope_2d_freqs
 from f_lite_tpu_torch.ops.timesteps import timestep_embedding
+from f_lite_tpu_torch.parallel import tensor as tpar
+from f_lite_tpu_torch.parallel.sharding import local as _local
 from f_lite_tpu_torch.quant import QUANT_TARGETS, quant_matmul
 from f_lite_tpu_torch.utils.random_weights import lecun_normal_
 
 
 # `dit/config.json` fields that shape only the JAX program or the saved
 # parameter layout (scan-stacked, pipeline-parallel, head-padded; undone at
-# load by `convert.from_jax.state_dict_from_jax`): ignored here
+# load by `convert.from_jax.state_dict_from_jax`): ignored when a saved
+# config is read, and written at these values (`padded_heads` is set at
+# load, `FLitePipeline.from_pretrained(pad_heads_to=)`)
 _PROGRAM_ONLY = {"pipeline_microbatches": 1, "use_pallas_attention": None,
                  "scan_layers": False, "pipeline_stages": 1,
                  "padded_heads": None}
@@ -86,6 +106,7 @@ class DiTConfig:
     gradient_checkpoint_from: int = 8  # recompute blocks >= this
     remat_policy: str = "full"  # "full": keep block inputs; "dots": + products
     quantized: bool = False  # int8 W8A8 projections (inference)
+    padded_heads: int | None = None  # attention heads computed (>= num_heads)
     dtype: torch.dtype | None = None  # compute dtype; None = param dtype
 
     def __post_init__(self):
@@ -93,6 +114,8 @@ class DiTConfig:
             raise ValueError(f"adaln_mode {self.adaln_mode!r}")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy {self.remat_policy!r}")
+        if self.padded_heads is not None and self.padded_heads < self.num_heads:
+            raise ValueError("padded_heads must be >= num_heads")
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "DiTConfig":
@@ -102,7 +125,8 @@ class DiTConfig:
         unknown = set(d) - fields - set(_PROGRAM_ONLY)
         if unknown:
             raise ValueError(f"DiTConfig: unknown fields {sorted(unknown)}")
-        return cls(**{k: v for k, v in d.items() if k in fields})
+        return cls(**{k: v for k, v in d.items()
+                      if k in fields and k not in _PROGRAM_ONLY})
 
     def to_json_dict(self) -> dict:
         """`dit/config.json` as the JAX package writes it: every field of
@@ -116,6 +140,12 @@ class DiTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def compute_heads(self) -> int:
+        """The heads attention computes with: `padded_heads`, else
+        `num_heads`."""
+        return self.padded_heads or self.num_heads
 
     def block_has_cross_attn(self, idx: int) -> bool:
         if self.cross_attn_all:
@@ -142,8 +172,8 @@ class Dense(nn.Linear):
     cast to it inside the layer (flax's `dtype` over `param_dtype`)."""
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        bias = None if self.bias is None else _local(self.bias).to(x.dtype)
+        return F.linear(x, _local(self.weight).to(x.dtype), bias)
 
 
 class QuantDense(nn.Module):
@@ -176,8 +206,15 @@ class QuantDense(nn.Module):
             self.scale = scale.to(self.scale.device)
         return self
 
+    # set by `parallel.tensor.parallelize_dit` on the row-parallel layers:
+    # their K is split over the tp ranks, and each row's amax is the whole
+    # K's (taken over the group)
+    tp_amax = None
+
     def forward(self, x):
-        return quant_matmul(x, self.w8, self.scale, self.bias)
+        return quant_matmul(x, _local(self.w8), _local(self.scale),
+                            None if self.bias is None else _local(self.bias),
+                            amax_group=self.tp_amax)
 
 
 def _linear(cfg: "DiTConfig", name: str, d_in: int, d_out: int,
@@ -190,14 +227,17 @@ def _linear(cfg: "DiTConfig", name: str, d_in: int, d_out: int,
 
 
 class RMSNormModule(nn.Module):
-    """RMSNorm with a learnable weight, fp32 statistics."""
+    """RMSNorm with a learnable weight, fp32 statistics. `tp`: the rows are
+    this rank's share of the sequence, so the weight's gradient is summed
+    over the tp group (`parallel.tensor.copy_to_tp`)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
-        return rms_norm(x, self.weight)
+    def forward(self, x, tp=None):
+        w = _local(self.weight)
+        return rms_norm(x, w if tp is None else tpar.copy_to_tp(w, tp))
 
 
 class Attention(nn.Module):
@@ -205,28 +245,37 @@ class Attention(nn.Module):
     then the dynamic temperature on k, then the non-trainable QK-RMSNorm,
     then the attention kernel, then the bias-free out projection."""
 
+    tp = None  # parallel.tensor.TPContext, set by parallelize_dit
+
     def __init__(self, cfg: DiTConfig, *, is_self_attn: bool,
                  has_lambda_v: bool = False):
         super().__init__()
         self.cfg = cfg
         self.is_self_attn = is_self_attn
         d, bias = cfg.hidden_size, cfg.train_bias_and_rms
+        hd = cfg.compute_heads * cfg.head_dim  # d, or wider with padded heads
         if is_self_attn:
-            self.qkv = _linear(cfg, "qkv", d, 3 * d, bias)
+            self.qkv = _linear(cfg, "qkv", d, 3 * hd, bias)
         else:
-            self.q = _linear(cfg, "q", d, d, bias)
-            self.context_kv = _linear(cfg, "context_kv", d, 2 * d, bias)
-        self.proj = _linear(cfg, "proj", d, d, False)
+            self.q = _linear(cfg, "q", d, hd, bias)
+            self.context_kv = _linear(cfg, "context_kv", d, 2 * hd, bias)
+        self.proj = _linear(cfg, "proj", hd, d, False)
         if has_lambda_v:
             self.lambda_v = nn.Parameter(torch.full((1,), 0.5))
 
     def forward(self, x, *, context=None, context_mask=None, rope=None,
-                v_first=None):
-        cfg = self.cfg
-        h, d = cfg.num_heads, cfg.head_dim
+                v_first=None, seq=False):
+        """`seq`: x is this rank's share of the sequence (sequence
+        parallelism); the output is too."""
+        cfg, tp = self.cfg, self.tp
+        d = cfg.head_dim
+        if tp is not None:
+            x = tpar.enter_columns(x, tp, seq)
         b, lq = x.shape[:2]
         if self.is_self_attn:
-            qkv = self.qkv(x).reshape(b, lq, 3, h, d).permute(2, 0, 3, 1, 4)
+            qkv = self.qkv(x)
+            h = qkv.shape[-1] // (3 * d)  # this rank's heads
+            qkv = qkv.reshape(b, lq, 3, h, d).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, L, D)
             if rope is not None:
                 cos, sin = rope
@@ -238,7 +287,11 @@ class Attention(nn.Module):
             kv_mask = None
         else:
             lk = context.shape[1]
-            q = self.q(x).reshape(b, lq, h, d).transpose(1, 2)
+            if tp is not None:
+                context = tpar.copy_to_tp(context, tp)
+            q = self.q(x)
+            h = q.shape[-1] // d
+            q = q.reshape(b, lq, h, d).transpose(1, 2)
             kv = self.context_kv(context).reshape(b, lk, 2, h, d)
             kv = kv.permute(2, 0, 3, 1, 4)
             k, v = kv[0], kv[1]
@@ -249,17 +302,24 @@ class Attention(nn.Module):
             if v_first is None:
                 v_first_out = v
             else:
-                lamb = self.lambda_v.to(v.dtype)
+                lamb = _local(self.lambda_v)
+                if tp is not None:  # it mixes this rank's heads only
+                    lamb = tpar.copy_to_tp(lamb, tp)
+                lamb = lamb.to(v.dtype)
                 v = lamb * v + (1.0 - lamb) * v_first
 
         q = rms_norm(q)
         k = rms_norm(k)
         out = attention(q, k, v, kv_mask=kv_mask, scale=d**-0.5)
         out = self.proj(out.transpose(1, 2).reshape(b, lq, h * d))
+        if tp is not None:
+            out = tpar.exit_rows(out, tp, seq)
         return out, v_first_out
 
 
 class SwiGLUMLP(nn.Module):
+    tp = None  # parallel.tensor.TPContext, set by parallelize_dit
+
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         d, inter = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
@@ -267,8 +327,13 @@ class SwiGLUMLP(nn.Module):
         self.up_proj = _linear(cfg, "up_proj", d, inter, False)
         self.down_proj = _linear(cfg, "down_proj", inter, d, False)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, seq=False):
+        if self.tp is not None:
+            x = tpar.enter_columns(x, self.tp, seq)
+        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp is not None:
+            y = tpar.exit_rows(y, self.tp, seq)
+        return y
 
 
 def _adaln_head(d: int, n: int) -> nn.Sequential:
@@ -279,7 +344,10 @@ def _adaln_head(d: int, n: int) -> nn.Sequential:
 class DiTBlock(nn.Module):
     """Pre-RMSNorm AdaLN block: self-attention, optional cross-attention,
     SwiGLU MLP. `modulation` (B, 9, D) holds (shift, scale, gate) for
-    (self-attention, cross-attention, MLP)."""
+    (self-attention, cross-attention, MLP). `seq`: x is this rank's share
+    of the sequence (sequence parallelism), and so is the output."""
+
+    tp = None  # parallel.tensor.TPContext, set by parallelize_dit
 
     def __init__(self, cfg: DiTConfig, idx: int):
         super().__init__()
@@ -299,21 +367,27 @@ class DiTBlock(nn.Module):
             self.adaLN_modulation = _adaln_head(d, 9)
 
     def forward(self, x, context, context_mask, modulation, rope,
-                v_first=None):
+                v_first=None, seq=False):
+        # on a share of the sequence, the replicated modulation and norm
+        # weights see a share of the rows: their gradients sum over tp
+        tp = self.tp if seq else None
+        if tp is not None:
+            modulation = tpar.copy_to_tp(modulation, tp)
         m = modulation[:, :, None, :].to(x.dtype).unbind(1)
         (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
          shift_mlp, scale_mlp, gate_mlp) = m
 
-        norm_x = self.norm1(x) * (1 + scale_sa) + shift_sa
-        attn_out, v_first = self.self_attn(norm_x, rope=rope, v_first=v_first)
+        norm_x = self.norm1(x, tp) * (1 + scale_sa) + shift_sa
+        attn_out, v_first = self.self_attn(norm_x, rope=rope, v_first=v_first,
+                                           seq=seq)
         x = x + attn_out * gate_sa
         if self.do_cross_attn:
-            norm_x = self.norm2(x) * (1 + scale_ca) + shift_ca
+            norm_x = self.norm2(x, tp) * (1 + scale_ca) + shift_ca
             ca, _ = self.cross_attn(norm_x, context=context,
-                                    context_mask=context_mask)
+                                    context_mask=context_mask, seq=seq)
             x = x + ca * gate_ca
-        norm_x = self.norm3(x) * (1 + scale_mlp) + shift_mlp
-        x = x + self.mlp(norm_x) * gate_mlp
+        norm_x = self.norm3(x, tp) * (1 + scale_mlp) + shift_mlp
+        x = x + self.mlp(norm_x, seq) * gate_mlp
         return x, v_first
 
 
@@ -327,9 +401,9 @@ class PatchEmbed(nn.Module):
         self.patch_proj = nn.Conv2d(c, d, kernel_size=p, stride=p)
 
     def forward(self, tokens):
-        w = self.patch_proj.weight.to(tokens.dtype)  # (D, C, p, p)
+        w = _local(self.patch_proj.weight).to(tokens.dtype)  # (D, C, p, p)
         w = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
-        return F.linear(tokens, w, self.patch_proj.bias.to(tokens.dtype))
+        return F.linear(tokens, w, _local(self.patch_proj.bias).to(tokens.dtype))
 
 
 # the weight products, which "dots" keeps (JAX's
@@ -354,6 +428,8 @@ def _dots_saveable_contexts():
 class DiT(nn.Module):
     """The denoiser: forward(x (B,H,W,C), context (B,S,Ctx), context_mask
     (B,S) bool or None, t (B,)) -> velocity (B,H,W,C), all NHWC."""
+
+    tp = None  # parallel.tensor.TPContext, set by parallelize_dit
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -431,7 +507,7 @@ class DiT(nn.Module):
         if token_indices is not None:
             patches = torch.take_along_dim(patches, token_indices[..., None], dim=1)
         tokens = self.patch_embed(patches)
-        reg = self.register_tokens.to(dtype).expand(b, -1, -1)
+        reg = _local(self.register_tokens).to(dtype).expand(b, -1, -1)
         tokens = torch.cat([reg, tokens], dim=1)
 
         if cfg.use_rope:
@@ -447,7 +523,7 @@ class DiT(nn.Module):
                                tab[nreg:][token_indices]], dim=1)
                     for tab in rope)
         else:
-            pos = self.positional_embedding
+            pos = _local(self.positional_embedding)
             if token_indices is None:
                 pos = pos[:, : tokens.shape[1], :]
             else:
@@ -461,6 +537,12 @@ class DiT(nn.Module):
         if cfg.adaln_mode == "shared":
             modulation = self.adaLN_modulation(t_emb).reshape(b, 9, d)
 
+        # sequence parallelism: each tp rank carries its share of the
+        # sequence through the blocks, where L divides over the ranks
+        seq = self.tp is not None and tpar.shards_sequence(self.tp, tokens.shape[1])
+        if seq:
+            tokens = tpar.split_sequence(tokens, self.tp)
+
         remat = cfg.gradient_checkpoint and torch.is_grad_enabled()
         context_fn = (_dots_saveable_contexts if cfg.remat_policy == "dots"
                       else noop_context_fn)
@@ -468,7 +550,7 @@ class DiT(nn.Module):
         for idx, block in enumerate(self.blocks):
             if cfg.adaln_mode == "per_block":
                 modulation = block.adaLN_modulation(t_emb).reshape(b, 9, d)
-            args = (tokens, context, context_mask, modulation, rope, v_first)
+            args = (tokens, context, context_mask, modulation, rope, v_first, seq)
             if remat and idx >= cfg.gradient_checkpoint_from:
                 # "full" keeps the block's inputs only; "dots" also the
                 # weight products. The backward runs the rest of the block
@@ -479,6 +561,8 @@ class DiT(nn.Module):
             else:
                 tokens, v_first = block(*args)
 
+        if seq:  # the final layer sees whole tokens
+            tokens = tpar.gather_sequence(tokens, self.tp)
         # drop registers; final modulation + projection
         tokens = tokens[:, nreg:, :]
         final_mod = self.final_modulation(t_emb).reshape(b, 2, d)

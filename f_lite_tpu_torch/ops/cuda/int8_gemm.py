@@ -10,6 +10,10 @@ What they compute, for x (M, K) and a weight quantized per output row,
 w8 (N, K) int8 and scale (N,) fp32:
 - quantize_rows: sx = max|x| / 127 over each row in fp32 (1 where that is
   0), x8 = clip(round(x / sx), -127, 127), rounding half to even;
+- quantize_rows_given / row_amax: the same with each row's amax given, and
+  the amax alone: a row-parallel layer under tensor parallelism holds K / tp
+  of each row, takes the ranks' maximum of its `row_amax` and quantizes
+  with it, so sx is the whole row's, as under JAX's SPMD;
 - int8_gemm_dequant: acc = x8 @ w8^T in int32, then
   y = ((float(acc) * sx[:, None]) * scale).to(out_dtype), then
   y + bias.to(out_dtype) in out_dtype: the order of `quant_matmul` and
@@ -30,8 +34,8 @@ below COOPERATIVE_MIN_K, a cooperative 128 x 256 tile from it.
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. The plain product is exact int32 on the
 CPU and float64 on the card (exact while 127^2 * K < 2^53; CUDA has no
-integer matmul). `QUANTIZE_LAUNCHES` and `GEMM_LAUNCHES` count kernel
-launches.
+integer matmul). `QUANTIZE_LAUNCHES` (every entry of the quantize kernel)
+and `GEMM_LAUNCHES` count kernel launches.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 from f_lite_tpu_torch.ops.cuda.build import load
 from f_lite_tpu_torch.ops.cuda.flash_attention import LaunchCounter
 
-QUANTIZE_LAUNCHES = LaunchCounter()  # quantize_rows
+QUANTIZE_LAUNCHES = LaunchCounter()  # quantize_rows, _given, row_amax
 GEMM_LAUNCHES = LaunchCounter()      # int8_gemm_dequant (and its int32 mode)
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,6 +86,21 @@ def quantize_rows_plain(x: torch.Tensor):
     sx = amax / torch.full_like(amax, 127.0)
     sx = torch.where(sx == 0, torch.ones_like(sx), sx)
     x8 = torch.clamp(torch.round(xf / sx[..., None]), -127, 127)
+    return x8.to(torch.int8), sx
+
+
+def row_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """amax (...,) fp32: max |x| over x's last dim."""
+    return x.float().abs().amax(dim=-1)
+
+
+def quantize_rows_given_plain(x: torch.Tensor, amax: torch.Tensor):
+    """`quantize_rows_plain` with each row's amax given (its arithmetic
+    from the amax on): (x8 int8, sx fp32)."""
+    amax = amax.float()
+    sx = amax / torch.full_like(amax, 127.0)
+    sx = torch.where(sx == 0, torch.ones_like(sx), sx)
+    x8 = torch.clamp(torch.round(x.float() / sx[..., None]), -127, 127)
     return x8.to(torch.int8), sx
 
 
@@ -210,6 +229,52 @@ def quantize_rows(x: torch.Tensor):
           (m, k, _IN_CODES[x.dtype]), x.device)
     QUANTIZE_LAUNCHES.count += 1
     return x8, sx
+
+
+def _check_rows(x):
+    """(M, K) of a CUDA x the quantize kernel takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_gemm: unsupported device {x.device}")
+    _check_matrix("x", x, tuple(_IN_CODES))
+    m, k = x.shape
+    _check_k(k)
+    if m == 0:
+        raise ValueError("int8_gemm: x has no rows")
+    return m, k
+
+
+def quantize_rows_given(x: torch.Tensor, amax: torch.Tensor):
+    """(x8 (M, K) int8, sx (M,) fp32) of x (M, K) quantized with each row's
+    amax given (amax (M,) fp32): `quantize_rows_given_plain` on the CPU,
+    the quantize kernel's given-amax entry on the card. Fed
+    `row_amax(x)`, it equals `quantize_rows(x)` bit for bit."""
+    if x.device.type == "cpu":
+        return quantize_rows_given_plain(x, amax)
+    m, k = _check_rows(x)
+    if amax.shape != (m,) or amax.dtype != torch.float32 \
+            or amax.device != x.device or not amax.is_contiguous():
+        raise ValueError(f"int8_gemm: amax must be contiguous ({m},) float32 on "
+                         f"{x.device}, got {tuple(amax.shape)} {amax.dtype}")
+    x8 = torch.empty((m, k), device=x.device, dtype=torch.int8)
+    sx = torch.empty((m,), device=x.device, dtype=torch.float32)
+    _call("quantize_rows_given",
+          (x.data_ptr(), amax.data_ptr(), x8.data_ptr(), sx.data_ptr()),
+          (m, k, _IN_CODES[x.dtype]), x.device)
+    QUANTIZE_LAUNCHES.count += 1
+    return x8, sx
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """amax (M,) fp32 = max |x| over each row of x (M, K): `row_amax_plain`
+    on the CPU, the quantize kernel's amax entry on the card."""
+    if x.device.type == "cpu":
+        return row_amax_plain(x)
+    m, k = _check_rows(x)
+    amax = torch.empty((m,), device=x.device, dtype=torch.float32)
+    _call("row_amax", (x.data_ptr(), amax.data_ptr()), (m, k, _IN_CODES[x.dtype]),
+          x.device)
+    QUANTIZE_LAUNCHES.count += 1
+    return amax
 
 
 def _gemm(x8, sx, w8, scale, bias, out_dtype):

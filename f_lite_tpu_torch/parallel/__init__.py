@@ -1,8 +1,8 @@
-"""Data-parallel and FSDP training across GPUs (counterpart of
-`f_lite_tpu/parallel/`): the process group and mesh (`mesh.py`), FSDP2
-sharding of the DiT and the batch and state across ranks (`sharding.py`).
-Tensor parallelism waits for ROADMAP A 12b, `pipeline.py` (`--pp`) for
-A 12c."""
+"""Training and serving across GPUs (counterpart of `f_lite_tpu/parallel/`):
+the process group and the `("dp", "fsdp", "tp")` mesh (`mesh.py`), tensor
+and sequence parallelism of the DiT (`tensor.py`), FSDP2 sharding of the
+DiT and the batch and state across ranks (`sharding.py`). `pipeline.py`
+(`--pp`) waits for ROADMAP A 12c."""
 
 from f_lite_tpu_torch.parallel.mesh import (
     create_mesh,
@@ -16,7 +16,8 @@ from f_lite_tpu_torch.parallel.sharding import (
     local_rows,
     shard_dit,
 )
+from f_lite_tpu_torch.parallel.tensor import parallelize_dit
 
 __all__ = ["copy_full_", "create_mesh", "full_state_dict", "init_distributed",
-           "load_full_state_dict", "local_rows", "process_replica_info",
-           "shard_dit"]
+           "load_full_state_dict", "local_rows", "parallelize_dit",
+           "process_replica_info", "shard_dit"]

@@ -10,15 +10,20 @@ is one rank and no process group is formed; under `torchrun` a group is
 formed at every world size, one rank included (NCCL on the card, gloo on
 the CPU, as the caller's device says).
 
-The mesh is `("dp", "fsdp")`: `dp` replicates (the reference's
+The mesh is `("dp", "fsdp", "tp")`: `dp` replicates (the reference's
 inter-node `replicate` axis), `fsdp` shards the parameters (its
 intra-node `shard` axis, `distributed.py:46-100`); both above 1 is HSDP.
-Tensor and pipeline axes are not ported yet (ROADMAP A 12b, A 12c).
+`tp` splits heads and the MLP width (Megatron, `parallel/tensor.py`); it
+is innermost, so a tp group is consecutive ranks, inside one node. The
+data replicas are dp x fsdp, and the ranks of one tp group see the same
+rows. The pipeline axis is not ported yet (ROADMAP A 12c).
 
 `LOGICAL_RULES`, `SP_RULES`, `mesh_rules` and `use_mesh_rules` have no
-counterpart: PyTorch places each tensor by the module's sharding plan
-(`parallel/sharding.py` `shard_dit`), not by logical axes read while a
-program is traced. Sequence parallelism comes with A 12b.
+counterpart: PyTorch places each tensor by the module's plans
+(`parallel/tensor.py` `parallelize_dit` on the tp sub-mesh, then
+`parallel/sharding.py` `shard_dit` on the data sub-mesh), not by logical
+axes read while a program is traced; sequence parallelism is
+`parallelize_dit(sequence_parallel=True)`.
 """
 
 from __future__ import annotations
@@ -101,32 +106,47 @@ def host_all_reduce(values, op=dist.ReduceOp.SUM, group=None) -> list[float]:
     return t.tolist()
 
 
-def resolve_mesh(dp: int, fsdp: int, world: int) -> tuple[int, int]:
-    """(dp, fsdp) for a world of `world` ranks: `fsdp` 0 takes every rank
-    that `dp` leaves. dp x fsdp must equal the world (JAX's
-    `fsdp = args.fsdp or n_dev // dp` may leave chips idle; here a rank
-    left out would have nothing to do)."""
-    if dp < 1 or fsdp < 0:
-        raise ValueError(f"--dp {dp} --fsdp {fsdp}: dp must be >= 1, fsdp >= 0")
+def resolve_mesh(dp: int, fsdp: int, world: int, tp: int = 1) -> tuple[int, int]:
+    """(dp, fsdp) for a world of `world` ranks at `tp`: `fsdp` 0 takes every
+    rank that dp x tp leaves. dp x fsdp x tp must equal the world (JAX's
+    `fsdp = args.fsdp or n_dev // (dp * tp)` may leave chips idle; here a
+    rank left out would have nothing to do)."""
+    if dp < 1 or fsdp < 0 or tp < 1:
+        raise ValueError(f"--dp {dp} --fsdp {fsdp} --tp {tp}: dp and tp must be "
+                         ">= 1, fsdp >= 0")
     if fsdp == 0:
-        if world % dp:
-            raise ValueError(f"--dp {dp} does not divide the world of {world} "
-                             "ranks, so --fsdp 0 cannot fill it")
-        fsdp = world // dp
-    if dp * fsdp != world:
-        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} = {dp * fsdp} != {world} "
-                         f"ranks: dp x fsdp must equal WORLD_SIZE ({world})")
+        if world % (dp * tp):
+            raise ValueError(f"--dp {dp} x --tp {tp} does not divide the world of "
+                             f"{world} ranks, so --fsdp 0 cannot fill it")
+        fsdp = world // (dp * tp)
+    if dp * fsdp * tp != world:
+        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} x tp={tp} = {dp * fsdp * tp} "
+                         f"!= {world} ranks: dp x fsdp x tp must equal WORLD_SIZE "
+                         f"({world})")
     return dp, fsdp
 
 
-def create_mesh(dp: int = 1, fsdp: int = 1, *, device_type: str):
-    """The `("dp", "fsdp")` device mesh over the process group's ranks
-    (dp outermost: across nodes where it spans them; `fsdp` 0 as in
-    `resolve_mesh`). Tensor and pipeline axes come with ROADMAP A 12b and
-    A 12c: until then the trainer rejects `--tp` and `--pp` before it gets
-    here."""
+def create_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, *, device_type: str):
+    """The `("dp", "fsdp", "tp")` device mesh over the process group's ranks
+    (dp outermost: across nodes where it spans them; tp innermost, inside a
+    node; `fsdp` 0 as in `resolve_mesh`). `mesh["tp"]` is the tensor-parallel
+    sub-mesh, `mesh["dp", "fsdp"]` the data one."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp, fsdp = resolve_mesh(dp, fsdp, world)
-    return init_device_mesh(device_type, (dp, fsdp), mesh_dim_names=("dp", "fsdp"))
+    dp, fsdp = resolve_mesh(dp, fsdp, world, tp)
+    return init_device_mesh(device_type, (dp, fsdp, tp),
+                            mesh_dim_names=("dp", "fsdp", "tp"))
+
+
+def data_group(mesh):
+    """The group of this rank's data replicas (the ranks of its tp index
+    across dp x fsdp): the loss and the decile sums add up over it. The
+    default group where tp is 1. Every rank must call this."""
+    tp = mesh["tp"].size()
+    if tp == 1:
+        return None
+    ranks = mesh.mesh.reshape(-1, tp)
+    group, _ = dist.new_subgroups_by_enumeration(
+        [ranks[:, t].tolist() for t in range(tp)])
+    return group

@@ -2,19 +2,24 @@
 of `f_lite_tpu/parallel/sharding.py`).
 
 - `shard_dit`: `fully_shard` on each block, then on the root, the
-  reference's grouping (`distributed.py:83-100`). On a 2-D `("dp",
-  "fsdp")` mesh FSDP2 runs HSDP: shards over fsdp, replicas over dp (at
-  fsdp 1, replicated parameters and all-reduced gradients). The DiT keeps
-  its own casts (fp32 master weights, compute in `config.dtype`): no
-  `MixedPrecisionPolicy`, so the all-gathers move fp32.
+  reference's grouping (`distributed.py:83-100`), over the data mesh
+  (`("dp", "fsdp")`). There FSDP2 runs HSDP: shards over fsdp, replicas
+  over dp (at fsdp 1, replicated parameters and all-reduced gradients). On
+  a DiT that `parallel.tensor.parallelize_dit` split over the tp sub-mesh
+  first, it is 2-D FSDP2 + TP. The DiT keeps its own casts (fp32 master
+  weights, compute in `config.dtype`): no `MixedPrecisionPolicy`, so the
+  all-gathers move fp32.
 - `rank_rows` / `local_rows`: this rank's rows of a step's batch, the
   counterpart of `put_global_batch` and `batch_sharding`: each node loads
-  the batch a JAX host loads, each of its ranks keeps a contiguous
-  1/LOCAL_WORLD_SIZE of it, so rank r holds block r of the global batch.
+  the batch a JAX host loads, and each of its data replicas (its ranks /
+  tp) keeps a contiguous share of it, so replica r holds block r of the
+  global batch; the ranks of one tp group take the same rows.
 - `full_tensor`, `full_state_dict`: whole tensors (one DTensor gathered
-  at a time), on the CPU of rank 0 for a checkpoint or an export;
-  `copy_full_`, `load_full_state_dict`: each rank keeps its shard of a
-  whole tensor.
+  at a time) in the reference layout, on the CPU of rank 0 for a
+  checkpoint or an export; `copy_full_`, `load_full_state_dict`: each rank
+  keeps its shard of a whole tensor in the reference layout. The names say
+  which tensors `parallelize_dit` holds in another layout
+  (`parallel.tensor.head_layout`).
 
 `infer_param_shardings`, `shard_params` and `replicated` have no
 counterpart: JAX places a parameter tree by the logical axes its
@@ -30,16 +35,20 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from f_lite_tpu_torch.parallel.tensor import memory_layout, reference_layout, tp_size
+
 
 def shard_dit(model: nn.Module, mesh) -> nn.Module:
     """`fully_shard` the DiT in place: each block (and, with per-block
     AdaLN, the block's head first: the DiT calls it outside the block's
     forward), then the root; each group frees its whole parameters after
-    its forward and gathers them again for the backward. A 1-D mesh, or
-    dp 1, shards over fsdp; a 2-D mesh with dp > 1 is HSDP. Returns
-    `model`."""
+    its forward and gathers them again for the backward. `mesh` is
+    `create_mesh`'s (its data sub-mesh is used) or a data mesh: a 1-D mesh,
+    or dp 1, shards over fsdp; dp > 1 is HSDP. Returns `model`."""
     from torch.distributed.fsdp import fully_shard
 
+    if mesh.ndim == 3:
+        mesh = mesh["dp", "fsdp"]
     if mesh.ndim == 2 and mesh.size(0) == 1:
         mesh = mesh["fsdp"]
     for block in model.blocks:
@@ -62,20 +71,28 @@ def local_rows(x, local_world: int, local_rank: int):
 
 
 def rank_rows(node_batch: int, *, world: int = 1, rank: int = 0,
-              local_world: int = 1, multiplicity: int = 1):
+              local_world: int = 1, multiplicity: int = 1, tp: int = 1):
     """This rank's share of a step whose node batch has `node_batch` rows,
     each repeated `multiplicity` times (`--batch_multiplicity` tiles the
-    node batch): (the node rows it takes, repeats included; its first row
-    of the global batch; the global batch's size)."""
+    node batch), at `tp` ranks a tp group: (the node rows it takes, repeats
+    included; its first row of the global batch; the global batch's size).
+    The batch splits over the data replicas, rank // tp of world // tp
+    (local_world // tp a node), so tp peers take the same rows and draw
+    the same values (`train.loss.LossDraws.rows` at those bounds)."""
+    replicas, replica, local = world // tp, rank // tp, local_world // tp
     n_node = node_batch * multiplicity
-    rows = local_rows(np.arange(n_node), local_world, rank % local_world) % node_batch
-    return rows, rank * len(rows), len(rows) * world
+    rows = local_rows(np.arange(n_node), local, replica % local) % node_batch
+    return rows, replica * len(rows), len(rows) * replicas
 
 
-def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """The whole of `t`: a DTensor all-gathered (every rank of its mesh
-    must call this), a plain tensor as it is."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
+def full_tensor(t: torch.Tensor, name: str = "") -> torch.Tensor:
+    """The whole of `t` in the reference layout: a DTensor all-gathered
+    (every rank of its mesh must call this) and, where `name` is a fused
+    projection's split over tp, its rows put back in the reference order;
+    a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return reference_layout(t.full_tensor(), name, tp_size(t))
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -95,7 +112,7 @@ def full_state_dict(module_or_tensors) -> dict:
     rank = dist.get_rank() if dist.is_initialized() else 0
     out = {}
     for name, t in tensors.items():
-        whole = full_tensor(t.detach())
+        whole = full_tensor(t.detach(), name)
         if rank == 0:
             out[name] = whole.to("cpu", copy=True)
         del whole
@@ -103,13 +120,16 @@ def full_state_dict(module_or_tensors) -> dict:
 
 
 @torch.no_grad()
-def copy_full_(dst: torch.Tensor, whole: torch.Tensor) -> None:
-    """Copy a whole tensor into `dst`: into this rank's shard where `dst`
-    is a DTensor (cut from `whole` on each rank, no collective)."""
+def copy_full_(dst: torch.Tensor, whole: torch.Tensor, name: str = "") -> None:
+    """Copy a whole tensor in the reference layout into `dst`: into this
+    rank's shard where `dst` is a DTensor (cut from `whole` on each rank, no
+    collective; a fused projection's rows named by `name` rank-major
+    first)."""
     if whole.shape != dst.shape:
         raise ValueError(f"a whole tensor of shape {tuple(whole.shape)} does not "
                          f"fit {tuple(dst.shape)}")
     if isinstance(dst, DTensor):
+        whole = memory_layout(whole, name, tp_size(dst))
         whole = distribute_tensor(whole, dst.device_mesh, dst.placements, src_data_rank=None)
     local(dst).copy_(local(whole))
 
@@ -118,4 +138,4 @@ def load_full_state_dict(tensors: dict, whole) -> None:
     """`copy_full_` each of `tensors` ({name: tensor or DTensor}) from
     `whole[name]` ({name: whole tensor}, read one at a time)."""
     for name, t in tensors.items():
-        copy_full_(t, whole[name])
+        copy_full_(t, whole[name], name)

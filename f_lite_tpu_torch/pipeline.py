@@ -268,7 +268,8 @@ class FLitePipeline:
                         load_text_encoder: bool = True,
                         lora_path: str | Path | None = None,
                         lora_alpha: float | None = None,
-                        lora_scale: float = 1.0) -> "FLitePipeline":
+                        lora_scale: float = 1.0,
+                        pad_heads_to: int | None = None) -> "FLitePipeline":
         """Load a pipeline: `path` is a native directory or a
         diffusers-layout snapshot directory (`convert.ingest.
         resolve_pretrained`: converted on first use and cached). The DiT
@@ -283,6 +284,12 @@ class FLitePipeline:
         raises, as do scan-stacked, pipeline-parallel and head-padded
         checkpoints, whose saved kernels the factors do not fit.
 
+        `pad_heads_to=N`: attention computes with N heads, the extra ones
+        zero (`DiTConfig.padded_heads`, `convert.heads`), so that a
+        tensor-parallel degree that does not divide `num_heads` (7B: 10,
+        10B: 12) splits them evenly. Exact in math; a LoRA merges before
+        the padding, and int8 quantization comes after it, as in JAX.
+
         `quantize=True`: int8 W8A8 projections (`quant.quantize_dit`),
         quantized from the weights after their cast to `dtype`, as the JAX
         package does; the argument decides, whatever the saved config says.
@@ -294,7 +301,7 @@ class FLitePipeline:
         device = resolve_device(device)
         path = resolve_pretrained(path)
         index = json.loads((path / "model_index.json").read_text())
-        flat = load_file(path / "dit" / "flax_params.safetensors")
+        flat = load_file(path / "dit" / "flax_params.safetensors", bf16_bits=True)
         saved_int8 = any(k.endswith(".w8") for k in flat)
         if saved_int8 and not quantize:
             raise ValueError(f"{path}: the DiT's weights are int8; load it "
@@ -302,8 +309,9 @@ class FLitePipeline:
         cfg_json = json.loads((path / "dit" / "config.json").read_text())
         cfg = dataclasses.replace(DiTConfig.from_json_dict(cfg_json),
                                   quantized=saved_int8)
-        dit = DiT(cfg)
-        dit.load_state_dict(state_dict_from_jax(flat, cfg))
+        with torch.device("meta"):  # no initializer runs: the file sets every tensor
+            dit = DiT(cfg)
+        dit.load_state_dict(state_dict_from_jax(flat, cfg), assign=True)
         del flat
         dit = dit.to(device=device, dtype=dtype).eval()
         if lora_path:
@@ -326,6 +334,10 @@ class FLitePipeline:
                     "LoRA factors matched no kernels — the checkpoint "
                     "layout (e.g. scan-stacked blocks) differs from the "
                     "unrolled layout the factors were trained against")
+        if pad_heads_to:
+            from f_lite_tpu_torch.convert.heads import pad_dit_heads
+
+            dit = pad_dit_heads(dit, pad_heads_to)
         if quantize:
             quantize_dit(dit)
         vae = None
@@ -347,15 +359,22 @@ class FLitePipeline:
         does: `model_index.json`, `dit/` (config.json and
         flax_params.safetensors, unrolled, in the DiT's dtype; int8 weights
         and fp32 scales when quantized, which load only with
-        `quantize=True`) and, with a VAE, `vae/` (fp32)."""
+        `quantize=True`) and, with a VAE, `vae/` (fp32). Padded heads are
+        sliced off: the files are those of the unpadded pipeline."""
         path = Path(path)
         (path / "dit").mkdir(parents=True, exist_ok=True)
         (path / "model_index.json").write_text(json.dumps(
             {"_class_name": "FLitePipeline", "framework": "f-lite-tpu"}, indent=2))
         cfg = self.dit.config
+        state = self.dit.state_dict()
+        if cfg.padded_heads:
+            from f_lite_tpu_torch.convert.heads import unpad_head_state
+
+            state = unpad_head_state(state, cfg)
+            cfg = dataclasses.replace(cfg, padded_heads=None)
         (path / "dit" / "config.json").write_text(
             json.dumps(cfg.to_json_dict(), indent=2))
-        save_file(state_dict_to_jax(self.dit.state_dict(), cfg),
+        save_file(state_dict_to_jax(state, cfg),
                   path / "dit" / "flax_params.safetensors")
         if isinstance(self.vae, IdentityVAE):
             return

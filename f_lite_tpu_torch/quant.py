@@ -18,6 +18,14 @@ Usage:
 or FLitePipeline.from_pretrained(path, quantize=True). On the card the
 projections run `csrc/int8_gemm.cu` (the quantize kernel and the int8
 product with its dequant epilogue); on the CPU, their plain versions.
+
+Under tensor parallelism (`parallel.tensor.parallelize_dit`, after
+`quantize_dit`) the column-parallel layers see the whole K and run as
+above; the row-parallel ones (proj, down_proj) hold K / tp of each row and
+quantize with the row's amax over the whole K (`quant_matmul`'s
+`amax_group`), as JAX's SPMD program does. The kernels need K / tp a
+multiple of 16: at the 7B's widths tp 2, 4, 5, 8 or 10 (heads padded where
+tp does not divide 10), at the 10B's 2, 3, 4, 6, 8 or 12.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ from f_lite_tpu_torch.ops.cuda.int8_gemm import (  # noqa: F401 (re-exported)
     int8_gemm_dequant,
     int8_linear_plain,
     quantize_rows,
+    quantize_rows_given,
     quantize_rows_plain,
+    row_amax,
 )
 
 QUANT_TARGETS = frozenset(
@@ -52,16 +62,25 @@ def quantize_weight(w: torch.Tensor):
     return w8, scale[:, 0]
 
 
-def quant_matmul(x, w8, scale, bias=None):
+def quant_matmul(x, w8, scale, bias=None, *, amax_group=None):
     """x (..., K) -> (..., N) in x's dtype: x quantized per token, the int8
     product with w8 (N, K) dequantized by sx and scale (N,), then the bias
     (added in x's dtype). CPU tensors take the plain versions, CUDA tensors
-    the kernels."""
+    the kernels. `amax_group` (a `parallel.tensor.TPContext`): K is this
+    rank's share of a row-parallel layer's, and each row's amax is taken
+    over the group's ranks (the whole K's, `f_lite_tpu/quant.py:56-60`
+    under SPMD) before it quantizes; the partial products are summed by
+    the layer's all-reduce."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cuda":
         x2 = x2.contiguous()
-    x8, sx = quantize_rows(x2)
+    if amax_group is None:
+        x8, sx = quantize_rows(x2)
+    else:
+        from f_lite_tpu_torch.parallel.tensor import all_reduce_max
+
+        x8, sx = quantize_rows_given(x2, all_reduce_max(row_amax(x2), amax_group))
     y = int8_gemm_dequant(x8, sx, w8, scale, bias, out_dtype=x.dtype)
     return y.reshape(*lead, w8.shape[0])
 

@@ -1,4 +1,4 @@
-"""Serving on one NVIDIA GPU: many prompts -> PNGs, or an HTTP endpoint
+"""Serving on NVIDIA GPUs: many prompts -> PNGs, or an HTTP endpoint
 (counterpart of `f_lite_tpu/serve.py`; the same flags, plus `--device`).
 
   python -m f_lite_tpu_torch.serve --model <dir> --prompts prompts.txt \
@@ -26,8 +26,22 @@ flight finishes. Before the port binds, one request of each warm-up shape
 runs through the serving path, which builds the CUDA kernels (nvcc at first
 use) and warms cuBLAS.
 
-`--dp` / `--tp` above 1 (and with them the request batcher) are multi-GPU
-and not ported yet (ROADMAP A 12).
+Multi-GPU (`--dp` / `--tp`): one process a GPU under torchrun, WORLD_SIZE
+= dp x tp (`torchrun --nproc_per_node 4 -m f_lite_tpu_torch.serve --dp 2
+--tp 2 ...`; gloo with `--device cpu`). The DiT is split over each group of
+tp consecutive ranks (`parallel.tensor.parallelize_dit`, heads padded at
+load where tp does not divide them), and each of the dp groups denoises its
+share of the rows. Batch mode: every rank runs the batches, each dp group
+its rows, whose PNGs the group's first rank writes (the prompts-file
+batches draw the whole batch's latents from their seed, so the files are
+the one-GPU files). HTTP mode: rank 0 binds the port; with dp > 1 a
+`RequestBatcher` groups same-shape requests into one dispatch of dp rows
+(`X-F-Lite-Batch` says how many were real; image inputs get 400). Rank 0
+hands each dispatch (or a stop) to the other ranks over a gloo group
+(`RankGroup`) and gathers their PNGs or their errors: a rank that raises
+answers with its error, so no rank waits in a collective for it, and the
+others leave their loop when rank 0 stops, after a drain on SIGTERM
+(which they ignore themselves).
 """
 
 from __future__ import annotations
@@ -83,16 +97,18 @@ def parse_args(argv=None):
     p.add_argument("--precomputed_dir", type=str, default=None,
                    help="serve text embeddings from a precompute cache")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (multi-GPU: not ported yet)")
+                   help="tensor-parallel ways (GPUs a model copy; under "
+                        "torchrun, WORLD_SIZE = dp x tp)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel ways (multi-GPU: not ported yet)")
+                   help="data-parallel ways (model copies; each denoises "
+                        "batch/dp rows)")
     p.add_argument("--warmup_shapes", type=str, default=None,
                    help="HTTP mode: extra WxH shapes to warm before the "
                         "port binds, e.g. '1344x896,896x1344' (the "
                         "--width x --height default is always warmed)")
     p.add_argument("--batch_window_ms", type=float, default=100.0,
-                   help="HTTP + --dp > 1: the request batcher's window "
-                        "(multi-GPU: not ported yet)")
+                   help="HTTP + --dp > 1: how long the request batcher "
+                        "waits for same-shape requests to fill dp rows")
     p.add_argument("--output_dir", type=str, default="outputs")
     p.add_argument("--no_text_encoder", action="store_true")
     p.add_argument("--quantize", action="store_true",
@@ -117,22 +133,53 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_single_device(args):
+def _check_mesh(args):
+    """`--dp` x `--tp` against the processes torchrun started (JAX checks
+    them against the visible chips, `f_lite_tpu/serve.py:156-163`)."""
+    from f_lite_tpu_torch.parallel.mesh import launch_info, under_torchrun
+
     if args.dp < 1 or args.tp < 1:
         raise SystemExit("--dp/--tp must be >= 1")
-    if args.dp > 1 or args.tp > 1:
-        raise SystemExit(
-            f"--dp {args.dp} / --tp {args.tp}: multi-GPU serving (and the "
-            "request batcher) is not ported yet (ROADMAP A 12)"
-        )
+    n = args.dp * args.tp
+    if not under_torchrun():
+        if n > 1:
+            raise SystemExit(
+                f"--dp {args.dp} x --tp {args.tp} = {n} GPUs: multi-GPU serving "
+                "runs one process a GPU, under torchrun: torchrun "
+                f"--nproc_per_node {n} -m f_lite_tpu_torch.serve ...")
+        return
+    world = launch_info()[0]
+    if n != world:
+        raise SystemExit(f"--dp {args.dp} x --tp {args.tp} = {n} ranks, but "
+                         f"torchrun started {world} (WORLD_SIZE)")
+
+
+def _pad_heads_for(args):
+    """The head count to pad to where --tp does not divide the DiT's heads
+    (JAX's `f_lite_tpu/serve.py:165-177`), else None."""
+    if args.tp <= 1:
+        return None
+    cfg = json.loads((Path(args.model) / "dit" / "config.json").read_text())
+    heads = cfg.get("num_heads", 12)
+    if heads % args.tp == 0:
+        return None
+    pad = -(-heads // args.tp) * args.tp
+    logger.info("padding %d heads -> %d for tp=%d", heads, pad, args.tp)
+    return pad
 
 
 def build_pipeline(args):
-    """Load the pipeline on `--device` (int8 and LoRA at load) and attach
-    the text encoder the flags choose."""
+    """Load the pipeline on `--device` (int8, LoRA and head padding at load)
+    and attach the text encoder the flags choose. Under torchrun the process
+    group is formed here and the DiT split over its tp group
+    (`parallelize_dit` on a (dp, 1, tp) mesh, at tp 1 too)."""
+    import torch.distributed as dist
+
+    from f_lite_tpu_torch.parallel.mesh import create_mesh, init_distributed
     from f_lite_tpu_torch.pipeline import FLitePipeline
 
-    _check_single_device(args)
+    _check_mesh(args)
+    init_distributed(args.device)
     pipe = FLitePipeline.from_pretrained(
         args.model,
         device=args.device,
@@ -141,7 +188,15 @@ def build_pipeline(args):
         lora_path=args.lora_path,
         lora_scale=args.lora_scale,
         lora_alpha=args.lora_alpha,
+        pad_heads_to=_pad_heads_for(args),
     )
+    if dist.is_initialized():
+        from f_lite_tpu_torch.parallel.tensor import parallelize_dit
+
+        mesh = create_mesh(args.dp, 1, args.tp, device_type=pipe.device.type)
+        parallelize_dit(pipe.dit, mesh["tp"])
+        logger.info("DiT split over %d ranks (dp=%d, tp=%d)", args.dp * args.tp,
+                    args.dp, args.tp)
     if args.precomputed_dir:
         from f_lite_tpu_torch.text.encoder import PrecomputedTextEncoder
 
@@ -206,7 +261,10 @@ def main(argv=None):
             "pass exactly one of --prompts (batch mode) or "
             "--http_port (HTTP endpoint mode)"
         )
-    _check_single_device(args)
+    if args.dp > 1 and args.prompts is not None and args.batch_size % args.dp:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must be divisible by "
+            f"--dp {args.dp} (each dp shard denoises batch/dp rows)")
     if args.warmup_shapes:
         if args.http_port is None:
             raise SystemExit("--warmup_shapes applies to HTTP mode")
@@ -247,15 +305,32 @@ def main(argv=None):
                     "tools.precompute_embeddings on them first"
                 )
 
-    pipe = build_pipeline(args)
-    if args.http_port is not None:
-        return run_http(pipe, args)
-    return run_batch(pipe, args, prompts, rows)
+    import torch.distributed as dist
+
+    owned = not dist.is_initialized()
+    try:
+        pipe = build_pipeline(args)
+        group = RankGroup(pipe, args) if dist.is_initialized() else None
+        if args.http_port is None:
+            return run_batch(pipe, args, prompts, rows, group)
+        if group is not None and group.rank != 0:
+            return group.follow()
+        try:
+            return run_http(pipe, args, group)
+        finally:
+            if group is not None:
+                group.stop()
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
-def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
+def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None,
+              group=None) -> dict:
     """Batch mode: every prompt to a stamped PNG in --output_dir, and a
-    manifest with the images/min."""
+    manifest with the images/min. Across ranks (`group`) each dp group
+    denoises its rows of each batch and its first rank writes their PNGs;
+    rank 0 writes the manifest once every rank is done."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -264,6 +339,10 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    # this rank's dp group: rows [lo, lo + per) of every batch
+    per = args.batch_size // args.dp
+    lo = 0 if group is None else group.dp_index * per
+    writes = group is None or group.leader
     # pad the final batch to the batch size: every call has one shape
     bs = args.batch_size
     n = len(prompts)
@@ -289,6 +368,8 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
         for bi in range(0, len(padded), bs):
             chunk = padded[bi:bi + bs]
             t0 = time.perf_counter()
+            if group is not None:
+                chunk = chunk[lo:lo + per]
             if rows is not None:
                 # per-row negatives and per-row seeded latents
                 embeds, mask, nemb, nmask = _encode_rows(
@@ -301,6 +382,17 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
                                          args.height, args.width),
                     **shared_kwargs,
                 )
+            elif group is not None:
+                # the whole batch's latents from its seed, as one GPU draws
+                # them; this group's rows of them
+                out = pipe(
+                    prompt=chunk,
+                    negative_prompt=([args.negative_prompt] * len(chunk)
+                                     if args.negative_prompt else None),
+                    latents=_batch_latents(pipe, args.seed + bi, bs, args.height,
+                                           args.width)[lo:lo + per],
+                    **shared_kwargs,
+                )
             else:
                 out = pipe(
                     prompt=chunk,
@@ -311,7 +403,7 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
                 )
             dt = time.perf_counter() - t0
             for j, img in enumerate(out.images):
-                idx = bi + j
+                idx = bi + (0 if group is None else lo) + j
                 if idx >= n:
                     break
                 f = out_dir / f"{idx:05d}.png"
@@ -334,9 +426,11 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
                     meta["seed"] = args.seed + bi
                     # one seed draws the whole batch (--from_png warns)
                     meta["batch_size"] = bs
-                    meta["batch_index"] = j
-                pending.append(saver.submit(save_with_metadata, img, f, meta))
-                entry = {"prompt": prompts[idx], "file": str(f)}
+                    meta["batch_index"] = idx - bi
+                if writes:
+                    pending.append(saver.submit(save_with_metadata, img, f, meta))
+            for idx in range(bi, min(bi + bs, n)):
+                entry = {"prompt": prompts[idx], "file": str(out_dir / f"{idx:05d}.png")}
                 if rows is not None:
                     entry["seed"] = rows[idx]["seed"]
                 results.append(entry)
@@ -346,12 +440,16 @@ def run_batch(pipe, args, prompts: list[str], rows: list[dict] | None) -> dict:
             fut.result()  # surface write errors: every file is written
     finally:
         saver.shutdown()
+    if group is not None:  # every group's files are written
+        group.barrier()
     wall = time.perf_counter() - t_start
     manifest = {
         "images": results,
         "wall_s": wall,
         "images_per_min": 60.0 * n / wall,
     }
+    if group is not None and group.rank != 0:
+        return manifest
     (out_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
     print(json.dumps({
         "images": n, "wall_s": round(wall, 2),
@@ -381,6 +479,17 @@ def _encode_rows(pipe, prompts, negs):
         nemb = np.zeros_like(embeds)
         nmask = np.ones(mask.shape, bool)
     return embeds, mask, nemb, nmask
+
+
+def _batch_latents(pipe, seed, batch, height, width):
+    """The starting noise `pipe(..., generator=torch.Generator(device).
+    manual_seed(seed))` draws for `batch` rows."""
+    import torch
+
+    shape = (batch, height // pipe.vae_scale_factor, width // pipe.vae_scale_factor,
+             pipe.dit.config.in_channels)
+    return torch.randn(shape, generator=torch.Generator(pipe.device).manual_seed(seed),
+                       device=pipe.device, dtype=pipe.dit.dtype)
 
 
 def _row_latents(pipe, seeds, height, width):
@@ -467,7 +576,236 @@ class ServerMetrics:
         return "\n".join(lines) + "\n"
 
 
-def make_http_server(pipe, args, host="127.0.0.1", port=0):
+class RankGroup:
+    """The ranks of a multi-GPU server (torchrun, dp x tp ranks; rank r is
+    in dp group r // tp, whose first rank is its leader). Rank 0 serves:
+    `call` hands a dispatch to every rank over a gloo group, runs its own
+    share and gathers each rank's answer; the other ranks wait in
+    `follow` until `stop`. Every rank answers, with its result or its
+    error, so none is left in a collective when another raises. The group
+    waits without a timeout (an idle server), and the followers ignore
+    SIGTERM: they stop when rank 0 has drained."""
+
+    def __init__(self, pipe, args):
+        import datetime
+        import threading
+
+        import torch.distributed as dist
+
+        self.pipe, self.args = pipe, args
+        self.world, self.rank = dist.get_world_size(), dist.get_rank()
+        self.dp_index, self.leader = divmod(self.rank, args.tp)
+        self.leader = self.leader == 0
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=datetime.timedelta(days=365))
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def _run(self, kind, payload):
+        """This rank's share of a dispatch: ("ok", its result where it
+        leads its dp group, else None) or ("error", the exception)."""
+        try:
+            result = _dispatch(self.pipe, self.args, kind, payload, self.dp_index)
+            return "ok", result if self.leader else None
+        except Exception as e:  # answered, never left in a collective
+            logger.exception("rank %d: %s failed", self.rank, kind)
+            return "error", e if self.rank == 0 else RuntimeError(
+                f"rank {self.rank}: {type(e).__name__}: {e}")
+
+    def call(self, kind: str, payload):
+        """Run a dispatch on every rank (rank 0): each dp group's leader's
+        result, by dp group. Raises rank 0's own error, or the first
+        other rank's."""
+        import torch.distributed as dist
+
+        with self._lock:
+            msg = [(kind, payload)]
+            dist.broadcast_object_list(msg, src=0, group=self.group)
+            mine = self._run(kind, payload)
+            answers = [None] * self.world
+            dist.gather_object(mine, answers, dst=0, group=self.group)
+        errors = [a[1] for a in answers if a[0] == "error"]
+        if errors:
+            raise errors[0]
+        return [a[1] for a in answers[::self.args.tp]]
+
+    def follow(self):
+        """The loop of a rank other than 0: run each dispatch until a stop."""
+        import signal
+
+        import torch.distributed as dist
+
+        signal.signal(signal.SIGTERM, lambda *_: logger.info(
+            "rank %d: SIGTERM: waiting for rank 0's stop", self.rank))
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self.group)
+            kind, payload = msg[0]
+            if kind == "stop":
+                logger.info("rank %d: stopped by rank 0", self.rank)
+                return None
+            dist.gather_object(self._run(kind, payload), None, dst=0, group=self.group)
+
+    def barrier(self):
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
+
+    def stop(self):
+        """Send the other ranks out of `follow` (rank 0; once)."""
+        import torch.distributed as dist
+
+        with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            dist.broadcast_object_list([("stop", None)], src=0, group=self.group)
+
+
+def _dispatch(pipe, args, kind: str, payload, dp_index: int):
+    """What every rank runs for a `RankGroup` dispatch: "generate" (one
+    request at dp 1: its image), "rows" (a batcher's dp rows: this dp
+    group's row, as a stamped PNG and its seconds) or "warm" (a warm-up
+    by embeddings)."""
+    if kind == "generate":
+        return _serve_generate(pipe, args, payload).images[0]
+    if kind == "rows":
+        key, reqs = payload
+        pngs, dt = _generate_rows(pipe, args, key, reqs[dp_index:dp_index + 1])
+        return pngs[0], dt
+    if kind == "warm":
+        return _warm_by_embeds(pipe, args, *payload)
+    raise ValueError(f"unknown dispatch {kind!r}")
+
+
+def _generate_rows(pipe, args, key, reqs: list[dict]):
+    """Requests of one shape key as one pipeline call, each row with its
+    own latents (drawn as its solo call draws them): (their stamped PNGs,
+    the call's seconds)."""
+    from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
+
+    width, height, steps, sampler, g = key
+    # timed: text encode, latents, denoise and decode, the work the
+    # one-GPU path times inside its lock
+    t0 = time.perf_counter()
+    embeds, mask, nemb, nmask = _encode_rows(
+        pipe, [r["prompt"] for r in reqs], [r["negative_prompt"] for r in reqs])
+    out = pipe(
+        prompt_embeds=embeds, negative_embeds=nemb,
+        context_mask=mask, negative_context_mask=nmask,
+        latents=_row_latents(pipe, [r["seed"] for r in reqs], height, width),
+        height=height, width=width, num_inference_steps=steps,
+        guidance_scale=g, guidance_interval=args.guidance_interval,
+        steps_per_dispatch=args.steps_per_dispatch, sampler=sampler,
+        pad_context_to=args.text_bucket or None,
+    )
+    dt = time.perf_counter() - t0
+    # no batch_size / batch_index stamp: each row reproduces alone
+    return [png_bytes_with_metadata(img, _request_metadata(r, args))
+            for img, r in zip(out.images, reqs)], dt
+
+
+class RequestBatcher:
+    """Microbatch queued HTTP requests into one dispatch of dp rows
+    (`f_lite_tpu/serve.py` RequestBatcher).
+
+    Requests of one shape key (width, height, steps, sampler,
+    guidance_scale) are grouped: the dispatcher thread takes the oldest
+    queued request, waits up to `--batch_window_ms` for more of its key,
+    pads the group to dp rows (repeating the last) and runs one dispatch
+    across the ranks (`RankGroup`), each dp group denoising its row. Each
+    row's latents are drawn as a batch-1 call with its seed draws them,
+    so a row is its request's solo image. FIFO head-of-line: other keys
+    wait their turn."""
+
+    def __init__(self, pipe, args, group, max_batch: int, window_s: float):
+        import threading
+
+        self.pipe, self.args, self.group = pipe, args, group
+        self.max_batch, self.window = max_batch, window_s
+        self.metrics = None  # the server's ServerMetrics, where it has one
+        self._cv = threading.Condition()
+        self._q: list = []  # (key, request, Future)
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="f-lite-batcher")
+        self._thread.start()
+
+    @classmethod
+    def from_args(cls, pipe, args, group):
+        return cls(pipe, args, group, max_batch=args.dp,
+                   window_s=args.batch_window_ms / 1000.0)
+
+    @staticmethod
+    def _key(r: dict):
+        return (r["width"], r["height"], r["steps"], r["sampler"],
+                r["guidance_scale"])
+
+    def submit(self, r: dict):
+        """Queue a parsed request: a Future of (png bytes, dispatch
+        seconds, rows in the dispatch)."""
+        from concurrent.futures import Future
+
+        f: Future = Future()
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("batcher stopped")
+            self._q.append((self._key(r), r, f))
+            self._cv.notify_all()
+        return f
+
+    def stop(self):
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+
+    def _loop(self):
+        while True:
+            with self._cv:
+                while not self._q and not self._stop:
+                    self._cv.wait()
+                if self._stop:
+                    err = RuntimeError("server shutting down")
+                    for _, _, f in self._q:
+                        f.set_exception(err)
+                    self._q.clear()
+                    return
+                key = self._q[0][0]
+                deadline = time.monotonic() + self.window
+
+                def matching():
+                    return [i for i, (k, _, _) in enumerate(self._q) if k == key]
+
+                while len(matching()) < self.max_batch and not self._stop:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cv.wait(timeout=left)
+                if self._stop:
+                    continue  # the loop's top fails everything queued
+                idxs = matching()[: self.max_batch]
+                batch = [self._q[i] for i in idxs]
+                for i in reversed(idxs):
+                    del self._q[i]
+            try:
+                reqs = [r for _, r, _ in batch]
+                rows = reqs + [reqs[-1]] * (self.max_batch - len(reqs))
+                answers = self.group.call("rows", (key, rows))
+                dt = max(a[1] for a in answers)
+                if self.metrics is not None:
+                    self.metrics.record_dispatch(dt, len(batch))
+                for (_, _, f), (png, _) in zip(batch, answers):
+                    f.set_result((png, dt, len(batch)))
+            except Exception as e:  # to every waiter; the loop serves on
+                logger.exception("batched generation failed")
+                for _, _, f in batch:
+                    if not f.done():
+                        f.set_exception(e)
+
+
+def make_http_server(pipe, args, host="127.0.0.1", port=0, batcher=None,
+                     group=None):
     """HTTP endpoint over a loaded pipeline (stdlib ThreadingHTTPServer).
 
     POST /generate  {"prompt": str, "negative_prompt"?, "width"?,
@@ -478,11 +816,15 @@ def make_http_server(pipe, args, host="127.0.0.1", port=0):
     GET  /metrics                           -> Prometheus text format
 
     Device work is serialised by a lock; concurrent requests queue on it.
-    A request without a seed takes the next of a counter from --seed, and
-    the seed used is stamped into the PNG. Returns the server; the caller
-    owns serve_forever() and shutdown(). `server.begin_drain()` turns new
-    work away with 503, and `server.drain_wait()` waits for the work in
-    flight."""
+    Across ranks (`group`, rank 0) each request is a dispatch to every
+    rank, and with --dp > 1 a `RequestBatcher` (`batcher`, made here when
+    not given) replaces the lock: same-shape requests share a dispatch,
+    `X-F-Lite-Batch` says how many, and image inputs get 400. A request
+    without a seed takes the next of a counter from --seed, and the seed
+    used is stamped into the PNG. Returns the server; the caller owns
+    serve_forever() and shutdown() (and `server.batcher.stop()` where
+    set). `server.begin_drain()` turns new work away with 503, and
+    `server.drain_wait()` waits for the work in flight."""
     import itertools
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -494,7 +836,11 @@ def make_http_server(pipe, args, host="127.0.0.1", port=0):
     precomputed_te = (pipe.text_encoder
                       if isinstance(pipe.text_encoder, PrecomputedTextEncoder)
                       else None)
+    if batcher is None and args.dp > 1:
+        batcher = RequestBatcher.from_args(pipe, args, group)
     metrics = ServerMetrics()
+    if batcher is not None:
+        batcher.metrics = metrics
     device_lock = threading.Lock()
     # drain state: 503 for new work, work in flight finishes
     drain = {"on": False, "inflight": 0}
@@ -677,14 +1023,28 @@ def make_http_server(pipe, args, host="127.0.0.1", port=0):
                     drain_cv.notify_all()
 
         def _generate_locked(self, r):
+            if batcher is not None and r["image"] is not None:
+                # the batcher's rows share one call of one shape
+                return self._json(400, {
+                    "error": "image inputs are not supported with --dp "
+                             "request batching; use a --dp 1 server "
+                             "for image-to-image/inpainting"
+                })
+            rows = 1
             try:
-                with device_lock:
-                    # timed inside the lock: device time, not queue wait
-                    t0 = time.perf_counter()
-                    out = _serve_generate(pipe, args, r)
-                    dt = time.perf_counter() - t0
-                metrics.record_dispatch(dt, 1)
-                png = png_bytes_with_metadata(out.images[0], _request_metadata(r, args))
+                if batcher is not None:
+                    # the dispatcher thread owns the device; the seconds
+                    # are the shared dispatch's (it records the metrics)
+                    png, dt, rows = batcher.submit(r).result()
+                else:
+                    with device_lock:
+                        # timed inside the lock: device time, not queue wait
+                        t0 = time.perf_counter()
+                        image = (_serve_generate(pipe, args, r).images[0]
+                                 if group is None else group.call("generate", r)[0])
+                        dt = time.perf_counter() - t0
+                    metrics.record_dispatch(dt, 1)
+                    png = png_bytes_with_metadata(image, _request_metadata(r, args))
             except KeyError as e:
                 if precomputed_te is not None:
                     # the embedding file went away after the check: still
@@ -704,11 +1064,14 @@ def make_http_server(pipe, args, host="127.0.0.1", port=0):
             self.send_header("Content-Length", str(len(png)))
             self.send_header("X-F-Lite-Seed", str(r["seed"]))
             self.send_header("X-F-Lite-Seconds", f"{dt:.2f}")
+            if batcher is not None:
+                self.send_header("X-F-Lite-Batch", str(rows))
             self.end_headers()
             self.wfile.write(png)
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True
+    server.batcher = batcher
     server.metrics = metrics
 
     def begin_drain():
@@ -817,10 +1180,12 @@ def _warm_by_embeds(pipe, args, width=None, height=None):
     )
 
 
-def warm_up(pipe, args) -> float:
+def warm_up(pipe, args, group=None, batcher=None) -> float:
     """One request of each warm-up shape through the serving path (by
-    embeddings on a --precomputed_dir server); the CUDA kernels are built
-    and cuBLAS warmed here, before the port binds. Returns the seconds."""
+    embeddings on a --precomputed_dir server; through `batcher` where
+    given, else as a dispatch to every rank of `group`); the CUDA kernels
+    are built and cuBLAS warmed here, before the port binds. Returns the
+    seconds."""
     t0 = time.perf_counter()
     shapes = list(dict.fromkeys(
         [(args.width, args.height)]
@@ -828,26 +1193,44 @@ def warm_up(pipe, args) -> float:
     ))
     for w, h in shapes:
         logger.info("warming %dx%d / %d steps...", w, h, args.steps)
+        req = dict(prompt="warmup", negative_prompt=None, width=w, height=h,
+                   steps=args.steps, guidance_scale=args.guidance_scale,
+                   sampler=args.sampler, seed=0, image=None, mask_image=None)
         if args.precomputed_dir:
-            _warm_by_embeds(pipe, args, width=w, height=h)
+            if group is None:
+                _warm_by_embeds(pipe, args, width=w, height=h)
+            else:
+                group.call("warm", (w, h))
+        elif batcher is not None:
+            batcher.submit(req).result()
+        elif group is not None:
+            group.call("generate", req)
         else:
-            _serve_generate(pipe, args, dict(
-                prompt="warmup", negative_prompt=None, width=w, height=h,
-                steps=args.steps, guidance_scale=args.guidance_scale,
-                sampler=args.sampler, seed=0))
+            _serve_generate(pipe, args, req)
     return time.perf_counter() - t0
 
 
-def run_http(pipe, args):
+def run_http(pipe, args, group=None):
     """Warm the serving shapes, then serve until interrupted or SIGTERM
-    (which drains)."""
+    (which drains). Across ranks this is rank 0's part (`group`); with
+    --dp > 1 the warm-up runs through the request batcher, as requests
+    will."""
     import signal
     import threading
 
     if not args.text_bucket:
         logger.warning("--text_bucket 0: the context length follows each prompt")
-    logger.info("warm-up: %.1f s", warm_up(pipe, args))
-    server = make_http_server(pipe, args, host=args.http_host, port=args.http_port)
+    batcher = None
+    if args.dp > 1:
+        batcher = RequestBatcher.from_args(pipe, args, group)
+    try:
+        logger.info("warm-up: %.1f s", warm_up(pipe, args, group, batcher))
+    except BaseException:
+        if batcher is not None:
+            batcher.stop()
+        raise
+    server = make_http_server(pipe, args, host=args.http_host, port=args.http_port,
+                              batcher=batcher, group=group)
     logger.info("serving on http://%s:%d (POST /generate)",
                 *server.server_address[:2])
 
@@ -869,6 +1252,8 @@ def run_http(pipe, args):
     finally:
         signal.signal(signal.SIGTERM, prev)
         server.server_close()
+        if server.batcher is not None:
+            server.batcher.stop()
     return None
 
 

@@ -56,13 +56,13 @@ META = "meta.json"
 
 
 def _gathered(entries: dict, gather):
-    """(entry, name, `gather(tensor)`) for every tensor of `entries`, in
+    """(entry, name, `gather(tensor, name)`) for every tensor of `entries`, in
     the one order in which every rank gathers them and rank 0 writes
     them: the entries in turn (the extras, then `state`), each in its
     file's order."""
     for entry, tensors in entries.items():
         for name in order(tensors):
-            yield entry, name, gather(tensors[name])
+            yield entry, name, gather(tensors[name], name)
 
 
 class _Entry(Mapping):
@@ -136,9 +136,9 @@ class Checkpointer:
         timing = {"step": step, "wait": wait, "drain_s": t1 - t0, "gather_s": 0.0}
         self.timings.append(timing)
 
-        def gather(t):
+        def gather(t, name):
             tic = time.perf_counter()
-            whole = full_tensor(t.detach())
+            whole = full_tensor(t.detach(), name)
             timing["gather_s"] += time.perf_counter() - tic
             return whole
 
@@ -166,7 +166,7 @@ class Checkpointer:
         t0 = time.perf_counter()
         try:
             with self._writing(d, host, meta, sampler_state) as put:
-                for entry, name, whole in _gathered(host, lambda t: t):
+                for entry, name, whole in _gathered(host, lambda t, _: t):
                     put(entry, name, whole)
         except Exception as e:  # re-raised by the next drain
             self._error = e

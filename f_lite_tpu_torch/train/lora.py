@@ -18,7 +18,12 @@ FSDP2 the parametrization is attached first: `fully_shard` then shards the
 frozen base and the factors with their block, and its all-gather hands the
 parametrization whole tensors inside the block's forward, so the merge is
 the one-card merge; `attached_factors` finds the factors again after
-`fully_shard` has replaced the Parameters with sharded ones.
+`fully_shard` has replaced the Parameters with sharded ones. Under tensor
+parallelism `parallel.tensor.parallelize_dit` splits the factors like
+their weight (a column layer's `lora_b` by output columns, head-aligned
+for qkv and context_kv; a row layer's `lora_a` by input rows), and the
+merge runs on DTensors, which sum the replicated factor's partial
+gradient over the tp group.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ binning (counterpart of `f_lite_tpu/train/loss.py`).
 (`draw_loss_inputs`) come from a `torch.Generator` on the latents' device;
 they are not the JAX package's numbers. Across ranks each rank draws a
 step's values over the global batch, as one rank would, and keeps its rows
-(`LossDraws.rows`); `weight_sum` is then the global batch's weight sum.
+(`LossDraws.rows`, at `parallel.sharding.rank_rows`' bounds, which give
+the ranks of a tp group the same rows and so the same draws);
+`weight_sum` is then the global batch's weight sum.
 Inputs are normalized latents; all reductions are fp32.
 """
 

@@ -102,37 +102,41 @@ def build_lr_schedule(name: str, learning_rate: float, *,
     return lambda step: float(joined(int(step)))
 
 
-def _shard_groups(tensors) -> list:
-    """The process groups over which DTensor `tensors` are split (their
-    mesh dims of more than one rank that shard); [] for plain tensors or a
-    mesh of one rank. All must share one mesh and placements."""
-    layouts = {(t.device_mesh, tuple(t.placements)) for t in tensors
-               if isinstance(t, DTensor)}
-    if not layouts:
-        return []
-    if len(layouts) > 1 or any(not isinstance(t, DTensor) for t in tensors):
-        raise ValueError("global_norm needs every tensor on one mesh and placement")
-    mesh, placements = layouts.pop()
-    return [mesh.get_group(d) for d, p in enumerate(placements)
-            if p.is_shard() and mesh.size(d) > 1]
+def _shard_dims(t) -> tuple:
+    """The mesh dims of more than one rank that split DTensor `t` (a shard
+    placement); () for a plain tensor, or one replicated everywhere."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(d for d, p in enumerate(t.placements)
+                 if p.is_shard() and t.device_mesh.size(d) > 1)
 
 
 @torch.no_grad()
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(sum of squares) over all tensors, fp32 (`optax.global_norm`).
-    DTensor shards give the norm of the whole tensors: the local sum of
-    squares is summed over the ranks that split them (every one of them
-    must call this)."""
+    DTensor shards give the norm of the whole tensors: each tensor's local
+    sum of squares is summed over the groups that split it and never over
+    one that replicates it, so the placements may differ from tensor to
+    tensor (FSDP2 + TP: column-, row-parallel and tp-replicated
+    parameters). Tensors that share their split dims are summed together
+    first, in the order they come (every rank must call this)."""
     tensors = list(tensors)
     norms = torch._foreach_norm([local(t).float() for t in tensors])
-    norm = torch.linalg.vector_norm(torch.stack(norms))
-    groups = _shard_groups(tensors)
-    if groups:
-        squares = norm.square()
-        for group in groups:
-            dist.all_reduce(squares, group=group)
-        norm = squares.sqrt()
-    return norm
+    layouts: dict = {}
+    for t, n in zip(tensors, norms):
+        key = (t.device_mesh, _shard_dims(t)) if _shard_dims(t) else None
+        layouts.setdefault(key, []).append(n)
+    if list(layouts) == [None]:  # nothing split: the one-rank arithmetic
+        return torch.linalg.vector_norm(torch.stack(norms))
+    total = None
+    for key, group_norms in layouts.items():
+        squares = torch.linalg.vector_norm(torch.stack(group_norms)).square()
+        if key is not None:
+            mesh, dims = key
+            for d in dims:
+                dist.all_reduce(squares, group=mesh.get_group(d))
+        total = squares if total is None else total + squares
+    return total.sqrt()
 
 
 class AdamW:
@@ -195,10 +199,14 @@ class AdamW:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
     def load_state_dict(self, state: dict) -> None:
+        """`state` as `state_dict` gives it, the moments whole (in the
+        reference layout of the parameters named by `state["names"]`,
+        where given)."""
         self.count = int(state["count"])
+        names = state.get("names") or [""] * len(self.params)
         for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
-            for t, v in zip(dst, state[key], strict=True):
-                copy_full_(t, v)
+            for t, v, name in zip(dst, state[key], names, strict=True):
+                copy_full_(t, v, name)
 
 
 class Accumulate:
@@ -242,8 +250,9 @@ class Accumulate:
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state)
         self.mini_step = int(state["mini_step"])
-        for t, v in zip(self.acc, state["acc"], strict=True):
-            copy_full_(t, v)
+        names = state.get("names") or [""] * len(self.params)
+        for t, v, name in zip(self.acc, state["acc"], names, strict=True):
+            copy_full_(t, v, name)
 
 
 def build_optimizer(params, *, learning_rate: float = 1e-4,

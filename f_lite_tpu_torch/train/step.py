@@ -9,11 +9,13 @@ what trains: the DiT's, or the LoRA factors of a frozen DiT
 or gradient norm that is not finite (or a backward that gives NaN), before
 the update.
 
-Across `world` ranks (FSDP2, which averages the ranks' gradients) each
-rank passes its rows, their draws and the global batch's weight sum: its
-loss is its share of the global loss, scaled by `world` for the backward,
-and the metrics are the global batch's (the loss and the decile sums
-all-reduced; the norm is the whole gradient's). Under `debug_nans` the
+Across `world` data replicas (FSDP2, which averages the replicas'
+gradients) each rank passes its rows, their draws and the global batch's
+weight sum: its loss is its share of the global loss, scaled by `world`
+for the backward, and the metrics are the global batch's (the loss and the
+decile sums all-reduced over `group`, the replicas of this rank's tp
+index; the norm is the whole gradient's). Under tensor parallelism the
+ranks of a tp group are one replica: they pass the same rows. Under `debug_nans` the
 checks read those global values, so every rank stops at the same step;
 anomaly mode stays off there, since it would stop one rank alone in the
 middle of the backward's collectives."""
@@ -43,14 +45,15 @@ def train_step(state: TrainState, latents, context, context_mask, *,
                uncond_prob: float = 0.05, patch_size: int = 2,
                token_keep_ratio: float = 1.0, sample_weight=None,
                timesteps=None, noise=None, token_indices=None, draws=None,
-               weight_sum=None, world: int = 1,
+               weight_sum=None, world: int = 1, group=None,
                debug_nans: bool = False) -> dict:
     """Run one step in place on `state` and return its metrics as device
     tensors: loss, grad_norm (the global norm of this call's gradients,
     before clipping), bin_sums and bin_counts (per-decile loss sums and
     counts). With `debug_nans` the step is checked (see the module
     docstring); without it nothing waits for the device. With `world` > 1
-    (every rank of the default group calls this) `weight_sum` is the
+    data replicas (every rank of the default group calls this; `group`:
+    this rank's replicas, None for the default group) `weight_sum` is the
     global batch's weight sum (its row count without `sample_weight`)."""
     model, opt = state.model, state.optimizer
     n = state.step + 1
@@ -73,7 +76,7 @@ def train_step(state: TrainState, latents, context, context_mask, *,
         if world > 1:
             packed = torch.cat([loss.detach().reshape(1), aux.bin_sums,
                                 aux.bin_counts])
-            dist.all_reduce(packed)
+            dist.all_reduce(packed, group=group)
             metrics = {"loss": packed[0], "bin_sums": packed[1:11],
                        "bin_counts": packed[11:]}
             loss = loss * world

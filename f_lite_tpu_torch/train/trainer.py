@@ -61,9 +61,15 @@ signal to any rank stops all of them at the same step. Under torchrun a
 group is formed at every world size (NCCL on the card, gloo with `--device
 cpu`); without it the run is one rank, unwrapped.
 
-`--tp` and `--sequence_parallel` raise "not ported yet (ROADMAP A 12b)",
-and `--pp`, `--pp_microbatches` and `--scan_layers` "not ported yet
-(ROADMAP A 12c)", when set to a value that would do something. `--train_only_lora` is accepted and unused,
+`--tp N` adds tensor parallelism (`parallel/tensor.py` `parallelize_dit`
+on the mesh's tp sub-mesh, then FSDP2 over its data sub-mesh): dp x fsdp
+x tp = WORLD_SIZE, the ranks of a tp group (consecutive, inside a node)
+take the same rows, and `--sequence_parallel` (which needs `--tp` > 1, as
+in JAX) splits the residual stream along L over them. A tp that does not
+divide the heads or the MLP width raises ValueError, as the JAX trainer
+does (neither pads). Under torchrun the plan is applied at every tp, 1
+included. `--pp`, `--pp_microbatches` and `--scan_layers` raise "not
+ported yet (ROADMAP A 12c)" when set to a value that would do something. `--train_only_lora` is accepted and unused,
 as in the JAX trainer. The run is on the card (`--device cuda`) unless
 `--device cpu` is given.
 """
@@ -233,8 +239,6 @@ def parse_args(argv=None):
 # option: (its inert value, what it turns on, the ROADMAP item that ports it)
 _NOT_PORTED = {
     "scan_layers": (False, "scan-stacked blocks", "A 12c"),
-    "tp": (1, "tensor parallelism", "A 12b"),
-    "sequence_parallel": (False, "sequence parallelism", "A 12b"),
     "pp": (1, "pipeline parallelism", "A 12c"),
     "pp_microbatches": (1, "pipeline parallelism", "A 12c"),
 }
@@ -246,10 +250,10 @@ def check_mesh(args) -> None:
     over a node's ranks."""
     world, _, local_world, _ = launch_info()
     if not under_torchrun():
-        if args.dp > 1 or args.fsdp > 1:
+        if args.dp > 1 or args.fsdp > 1 or args.tp > 1:
             raise SystemExit(
-                f"--dp {args.dp} --fsdp {args.fsdp}: a mesh of more than one "
-                "rank runs one process a GPU, under torchrun: torchrun "
+                f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp}: a mesh of more "
+                "than one rank runs one process a GPU, under torchrun: torchrun "
                 "--nproc_per_node N -m f_lite_tpu_torch.train ...")
         if args.multihost:
             raise SystemExit(
@@ -258,17 +262,22 @@ def check_mesh(args) -> None:
                 "run under torchrun --nnodes M --nproc_per_node N ...")
     else:
         try:
-            resolve_mesh(args.dp, args.fsdp, world)
+            resolve_mesh(args.dp, args.fsdp, world, args.tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+        if local_world % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide the {local_world} "
+                             "ranks of a node: a tp group lies inside one node")
         if args.multihost and world == local_world:
             raise SystemExit(f"--multihost: torchrun started one node "
                              f"({world} ranks); --multihost is for more than one")
+    replicas = max(local_world // args.tp, 1)  # a node's data replicas
+    over = (f"{local_world} ranks of a node (LOCAL_WORLD_SIZE)" if args.tp == 1 else
+            f"{replicas} data replicas of a node (LOCAL_WORLD_SIZE / tp)")
     for name in ("train_batch_size", "eval_batch_size"):
         b = getattr(args, name)
-        if b % local_world and (name == "train_batch_size" or args.val_data_path):
-            raise SystemExit(f"--{name} {b} does not divide evenly over the "
-                             f"{local_world} ranks of a node (LOCAL_WORLD_SIZE)")
+        if b % replicas and (name == "train_batch_size" or args.val_data_path):
+            raise SystemExit(f"--{name} {b} does not divide evenly over the {over}")
 
 
 def check_ported(args) -> None:
@@ -290,6 +299,8 @@ def check_ported(args) -> None:
         if getattr(args, name) != inert:
             raise SystemExit(f"--{name} {getattr(args, name)!r}: {what} is not "
                              f"ported yet (ROADMAP {item})")
+    if args.sequence_parallel and args.tp <= 1:
+        raise ValueError("--sequence_parallel requires --tp > 1")
     check_mesh(args)
     if args.use_precomputed_data and not args.precomputed_data_dir:
         raise SystemExit("--use_precomputed_data requires --precomputed_data_dir")
@@ -722,15 +733,16 @@ class swapped_weights:
 def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
              dtype, device, batch_multiplicity: int = 1, uncond_prob: float,
              patch_size: int, token_keep_ratio: float = 1.0, ranks=(1, 0, 1),
-             group=None) -> float | None:
+             group=None, tp: int = 1) -> float | None:
     """The mean loss over at most 20 validation batches, without
     gradients; batch vi's draws come from the generators of step
     (1 << 30) + global_step * 32 + vi, so no draw of the training run
     moves. None without a batch. Across `ranks` (world, rank,
     local_world) each rank takes its rows of each batch and its rows of
-    the global batch's draws, every rank runs the least batch count of
-    all ranks, and the losses and their count are summed over `group` (a
-    host-side group of every rank)."""
+    the global batch's draws (a tp group of `tp` ranks the same rows),
+    every rank runs the least batch count of all ranks, and the losses and
+    their count are summed over `group` (a host-side group of every rank;
+    tp peers add equal losses and counts, so the mean is the replicas')."""
     from f_lite_tpu_torch.parallel.mesh import host_all_reduce
     from f_lite_tpu_torch.parallel.sharding import rank_rows
     from f_lite_tpu_torch.train.loss import draw_loss_inputs, flow_matching_loss
@@ -746,7 +758,7 @@ def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
         key = (1 << 30) + global_step * 32 + vi
         rows, lo, n_global = rank_rows(len(vbatch["caption"]), world=world, rank=rank,
                                        local_world=local_world,
-                                       multiplicity=batch_multiplicity)
+                                       multiplicity=batch_multiplicity, tp=tp)
         latents, ctx, mask = encode_batch(
             vbatch, vae, text_encoder, generator=encode_generator(device, seed, key),
             dtype=dtype, device=device, rows=rows)
@@ -801,7 +813,8 @@ def restore_state(trained: dict, opt, tensors, meta: dict) -> None:
             "checkpoint does not match this run's trained tensors and "
             f"optimizer: {sorted(set(tensors) ^ set(expected))[:5]}")
     load_full_state_dict(trained, tensors)
-    state = {"count": meta["count"], "mini_step": meta["mini_step"]}
+    state = {"count": meta["count"], "mini_step": meta["mini_step"],
+             "names": list(trained)}
     for key in ("mu", "nu", "acc"):
         if f"opt.{key}/{next(iter(trained))}" in tensors:
             state[key] = map(tensors.__getitem__, [f"opt.{key}/{n}" for n in trained])
@@ -914,6 +927,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     from f_lite_tpu_torch.models.vae import IdentityVAE
     from f_lite_tpu_torch.parallel.mesh import (
         create_mesh,
+        data_group,
         host_all_reduce,
         host_group,
     )
@@ -922,6 +936,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
         rank_rows,
         shard_dit,
     )
+    from f_lite_tpu_torch.parallel.tensor import parallelize_dit
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.train.checkpoint import Checkpointer
     from f_lite_tpu_torch.train.lora import (
@@ -939,7 +954,8 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     world, rank, local_world, local_rank = ranks
     nodes, node_rank = process_replica_info()
     grouped = dist.is_initialized()
-    dp, fsdp = resolve_mesh(args.dp, args.fsdp, world)
+    tp = args.tp
+    dp, fsdp = resolve_mesh(args.dp, args.fsdp, world, tp)
     host = host_group() if grouped else None
     seed = args.seed or 0
     if args.seed is not None:
@@ -970,8 +986,14 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 else init_lora_params(model, rank=args.lora_rank, targets=targets,
                                       generator=torch.Generator(device).manual_seed(7)))
         attach_lora(model, tree, alpha=args.lora_alpha, rank=args.lora_rank)
+    data = None  # the group the loss sums over: the default one at tp 1
     if grouped:
-        shard_dit(model, create_mesh(dp, fsdp, device_type=device.type))
+        mesh = create_mesh(dp, fsdp, tp, device_type=device.type)
+        data = data_group(mesh)
+        # tensor parallelism over the tp sub-mesh (at tp 1 too), then
+        # FSDP2 over the data sub-mesh
+        parallelize_dit(model, mesh["tp"], sequence_parallel=args.sequence_parallel)
+        shard_dit(model, mesh)
     # after fully_shard: its Parameters replace the module's
     if args.use_lora:
         lora = attached_factors(model)
@@ -1065,6 +1087,9 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     logger.info("device=%s params=%d trained=%d dtype=%s", device, n_params,
                 sum(t.numel() for t in trained.values()), dtype)
     logger.info("mesh: dp=%d fsdp=%d world=%d nodes=%d", dp, fsdp, world, nodes)
+    if grouped:
+        logger.info("tensor parallel: tp=%d sequence_parallel=%s", tp,
+                    args.sequence_parallel)
     logger.info("dataset=%d images, %d batches/epoch, max_steps=%d",
                 len(dl.dataset), epoch_batches, max_steps)
     # the batches each replica has run in the sampler's epoch (those the
@@ -1130,7 +1155,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 prof = _start_profile(device)
             rows, lo, n_global = rank_rows(
                 len(batch["caption"]), world=world, rank=rank,
-                local_world=local_world, multiplicity=args.batch_multiplicity)
+                local_world=local_world, multiplicity=args.batch_multiplicity, tp=tp)
             latents, ctx, mask = encode_batch(
                 batch, coder, text_encoder,
                 generator=encode_generator(device, seed, global_step),
@@ -1149,7 +1174,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 else torch.from_numpy(weight[lo:lo + len(rows)]).to(device),
                 weight_sum=torch.tensor(
                     float(n_global if weight is None else weight.sum()), device=device),
-                world=world, debug_nans=args.debug_nans)
+                world=world // tp, group=data, debug_nans=args.debug_nans)
             if ema is not None:
                 ema_update(ema, trained, args.ema_decay)
             global_step += 1
@@ -1210,7 +1235,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                              batch_multiplicity=args.batch_multiplicity,
                              uncond_prob=uncond_prob, patch_size=cfg.patch_size,
                              token_keep_ratio=1.0 - args.sequence_dropout,
-                             ranks=(world, rank, local_world), group=host)
+                             ranks=(world, rank, local_world), group=host, tp=tp)
                 if v is not None:
                     metrics_logger.log({"val/loss": v, "val/diffusion_loss": v},
                                        global_step)

@@ -50,12 +50,19 @@ def raw_arrays(path: str | Path) -> Iterator[tuple[str, str, np.ndarray]]:
         yield name, dt, arr.reshape(info["shape"])
 
 
-def load_file(path: str | Path) -> dict[str, np.ndarray]:
+def load_file(path: str | Path, bf16_bits: bool = False) -> dict[str, np.ndarray]:
+    """{name: array} of the file, each a copy, BF16 widened to float32; with
+    `bf16_bits` the arrays of `raw_arrays` instead (views of a
+    copy-on-write map, BF16 as its uint16 bits), for a loader that copies
+    what it keeps (the DiT's, `convert.from_jax`)."""
     out = {}
     for name, dt, arr in raw_arrays(path):
-        if dt == "BF16":
-            arr = (arr.astype(np.uint32) << 16).view(np.float32)
-        out[name] = np.array(arr)
+        if bf16_bits:
+            out[name] = arr
+        elif dt == "BF16":  # widened by torch, on every core
+            out[name] = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).float().numpy()
+        else:
+            out[name] = np.array(arr)
     return out
 
 

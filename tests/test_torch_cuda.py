@@ -596,6 +596,33 @@ def test_int8_kernels_match_plain_bit_for_bit(cuda_device, dtype, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [16, 128, 1280, 5120])
+def test_given_amax_entries_match_plain_and_the_fused_entry(cuda_device, dtype, k):
+    """The quantize kernel's entries for a row-parallel layer under tensor
+    parallelism: `row_amax` and `quantize_rows_given` equal their plain
+    versions' bits (also with a given amax larger than the row's own, as
+    another rank's share of the row gives), and the given entry fed the
+    row's own amax equals the fused `quantize_rows`; one launch each."""
+    g = torch.Generator("cuda").manual_seed(k)
+    for m in (1, 17, 8224):
+        x = (torch.randn((m, k), generator=g, device="cuda") * 3).to(dtype)
+        if m > 1:
+            x[m // 2] = 0.0
+        before = tig.QUANTIZE_LAUNCHES.count
+        amax = tig.row_amax(x)
+        given = tig.quantize_rows_given(x, amax)
+        larger = tig.quantize_rows_given(x, amax * 1.5)
+        torch.cuda.synchronize()
+        assert tig.QUANTIZE_LAUNCHES.count - before == 3
+        assert torch.equal(amax, tig.row_amax_plain(x))
+        for got, want in ((given, tig.quantize_rows_given_plain(x, amax)),
+                          (larger, tig.quantize_rows_given_plain(x, amax * 1.5)),
+                          (given, tig.quantize_rows(x))):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), m
+
+
+@pytest.mark.cuda
 def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     w8, scale, _ = _int8_weight(64, 64, seed=0)
     x = torch.randn((8, 64), device="cuda", dtype=torch.bfloat16)

@@ -69,7 +69,8 @@ FRONTEND_MODULES = ("f_lite_tpu_torch.generate", "f_lite_tpu_torch.serve",
 ONLINE_MODULES = ("f_lite_tpu_torch.data.dataset", "f_lite_tpu_torch.data.loader",
                   "f_lite_tpu_torch.data.image_ops", "f_lite_tpu_torch.utils.env")
 PARALLEL_MODULES = ("f_lite_tpu_torch.parallel", "f_lite_tpu_torch.parallel.mesh",
-                    "f_lite_tpu_torch.parallel.sharding")
+                    "f_lite_tpu_torch.parallel.sharding",
+                    "f_lite_tpu_torch.parallel.tensor", "f_lite_tpu_torch.convert.heads")
 TOOL_MODULES = ("f_lite_tpu_torch.tools.precompute_embeddings",
                 "f_lite_tpu_torch.tools.convert_checkpoint")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",

@@ -2,7 +2,7 @@
 `tests/test_serve.py` that exist on one device, rerun on the port. Batch
 mode (text and `.jsonl`, a `.jsonl` row bit-equal to its solo request,
 validation, the precompute preflight, warm-up shapes, mode selection,
-`--dp`/`--tp` not ported), the HTTP endpoint (health, stamped PNGs, the
+`--dp`/`--tp` outside torchrun), the HTTP endpoint (health, stamped PNGs, the
 400/413 rules, image fields, metrics, the device lock, drain), a LoRA at
 scale 0, and `_request_metadata` against the JAX server's."""
 
@@ -146,14 +146,21 @@ def test_mode_selection_requires_exactly_one(model_dir):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_multi_gpu_flags_are_not_ported_yet(model_dir, tmp_path, flag):
+def test_multi_gpu_flags_are_not_ported_yet(model_dir, tmp_path, flag, monkeypatch):
+    """Multi-GPU serving is ported: outside torchrun, --dp / --tp 2 exit
+    with a message that names torchrun, in both modes and before the load
+    (the runs across ranks are in tests/test_torch_tensor_parallel.py)."""
+    from f_lite_tpu_torch.parallel.mesh import TORCHRUN_VARS
+
+    for v in TORCHRUN_VARS:
+        monkeypatch.delenv(v, raising=False)
     pf = tmp_path / "p.txt"
     pf.write_text("x\n")
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="under torchrun: torchrun --nproc_per_node 2"):
         _main(model_dir, "--prompts", str(pf), flag, "2", "--batch_size", "2")
     args = tserve.parse_args(["--model", str(model_dir), "--http_port", "0", flag, "2",
                               "--device", "cpu"])
-    with pytest.raises(SystemExit, match=r"ROADMAP A 12"):
+    with pytest.raises(SystemExit, match="under torchrun"):
         tserve.build_pipeline(args)
 
 

@@ -314,16 +314,17 @@ def test_trainer_result_and_log_line(tmp_path, caplog):
 @pytest.mark.parametrize("extra,match", [
     (["--fsdp", "2"], "torchrun --nproc_per_node"),
     (["--multihost"], "WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE"),
-    (["--tp", "2"], r"not ported yet \(ROADMAP A 12b\)"),
+    (["--tp", "2"], "torchrun --nproc_per_node"),
     (["--pp", "2"], r"not ported yet \(ROADMAP A 12c\)"),
-    (["--sequence_parallel"], r"not ported yet \(ROADMAP A 12b\)"),
+    (["--tp", "2", "--sequence_parallel"], "torchrun --nproc_per_node"),
     (["--scan_layers"], r"not ported yet \(ROADMAP A 12c\)"),
     (["--dp", "2"], "torchrun --nproc_per_node"),
 ])
 def test_unported_or_unlaunched_parallel_options_raise(tmp_path, extra, match):
-    """tp, pp, sequence parallelism and scan-stacked blocks are not ported;
-    a mesh of more than one rank, and --multihost, need torchrun's
-    processes, which this one is not."""
+    """pp and scan-stacked blocks are not ported; a mesh of more than one
+    rank (tensor parallelism, with or without sequence parallelism,
+    included), and --multihost, need torchrun's processes, which this one
+    is not."""
     argv = _tiny_argv(tmp_path, tmp_path / "out") + extra
     with pytest.raises(SystemExit, match=match):
         train(parse_args(argv))
