@@ -127,7 +127,7 @@ Phases (any failed check raises and the run exits non-zero):
    (`--hf_dir`): each loaded with `from_pretrained` gives phase 7's images
    bit for bit with phase 7's launch counts, the conversions launch
    nothing; `--test_image` on the card (pixel space: latents) finite with
-   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 4
+   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 2
    (full width; the depth cut stated in the output), seeded, saved
    natively, `--export_torch --pt_file` and `--pt` back: each direction's
    host seconds, GB written and GB/s, the re-ingested tensors bit-equal to
@@ -193,7 +193,8 @@ Phases (any failed check raises and the run exits non-zero):
    precompute cache of PROMPT's 77-token embedding, and `torchrun
    --nproc_per_node 1 -m f_lite_tpu_torch.serve --precomputed_dir ...
    --http_port 0 --dp 1 --tp 1` (an NCCL group of one, the DiT under
-   `parallelize_dit` at tp 1, TF32 off as in this process) answering
+   `parallelize_dit` at tp 1, TF32 off as in this process; saved after
+   phase 9 and loading while phases 10-9f run here) answering
    phase 9e's request (1024 px, 30 steps, seed 4) with phase 9e's pixels
    bit for bit; /healthz; SIGTERM drains it; save, load, warm-up and
    request seconds printed;
@@ -228,16 +229,20 @@ Phases (any failed check raises and the run exits non-zero):
    exactly 46 forward, 31 dq and 31 dkv launches per step, peak memory
    under 80 GB, a profile of one step, and the trainer's final (full
    state) checkpoint's seconds and GB;
-13b. the same with `--remat_policy dots`, then with `--sequence_dropout
-   0.5` (528 self-attention tokens): each 10 steps with phase 13's checks
-   and figures (46/31/31 launches a step: "dots" runs attention again in
-   the backward);
+13b. the same cut to depth 10 (`OPTIONS_7B_DEPTH`, for the script's
+   time) with `--remat_policy dots`, then with `--sequence_dropout 0.5`
+   (528 self-attention tokens): each 10 steps with phase 13's checks and
+   figures (22/19/19 launches a step at depth 10: "dots" runs attention
+   again in the backward);
 13c. the same with `--use_lora --lora_rank 64` (the base frozen: its
    zero-initialised head leaves the factors' gradients 0, the work and
    launches those of a real run); then one full-state checkpoint at that
-   width, `--async_checkpoint` at step 2 and the final sync save at step
-   3: seconds blocked and writing, GB on disk against n_params x 12, free
-   disk checked first;
+   width cut to depth 6 (`CHECKPOINT_7B_DEPTH`: its two saves are the
+   only 7B files on the disk), `--async_checkpoint` at step 2 and the final
+   sync save at step 3: seconds blocked and writing, GB on disk against
+   n_params x 12, free disk checked first. The other 7B training runs (13,
+   13b, 13d, 13e, 13g) keep their files in memory where there is room
+   (`memory_tmp`);
 12d. the fixture's recipe on the online image path (run after 12c): phase
    12's images written as 64 px PNGs by the port's writer with a JSON
    table (`--root_dir_type json --base_url file:// --center_crop
@@ -298,8 +303,21 @@ Phases (any failed check raises and the run exits non-zero):
    (64 rows) through the Flux VAE at full width and `ZeroTextEncoder(4096,
    32)`: s/image split into the VAE encode (CUDA events) and the text
    encode (host clock), the cache's GB on disk and peak GB; and
-   `f_lite_7b_width_d20_train512` for 10 steps from that cache with phase
-   13's checks, s/step beside phase 13's;
+   the 7B width at depth 10 (`OPTIONS_7B_DEPTH`) for 10 steps from that
+   cache with phase 13's checks, s/step beside phase 13's;
+13g. pipeline parallelism at one stage: `f_lite_7b_width_d20_train512`
+   (phase 13's arguments plus `--scan_layers --export_pipeline`) in a
+   torchrun subprocess of this script (an NCCL group of one) whose trainer
+   runs the GPipe schedule (`parallel/pipeline.py`) at 1 stage and 2
+   microbatches (the trainer's own check, as JAX's, refuses microbatches
+   without `--pp` > 1; the run logs that it was applied), 10 steps:
+   finite losses, exactly 92 / 62 / 62 launches a step (2 x phase 13's),
+   step 1's loss within 1e-3 relative of phase 13's and every loss within
+   1e-2 (the gaps printed), peak under 80 GB, s/step and peak GB beside
+   phase 13's; the export (the scan-stacked layout, `scan_layers: true`,
+   `pipeline_stages: 1`) loaded back on the card by
+   `FLitePipeline.from_pretrained` bit-equal to the final checkpoint's
+   weights (its files in memory where there is room, `memory_tmp`);
 14. a `{"gpus": N, "multi_rank_checks": "cpu/gloo"}` line (runs of 2 and 4
    ranks, tp and dp x tp among them, are checked on the CPU with gloo:
    the card's machine has one GPU), a `{"kernels": [...]}` line, the
@@ -307,6 +325,10 @@ Phases (any failed check raises and the run exits non-zero):
    card line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of another path launched there fails the run.
+Before phase 9 and at the end the card's state is printed (`card_state`:
+power draw, SM clock against its maximum, temperature, the throttle
+reasons and the processes holding memory), so a slow run shows whether
+the card or this script held it back.
 
 Exits non-zero, printing no result, where `torch.cuda.is_available()` is
 false or the package is missing.
@@ -325,6 +347,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -414,6 +437,19 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def card_state(label: str) -> None:
+    """Print the card's power draw, clocks, temperature and throttle
+    reasons, and the processes holding its memory."""
+    queries = (("--query-gpu=name,power.limit,power.draw,clocks.sm,clocks.max.sm,"
+                "temperature.gpu,clocks_throttle_reasons.active"),
+               "--query-compute-apps=pid,used_memory")
+    for query in queries:
+        out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        text = (out.stdout.strip() or out.stderr.strip()).replace("\n", " | ")
+        log(f"card_state {label} {query.split('=')[0][8:]}: {text or '(none)'}")
 
 
 def time_ms(fn) -> float:
@@ -1897,24 +1933,45 @@ def train_7b_launches(depth: int) -> dict:
     return dict(fwd=n_attn + n_remat, dq=n_attn, dkv=n_attn)
 
 
+# depths cut to keep the script inside its time (PERF.md §4): 13c's two
+# full-state saves (an async one, then the final one beside it) stay on the
+# card machine's disk, the one phase whose files do; 13b's options and 13f's
+# run from the tool's cache are measured at a shallower depth than 13's 20
+CHECKPOINT_7B_DEPTH = 6
+OPTIONS_7B_DEPTH = 10
+
+
+def checkpoint_7b_gb(depth: int) -> float:
+    """GB of a full-state checkpoint of the 7B width at `depth`: fp32
+    parameters, mu and nu."""
+    import torch
+
+    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
+
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in DiT(DiTConfig.f_lite_7b(depth=depth)).parameters())
+    return n_params * 12 / 1e9
+
+
 def disk_gb(path: Path) -> float:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
 
 
 def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
-                    label="7b_train", cache=None) -> dict:
+                    label="7b_train", cache=None, out_root=None) -> dict:
     """The 7B's widths at depth 20, 512 px (64x64x16 latents), batch 4, text
     embeddings of 77 and 128 real rows (padded to 128), bf16 compute over
     fp32 master weights, checkpointing from block 8, AdamW, `steps` steps,
     with `extra` options: finite loss and grad norm, exactly 46 forward, 31
     dq and 31 dkv launches a step, peak memory under 80 GB, a profile of
     one step, and the final checkpoint's seconds and GB (its dir removed
-    after). `cache`: another precomputed cache to train from."""
+    after). `cache`: another precomputed cache to train from; `out_root`:
+    where the run's files go (`in_memory`), else `tmp`."""
     import shutil
 
     import torch
 
-    out = tmp / label
+    out = (out_root or tmp) / label
     argv = argv_7b(tmp, out, steps, batch, depth) + list(extra)
     if cache is not None:
         argv[argv.index("--precomputed_data_dir") + 1] = str(cache)
@@ -1937,7 +1994,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
     n_params = sum(p.numel() for p in watch.state.model.parameters())
     n_trained = sum(p.numel() for p in watch.state.optimizer.params)
     final = out / "checkpoints" / str(result["global_step"])
-    res = dict(config="f_lite_7b_width_d20_train512", options=list(extra),
+    res = dict(config=f"f_lite_7b_width_d{depth}_train512", options=list(extra),
                params=n_params, trained_params=n_trained,
                batch=batch, tokens=1040, steps=result["global_step"],
                s_per_step=statistics.median(watch.times[2:]),
@@ -2061,7 +2118,8 @@ class EncodeTimer:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20) -> dict:
+def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20,
+                  out_root=None) -> dict:
     """Phase 13d: `f_lite_7b_width_d20_train512` on the online path: a
     dummy-backed JSON table of 512x512 rows with --center_crop, the Flux
     VAE at full width (seeded, `--vae_path`) encoding each batch in fp32,
@@ -2082,7 +2140,7 @@ def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20) -> dict
         {"media_path": f"dummy://photos/{i}.jpg", "captions": [f"prompt {i}"],
          "width": 512, "height": 512} for i in range(16 * batch)]))
     vae_dir = write_flux_vae(tmp / "flux_vae")
-    out = tmp / "7b_online"
+    out = (out_root or tmp) / "7b_online"
     argv = online_argv(argv_7b(tmp, out, steps, batch, depth), table,
                        base_url="dummy://", resolution=512) + [
         "--vae_path", str(vae_dir)]
@@ -2305,7 +2363,8 @@ def run_fixture_sp(tmp: Path, phase12b: dict, phase12g: dict) -> dict:
     return res
 
 
-def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20) -> dict:
+def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20,
+                out_root=None) -> dict:
     """Phase 13e: `f_lite_7b_width_d20_train512` (phase 13's arguments)
     under torchrun with `--fsdp 0`, `steps` steps and a profile of the
     last but one: finite loss and grad norm, 46 / 31 / 31 launches a step,
@@ -2314,7 +2373,7 @@ def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20) ->
     phase 13c's sync save."""
     import shutil
 
-    out = tmp / "fsdp_7b"
+    out = (out_root or tmp) / "fsdp_7b"
     window = (steps - 2, steps - 1)
     argv = argv_7b(tmp, out, steps, depth=depth) + [
         "--fsdp", "0", "--profile_steps", f"{window[0]},{window[1]}"]
@@ -2350,6 +2409,103 @@ def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20) ->
         raise AssertionError(f"7b fsdp: launch counts {per_step[:3]}, expected {expected}")
     if not res["max_memory_allocated_gb"] < 80:
         raise AssertionError(f"7b fsdp peak {res['max_memory_allocated_gb']} GB")
+    return res
+
+
+PP_WORKER = "--pipeline-train-worker"
+
+
+def pipeline_train_worker(argv: list) -> int:
+    """The trainer on `argv` with the GPipe schedule at 1 stage and 2
+    microbatches (`trainer.pipeline_schedule`; the trainer's flags need
+    --pp > 1 for microbatches, as in JAX); run under torchrun by phase
+    13g."""
+    from f_lite_tpu_torch.train import trainer
+
+    def one_stage(args):
+        print("pipeline schedule applied at 1 stage and 2 microbatches", flush=True)
+        return 1, 2
+
+    trainer.pipeline_schedule = one_stage
+    trainer.main(argv)
+    return 0
+
+
+def run_7b_pipeline(tmp: Path, phase13: dict, steps=10, depth=20) -> dict:
+    """Phase 13g: `f_lite_7b_width_d20_train512` (phase 13's arguments plus
+    `--scan_layers --export_pipeline`) under torchrun with the schedule at
+    1 stage and 2 microbatches (`PP_WORKER`), `steps` steps: finite losses,
+    exactly twice phase 13's launches a step, step 1's loss within 1e-3
+    relative of phase 13's and every loss within 1e-2, peak under 80 GB;
+    the export loaded back on the card bit-equal to the final
+    checkpoint's weights."""
+    import torch
+
+    from f_lite_tpu_torch.pipeline import FLitePipeline
+    from f_lite_tpu_torch.train.checkpoint import Checkpointer
+
+    per = train_7b_launches(depth)
+    expected = {k: 2 * v for k, v in per.items()}
+    # the final checkpoint and the export (a third of its size)
+    with memory_tmp(phase13["final_checkpoint_gb"] * 4 / 3) as (root, where):
+        out = root / "pipeline_7b"
+        argv = argv_7b(tmp, out, steps, depth=depth) + [
+            "--scan_layers", "--export_pipeline", "--fsdp", "0"]
+        reset_counts()
+        log_path = tmp / "pipeline_7b.log"
+        records, result, wall = run_torchrun(argv, out, log_path,
+                                             target=(str(ROOT / "chip_smoke.py"), PP_WORKER))
+        parent = read_counts()
+        text = log_path.read_text()
+        applied = ("pipeline schedule applied at 1 stage and 2 microbatches" in text
+                   and f"stage 0 holds blocks 0-{depth - 1}" in text)
+        losses = [r["train/loss"] for r in records]
+        per_step = per_step_launches(records)
+        finite = all(math.isfinite(r["train/loss"]) and math.isfinite(r["train/grad_norm"])
+                     for r in records)
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, phase13["losses"], strict=True)]
+        export = out / "pipeline"
+        config = json.loads((export / "dit" / "config.json").read_text())
+        t0 = time.perf_counter()
+        dit = FLitePipeline.from_pretrained(export, dtype=torch.float32, device="cuda",
+                                            load_text_encoder=False).dit
+        load_s = time.perf_counter() - t0
+        ckpt = Checkpointer(out)
+        _, trained = ckpt.load(ckpt.latest)
+        loaded = dit.state_dict()
+        mismatched = [k for k, v in loaded.items()
+                      if not torch.equal(v.cpu(), trained[k])]
+        res = dict(config="f_lite_7b_width_d20_train512", options=["--scan_layers",
+                                                                  "--export_pipeline"],
+                   stages=1, microbatches=2, applied=applied, steps=len(records),
+                   losses=losses, phase_13_losses=phase13["losses"], rel_gaps=gaps,
+                   all_finite=finite, per_step_launches=per_step[0],
+                   per_step_expected=expected, s_per_step=step_seconds(records),
+                   phase_13_s_per_step=phase13["s_per_step"],
+                   max_memory_allocated_gb=records[-1]["peak_gb"],
+                   phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+                   final_save=result["checkpoints"][-1],
+                   export_config={k: config[k] for k in ("scan_layers", "pipeline_stages")},
+                   export_gb=disk_gb(export), export_load_s=load_s,
+                   export_tensors=len(loaded), export_bit_equal=not mismatched,
+                   files=where, subprocess_s=wall, parent_launches=parent)
+        log("7b_pipeline", json.dumps(res))
+        del dit, loaded, trained
+        torch.cuda.empty_cache()
+    if not applied or len(records) != steps or not finite:
+        raise AssertionError(f"7b pipeline: applied {applied}, {len(records)} steps, "
+                             f"finite {finite}")
+    if any(c != expected for c in per_step) or any(parent.values()):
+        raise AssertionError(f"7b pipeline: launch counts {per_step[:3]}, expected "
+                             f"{expected}, parent {parent}")
+    if gaps[0] > 1e-3 or max(gaps) > 1e-2:
+        raise AssertionError(f"7b pipeline: losses {losses} against phase 13's "
+                             f"{phase13['losses']} (gaps {gaps})")
+    if not res["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"7b pipeline peak {res['max_memory_allocated_gb']} GB")
+    if mismatched or config["scan_layers"] is not True or config["pipeline_stages"] != 1:
+        raise AssertionError(f"7b pipeline export: config {res['export_config']}, "
+                             f"{len(mismatched)} tensors differ ({mismatched[:3]})")
     return res
 
 
@@ -3436,7 +3592,7 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
 
 
 def run_7b_convert(tmp: Path, depth=4, device="cuda") -> dict:
-    """Phase 8g (b): `DiTConfig.f_lite_7b()` at depth 4 (full width, the
+    """Phase 8g (b): `DiTConfig.f_lite_7b()` at `depth` (full width, the
     depth cut to fit the script's time), seeded weights saved natively,
     then `--export_torch --pt_file` and `--pt` of the `.pt` back: each
     direction's host seconds, GB written and GB/s; the re-ingested DiT's
@@ -3794,6 +3950,19 @@ class SavedServer:
             # its own process group: torchrun's worker is stopped with it
             self.proc = subprocess.Popen(cmd, stdout=lf, stderr=subprocess.STDOUT,
                                          cwd=ROOT, env=env, start_new_session=True)
+        # the load and ready seconds, read off its log while other phases run
+        self.marks = {"loaded_s": "DiT split over 1 ranks (dp=1, tp=1)",
+                      "ready_s": "serving on http://"}
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _watch(self) -> None:
+        while "ready_s" not in self.res and time.perf_counter() - self.t0 < 600 \
+                and self.proc.poll() is None:
+            text = self.log_path.read_text()
+            for key, mark in self.marks.items():
+                if key not in self.res and mark in text:
+                    self.res[key] = time.perf_counter() - self.t0
+            time.sleep(0.2)
 
     def stop(self, sig=None) -> None:
         import os
@@ -3818,19 +3987,14 @@ class SavedServer:
 
         from f_lite_tpu_torch.utils.image import read_png
 
-        res, proc = self.res, self.proc
-        marks = {"loaded_s": "DiT split over 1 ranks (dp=1, tp=1)",
-                 "ready_s": "serving on http://"}
+        res, proc, marks = self.res, self.proc, self.marks
+        t_here = time.perf_counter()
         try:
             while "ready_s" not in res and time.perf_counter() - self.t0 < 600:
                 if proc.poll() is not None:
                     raise AssertionError(f"serve tp1 exited {proc.returncode}")
-                text = self.log_path.read_text()
-                for key, mark in marks.items():
-                    if key not in res and mark in text:
-                        res[key] = time.perf_counter() - self.t0
                 time.sleep(0.2)
-            res["waited_here_s"] = time.perf_counter() - self.t0
+            res["waited_here_s"] = time.perf_counter() - t_here
             text = self.log_path.read_text()
             found = re.search(r"serving on http://[\d.]+:(\d+)", text)
             if found is None:
@@ -4470,12 +4634,20 @@ def main() -> int:
 
     t_start = time.perf_counter()
 
-    def phase(fn, *args):
+    def phase(fn, *args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s "
             f"(script {time.perf_counter() - t_start:.1f} s)")
         return out
+
+    def in_memory(fn, *args):
+        """A 7B training phase with its run's files (a 30 GB checkpoint) in
+        memory where there is room: the card machine's disk takes about 45
+        GiB of writes a call, freed blocks included."""
+        with memory_tmp(1.1 * checkpoint_7b_gb(20)) as (root, where):
+            log(f"{fn.__name__} files: {where}")
+            return phase(fn, *args, out_root=root)
 
     rows = phase(check_attention)
     bwd_rows = phase(check_backward)
@@ -4495,27 +4667,27 @@ def main() -> int:
         fixture_generate = phase(run_fixture_generate, Path(tmp))
         fixture_serve = phase(run_fixture_serve, Path(tmp))
         fixture_convert = phase(run_fixture_convert, full_images, Path(tmp))
-        convert_7b = phase(run_7b_convert, Path(tmp))
+        convert_7b = phase(run_7b_convert, Path(tmp), 2)
     qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
     t5_res, t5_stack = phase(run_text_tower, "t5")
     pipe = build_7b_pipe()
+    card_state("before phase 9")
     prompt_7b = phase(run_7b_prompt, pipe, t5_stack)
     del t5_stack
     torch.cuda.empty_cache()
     big = phase(run_7b, pipe)
-    img2img = phase(run_img2img, pipe)
-    strength_one = phase(run_strength_one, pipe)
-    big_lora = phase(run_7b_lora, pipe, big)
-    big_http = phase(run_7b_http, pipe, big)
-    padded_7b = phase(run_7b_padded, pipe, big)
     with contextlib.ExitStack() as stack:
-        # 9.5 GB of files: in memory where there is room, as phase 8g's.
-        # The server loads alone: a run that loaded it beside phases 10-9f
-        # outgrew the machine's disk limit
+        # 9.5 GB of files, in memory where there is room, as phase 8g's; the
+        # server loads them while phases 10-9f run here
         tmp, where = stack.enter_context(memory_tmp(12))
         log("7b_serve_tp1 files:", where)
         server_tp1 = phase(start_7b_serve, pipe, tmp)
         stack.callback(server_tp1.stop)
+        img2img = phase(run_img2img, pipe)
+        strength_one = phase(run_strength_one, pipe)
+        big_lora = phase(run_7b_lora, pipe, big)
+        big_http = phase(run_7b_http, pipe, big)
+        padded_7b = phase(run_7b_padded, pipe, big)
         serve_tp1 = phase(finish_7b_serve, server_tp1, big_http)
     from f_lite_tpu_torch.quant import quantize_dit
 
@@ -4539,18 +4711,19 @@ def main() -> int:
         fixture_buckets = phase(run_fixture_buckets, Path(tmp))
         fixture_fsdp = phase(run_fixture_fsdp, Path(tmp), fixture_train, fixture_resume)
         fixture_sp = phase(run_fixture_sp, Path(tmp), fixture_resume, fixture_fsdp)
-        train_7b = phase(run_7b_training, Path(tmp))
-        train_7b_dots = phase(run_7b_training, Path(tmp), 10, 4, 20,
-                              ("--remat_policy", "dots"), "7b_train_dots")
-        train_7b_seqdrop = phase(run_7b_training, Path(tmp), 10, 4, 20,
-                                 ("--sequence_dropout", "0.5"), "7b_train_seqdrop")
-        train_7b_lora = phase(run_7b_training, Path(tmp), 10, 4, 20,
+        train_7b = in_memory(run_7b_training, Path(tmp))
+        train_7b_dots = in_memory(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
+                                  ("--remat_policy", "dots"), "7b_train_dots")
+        train_7b_seqdrop = in_memory(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
+                                     ("--sequence_dropout", "0.5"), "7b_train_seqdrop")
+        train_7b_lora = phase(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
                               ("--use_lora", "--lora_rank", "64"), "7b_train_lora")
-        checkpoint_7b = phase(run_7b_checkpoint, Path(tmp))
-        train_7b_online = phase(run_7b_online, Path(tmp), train_7b)
-        fsdp_7b = phase(run_7b_fsdp, Path(tmp), train_7b, checkpoint_7b)
+        checkpoint_7b = phase(run_7b_checkpoint, Path(tmp), CHECKPOINT_7B_DEPTH)
+        train_7b_online = in_memory(run_7b_online, Path(tmp), train_7b)
+        fsdp_7b = in_memory(run_7b_fsdp, Path(tmp), train_7b, checkpoint_7b)
         cache_builder = phase(run_cache_builder, Path(tmp), fixture_online["tables"],
-                              train_7b)
+                              train_7b, 10, 4, OPTIONS_7B_DEPTH)
+        pipeline_7b = phase(run_7b_pipeline, Path(tmp), train_7b)
     log("7b_train_options", json.dumps({
         r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
             "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
@@ -4604,6 +4777,8 @@ def main() -> int:
             "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
         launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"]["fwd"],
                        "per_7b_step": fsdp_7b["per_step_launches"]["fwd"]},
+        launches_pipeline_one_stage={
+            "per_7b_step_2_microbatches": pipeline_7b["per_step_launches"]["fwd"]},
         launches_tp_at_tp1={
             "per_fixture_step_sequence_parallel": fixture_sp["per_step_launches"]["fwd"],
             "serving_fixture_int8": fixture_int8_tp1["launches"]["fwd"]},
@@ -4652,6 +4827,8 @@ def main() -> int:
                 "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
             launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"][which],
                            "per_7b_step": fsdp_7b["per_step_launches"][which]},
+            launches_pipeline_one_stage={
+                "per_7b_step_2_microbatches": pipeline_7b["per_step_launches"][which]},
             launches_tp_at_tp1={"per_fixture_step_sequence_parallel":
                                 fixture_sp["per_step_launches"][which]},
             launches_tools={"per_7b_step_from_tool_cache":
@@ -4700,6 +4877,7 @@ def main() -> int:
             fixture_train, fixture_finetune, train_7b, train_7b_dots, train_7b_seqdrop,
             train_7b_lora, fixture_online, fixture_online_resume, fixture_buckets,
             train_7b_online, cache_builder["train"]))
+        + pipeline_7b["parent_launches"]["variants"]
         + fixture_resume["launches_straight"]["variants"]
         + fixture_resume["launches_resumed"]["variants"],
         max_abs_err=max(r["max_abs_err"] for r in variant_rows),
@@ -4764,6 +4942,10 @@ def main() -> int:
             raise AssertionError(f"kernels line: {k['name']} lacks {missing}")
     # where the checks of 2 and 4 ranks ran (tests/test_torch_parallel.py)
     log(json.dumps({"gpus": torch.cuda.device_count(), "multi_rank_checks": "cpu/gloo",
+                    "pipeline_one_stage_7b": {k: pipeline_7b[k] for k in (
+                        "rel_gaps", "s_per_step", "phase_13_s_per_step",
+                        "max_memory_allocated_gb", "phase_13_max_memory_allocated_gb",
+                        "export_bit_equal", "export_load_s", "files")},
                     "tp_at_tp1": {
                         "fixture_sequence_parallel": {k: fixture_sp[k] for k in (
                             "losses_bit_equal", "max_rel_gap", "s_per_step",
@@ -4869,6 +5051,7 @@ def main() -> int:
                             "phase_13_s_per_step": cache_builder["phase_13_s_per_step"],
                             "max_memory_allocated_gb":
                                 cache_builder["train"]["max_memory_allocated_gb"]}}}))
+    card_state("at the end")
     log(f"chip_smoke total: {time.perf_counter() - t_total:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -4880,4 +5063,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [SP_WORKER]:
         sys.exit(sequence_parallel_train_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [PP_WORKER]:
+        sys.exit(pipeline_train_worker(sys.argv[2:]))
     sys.exit(main())

@@ -1,7 +1,7 @@
 """JAX parameters -> the port's state dicts (own copy of the maps in
 `f_lite_tpu/convert/jax_to_torch.py`: `invert_dit_params` with
-`from_scan_layout`, `invert_vae_params`; and of `pipeline_to_scan_params`
-in `f_lite_tpu/parallel/pipeline.py`), and the text towers' trees of
+`from_scan_layout`, `invert_vae_params`; `pipeline_to_scan_params` is
+`parallel/pipeline.py`'s), and the text towers' trees of
 `convert_t5_state_dict` / `convert_qwen2_state_dict` carried to HF's names
 (`t5_state_dict_from_jax`, `qwen2_state_dict_from_jax`).
 
@@ -39,7 +39,6 @@ import numpy as np
 import torch
 
 _SCAN_KEYS = ("blocks_all", "blocks_front", "blocks_rest")
-_PIPELINE_TRUNKS = ("blocks_all", "blocks_rest")
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
@@ -133,15 +132,12 @@ def _tree_map(fn, tree):
 
 
 def _fold_pipeline(p: dict) -> dict:
-    """The pipeline-parallel trunks folded back to the plain scan layout:
-    leaves (stages, units per stage, ...) -> (units, ...), stage s holding
-    units [s * per_stage, (s + 1) * per_stage)."""
-    p = dict(p)
-    for name in _PIPELINE_TRUNKS:
-        if isinstance(p.get(name), dict) and "pipe" in p[name]:
-            p[name] = _tree_map(lambda x: x.reshape(-1, *x.shape[2:]),
-                                p[name]["pipe"]["stages"]["blocks"])
-    return p
+    """The pipeline-parallel trunks folded back to the plain scan layout
+    (`parallel.pipeline.pipeline_to_scan_params`): leaves (stages, units
+    per stage, ...) -> (units, ...)."""
+    from f_lite_tpu_torch.parallel.pipeline import pipeline_to_scan_params
+
+    return pipeline_to_scan_params({"params": p})["params"]
 
 
 def _unstack_scan(p: dict, cfg) -> dict:

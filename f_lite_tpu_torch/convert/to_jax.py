@@ -19,6 +19,10 @@ scales fp32). Layouts:
 - VAE Conv2d weight (out, in, kh, kw)     -> Conv kernel (kh, kw, in, out);
 - GroupNorm weight/bias                   -> norm scale/bias.
 Every step is a transpose or reshape, so the conversion is exact.
+
+`to_scan_layout` (own copy of `f_lite_tpu/convert/torch_to_jax.py:279`)
+restacks those unrolled blocks into the `scan_layers` layout, as the JAX
+trainer's export under `--scan_layers` holds them.
 """
 
 from __future__ import annotations
@@ -159,4 +163,47 @@ def vae_state_dict_to_jax(sd: Mapping[str, torch.Tensor], cfg) -> dict[str, torc
             _conv(sd, up, f"decoder.up_{i}_upsample", out)
     _groupnorm(sd, "decoder.conv_norm_out", "decoder.conv_norm_out", out)
     _conv(sd, "decoder.conv_out", "decoder.conv_out", out)
+    return out
+
+
+def to_scan_layout(flat: Mapping[str, torch.Tensor], cfg) -> dict[str, torch.Tensor]:
+    """Flat unrolled DiT params (`state_dict_to_jax`'s) -> the `scan_layers`
+    layout (JAX's `ScanUnit` trees): `blocks_all` (cross_attn_all, one
+    block a unit) or v1's `blocks_front` (one a unit) and `blocks_rest`
+    (`cross_attn_period` blocks a unit, `blk_{j}`), each leaf with a
+    leading unit axis; per-block AdaLN heads as `blk_{j}_adaLN`. Under
+    residual_v block 0, which has no lambda_v unrolled, gets a ones one
+    (inert: the scan gates it)."""
+    out = dict(flat)
+    blocks: dict[int, dict] = {}
+    for key in list(out):
+        head, _, rest = key.partition(".")
+        if head.startswith("blocks_"):
+            idx, adaln = head[len("blocks_"):], head.endswith("_adaLN")
+            i = int(idx[:-len("_adaLN")] if adaln else idx)
+            blocks.setdefault(i, {})[("_adaLN." if adaln else ".") + rest] = out.pop(key)
+    if cfg.residual_v and 0 in blocks and ".self_attn.lambda_v" not in blocks[0]:
+        like = blocks[1][".self_attn.lambda_v"] if 1 in blocks else None
+        blocks[0][".self_attn.lambda_v"] = torch.ones(
+            1, dtype=torch.float32 if like is None else like.dtype)
+
+    def stack(trunk, units):
+        for j in range(len(units[0])):
+            for leaf in blocks[units[0][j]]:
+                out[f"{trunk}.blk_{j}{leaf}"] = torch.stack([blocks[u[j]][leaf]
+                                                             for u in units])
+
+    if cfg.cross_attn_all:
+        stack("blocks_all", [[i] for i in range(cfg.depth)])
+        return out
+    first_n = min(cfg.cross_attn_first_n, cfg.depth)
+    rest = cfg.depth - first_n
+    if rest % cfg.cross_attn_period != 0:
+        raise ValueError("scan layout requires (depth - first_n) % period == 0")
+    stack("blocks_front", [[i] for i in range(first_n)])
+    period = cfg.cross_attn_period
+    units = [[first_n + u * period + j for j in range(period)]
+             for u in range(rest // period)]
+    if units:
+        stack("blocks_rest", units)
     return out

@@ -413,6 +413,12 @@ _SAVED_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                    torch.ops.aten.linear.default}
 
 
+def _drawn_into(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """`t`, or for a meta tensor a throwaway one of its shape and dtype on
+    the generator's device (its draws still advance the generator)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=generator.device) if t.is_meta else t
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
@@ -423,6 +429,28 @@ def _dots_saveable_contexts():
     other op, the attention's output allocations among them, runs again in
     the recomputation, so a kernel writes into fresh tensors there."""
     return create_selective_checkpoint_contexts(_dots_policy)
+
+
+@dataclasses.dataclass
+class Stream:
+    """What flows through the DiT's parts (`DiT.embed` -> `DiT.run_blocks`
+    -> `DiT.head`), and so between pipeline stages
+    (`parallel/pipeline.py`): the residual stream (this rank's share of
+    it under sequence parallelism, `seq`), the projected context and its
+    prefix mask, the timestep embedding, the shared modulation, the rope
+    tables of the patch grid, residual_v's block-0 values and sequence
+    dropout's kept tokens."""
+
+    tokens: torch.Tensor
+    context: torch.Tensor
+    context_mask: torch.Tensor | None
+    t_emb: torch.Tensor
+    modulation: torch.Tensor | None
+    rope: tuple | None
+    grid: tuple
+    seq: bool
+    v_first: torch.Tensor | None = None
+    token_indices: torch.Tensor | None = None
 
 
 class DiT(nn.Module):
@@ -458,8 +486,9 @@ class DiT(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: `config.dtype`, else the parameters'."""
-        return self.config.dtype or self.context_proj.weight.dtype
+        """The compute dtype: `config.dtype`, else the parameters' (the
+        first one's: `context_proj`'s where this module holds it)."""
+        return self.config.dtype or next(self.parameters()).dtype
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DiT":
@@ -467,9 +496,16 @@ class DiT(nn.Module):
         parameters' device): lecun_normal kernels (truncated normal,
         fan_in = in_features) with zero biases; zero AdaLN heads and
         final_proj, so a fresh DiT outputs exactly 0; N(0, 1) registers;
-        zero positional table; lambda_v 0.5; norm weights 1."""
+        zero positional table; lambda_v 0.5; norm weights 1. The draws go
+        in the whole DiT's order: a module this one lacks (another
+        pipeline stage's) draws into a throwaway tensor, so each stage
+        gets the values one whole DiT would."""
         zero_heads = {"adaLN_modulation", "final_modulation", "final_proj"}
-        for name, mod in self.named_modules():
+        with torch.device("meta"):
+            whole = DiT(self.config)
+        mine = dict(self.named_modules())
+        for name, mod in whole.named_modules():
+            mod = mine.get(name, mod)
             if isinstance(mod, RMSNormModule):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -477,13 +513,14 @@ class DiT(nn.Module):
                 if zero_heads & set(name.split(".")):
                     w.zero_()
                 else:
-                    lecun_normal_(w, generator)
+                    lecun_normal_(_drawn_into(w, generator), generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, Attention) and hasattr(mod, "lambda_v"):
                 mod.lambda_v.fill_(0.5)
-        self.register_tokens.normal_(0.0, 1.0, generator=generator)
-        if not self.config.use_rope:
+        reg = getattr(self, "register_tokens", whole.register_tokens)
+        _drawn_into(reg, generator).normal_(0.0, 1.0, generator=generator)
+        if not self.config.use_rope and hasattr(self, "positional_embedding"):
             self.positional_embedding.zero_()
         return self
 
@@ -492,10 +529,33 @@ class DiT(nn.Module):
         positions run through the blocks (with the 16 register tokens
         prepended), with their own rope rows (or positional rows), and the
         output is token-space (B, K, p*p*C) instead of an image."""
+        s = self.embed(x, context, context_mask, t, token_indices)
+        s = self.run_blocks(s, 0, self.config.depth)
+        return self.head(s)
+
+    def rope(self, grid, device):
+        """The rope tables (cos, sin) of a (gh, gw) patch grid behind the
+        registers' identity rows; None without rope."""
+        cfg = self.config
+        if not cfg.use_rope:
+            return None
+        return rope_2d_freqs(cfg.head_dim, *grid, base=cfg.rope_base,
+                             n_register_tokens=cfg.n_register_tokens, device=device)
+
+    def splits_sequence(self, length: int) -> bool:
+        """Whether the blocks carry this rank's share of a stream of `length`
+        tokens (sequence parallelism, where `length` divides over tp)."""
+        return self.tp is not None and tpar.shards_sequence(self.tp, length)
+
+    def embed(self, x, context, context_mask, t, token_indices=None) -> "Stream":
+        """The part before the blocks: the context projected and normed, the
+        patch tokens behind the registers (positional rows added without
+        rope), the timestep embedding and the shared modulation; under
+        sequence parallelism the stream is split here."""
         cfg = self.config
         dtype = self.dtype
         b, height, width, _ = x.shape
-        gh, gw = height // cfg.patch_size, width // cfg.patch_size
+        grid = (height // cfg.patch_size, width // cfg.patch_size)
         d = cfg.hidden_size
         nreg = cfg.n_register_tokens
 
@@ -510,62 +570,77 @@ class DiT(nn.Module):
         reg = _local(self.register_tokens).to(dtype).expand(b, -1, -1)
         tokens = torch.cat([reg, tokens], dim=1)
 
-        if cfg.use_rope:
-            rope = rope_2d_freqs(
-                cfg.head_dim, gh, gw, base=cfg.rope_base,
-                n_register_tokens=nreg, device=x.device,
-            )
-            if token_indices is not None:
-                # per-row tables: the kept patches' rows behind the
-                # registers' identity rows
-                rope = tuple(
-                    torch.cat([tab[None, :nreg].expand(b, -1, -1),
-                               tab[nreg:][token_indices]], dim=1)
-                    for tab in rope)
-        else:
+        rope = self.rope(grid, x.device)
+        if rope is not None and token_indices is not None:
+            # per-row tables: the kept patches' rows behind the registers'
+            # identity rows
+            rope = tuple(
+                torch.cat([tab[None, :nreg].expand(b, -1, -1),
+                           tab[nreg:][token_indices]], dim=1)
+                for tab in rope)
+        if not cfg.use_rope:
             pos = _local(self.positional_embedding)
             if token_indices is None:
                 pos = pos[:, : tokens.shape[1], :]
             else:
                 pos = torch.cat([pos[:, :nreg].expand(b, -1, -1),
-                                 pos[0, nreg: nreg + gh * gw][token_indices]], dim=1)
+                                 pos[0, nreg: nreg + grid[0] * grid[1]][token_indices]],
+                                dim=1)
             tokens = tokens + pos.to(dtype)
-            rope = None
 
         emb = timestep_embedding(t * 1000.0, d).to(dtype)
         t_emb = self.time_embed(emb)
+        modulation = None
         if cfg.adaln_mode == "shared":
             modulation = self.adaLN_modulation(t_emb).reshape(b, 9, d)
 
         # sequence parallelism: each tp rank carries its share of the
         # sequence through the blocks, where L divides over the ranks
-        seq = self.tp is not None and tpar.shards_sequence(self.tp, tokens.shape[1])
+        seq = self.splits_sequence(tokens.shape[1])
         if seq:
             tokens = tpar.split_sequence(tokens, self.tp)
+        return Stream(tokens, context, context_mask, t_emb, modulation, rope, grid,
+                      seq, token_indices=token_indices)
 
+    def run_blocks(self, s: "Stream", lo: int, hi: int) -> "Stream":
+        """Blocks lo..hi-1 (global indices: `gradient_checkpoint_from` and
+        residual_v's block 0 read them) on the stream `s`, in place."""
+        cfg = self.config
+        b, d = s.t_emb.shape[0], cfg.hidden_size
         remat = cfg.gradient_checkpoint and torch.is_grad_enabled()
         context_fn = (_dots_saveable_contexts if cfg.remat_policy == "dots"
                       else noop_context_fn)
-        v_first = None
-        for idx, block in enumerate(self.blocks):
+        modulation = s.modulation
+        for idx in range(lo, hi):
+            block = self.blocks[idx]
             if cfg.adaln_mode == "per_block":
-                modulation = block.adaLN_modulation(t_emb).reshape(b, 9, d)
-            args = (tokens, context, context_mask, modulation, rope, v_first, seq)
+                modulation = block.adaLN_modulation(s.t_emb).reshape(b, 9, d)
+            args = (s.tokens, s.context, s.context_mask, modulation, s.rope, s.v_first,
+                    s.seq)
             if remat and idx >= cfg.gradient_checkpoint_from:
                 # "full" keeps the block's inputs only; "dots" also the
                 # weight products. The backward runs the rest of the block
                 # again under grad mode, attention included (its kernel
                 # launches again and saves its lse again)
-                tokens, v_first = checkpoint(block, *args, use_reentrant=False,
-                                             context_fn=context_fn)
+                s.tokens, s.v_first = checkpoint(block, *args, use_reentrant=False,
+                                                 context_fn=context_fn)
             else:
-                tokens, v_first = block(*args)
+                s.tokens, s.v_first = block(*args)
+        return s
 
-        if seq:  # the final layer sees whole tokens
+    def head(self, s: "Stream"):
+        """The final layer: the stream whole again, the registers dropped,
+        the final modulation, norm and projection; an image (B, H, W, C),
+        or token-space rows under sequence dropout."""
+        cfg = self.config
+        dtype = self.dtype
+        b, d = s.t_emb.shape[0], cfg.hidden_size
+        tokens = s.tokens
+        if s.seq:  # the final layer sees whole tokens
             tokens = tpar.gather_sequence(tokens, self.tp)
         # drop registers; final modulation + projection
-        tokens = tokens[:, nreg:, :]
-        final_mod = self.final_modulation(t_emb).reshape(b, 2, d)
+        tokens = tokens[:, cfg.n_register_tokens:, :]
+        final_mod = self.final_modulation(s.t_emb).reshape(b, 2, d)
         shift = final_mod[:, 0][:, None, :].to(dtype)
         scale = final_mod[:, 1][:, None, :].to(dtype)
         if cfg.train_bias_and_rms:
@@ -573,6 +648,6 @@ class DiT(nn.Module):
         else:
             tokens = rms_norm(tokens)
         tokens = self.final_proj(tokens * (1 + scale) + shift)
-        if token_indices is not None:
+        if s.token_indices is not None:
             return tokens
-        return unpatchify(tokens, gh, gw, cfg.patch_size, cfg.in_channels)
+        return unpatchify(tokens, *s.grid, cfg.patch_size, cfg.in_channels)

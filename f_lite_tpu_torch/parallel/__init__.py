@@ -1,8 +1,9 @@
 """Training and serving across GPUs (counterpart of `f_lite_tpu/parallel/`):
-the process group and the `("dp", "fsdp", "tp")` mesh (`mesh.py`), tensor
-and sequence parallelism of the DiT (`tensor.py`), FSDP2 sharding of the
-DiT and the batch and state across ranks (`sharding.py`). `pipeline.py`
-(`--pp`) waits for ROADMAP A 12c."""
+the process group and the `("dp", "pp", "fsdp", "tp")` mesh (`mesh.py`),
+tensor and sequence parallelism of the DiT (`tensor.py`), FSDP2 sharding
+of the DiT and the batch and state across ranks (`sharding.py`), and
+pipeline parallelism (`pipeline.py`, imported from there: it builds on
+`models.dit`, which imports this package)."""
 
 from f_lite_tpu_torch.parallel.mesh import (
     create_mesh,

@@ -10,13 +10,14 @@ is one rank and no process group is formed; under `torchrun` a group is
 formed at every world size, one rank included (NCCL on the card, gloo on
 the CPU, as the caller's device says).
 
-The mesh is `("dp", "fsdp", "tp")`: `dp` replicates (the reference's
-inter-node `replicate` axis), `fsdp` shards the parameters (its
-intra-node `shard` axis, `distributed.py:46-100`); both above 1 is HSDP.
-`tp` splits heads and the MLP width (Megatron, `parallel/tensor.py`); it
-is innermost, so a tp group is consecutive ranks, inside one node. The
-data replicas are dp x fsdp, and the ranks of one tp group see the same
-rows. The pipeline axis is not ported yet (ROADMAP A 12c).
+The mesh is `("dp", "pp", "fsdp", "tp")`, JAX's order: `dp` replicates
+(the reference's inter-node `replicate` axis), `pp` splits the blocks
+into pipeline stages (`parallel/pipeline.py`), `fsdp` shards the
+parameters (its intra-node `shard` axis, `distributed.py:46-100`; both
+dp and fsdp above 1 is HSDP), and `tp` splits heads and the MLP width
+(Megatron, `parallel/tensor.py`). tp is innermost, so a tp group is
+consecutive ranks, inside one node. The data replicas are dp x fsdp: the
+ranks of one pp group and of one tp group see the same rows.
 
 `LOGICAL_RULES`, `SP_RULES`, `mesh_rules` and `use_mesh_rules` have no
 counterpart: PyTorch places each tensor by the module's plans
@@ -106,47 +107,67 @@ def host_all_reduce(values, op=dist.ReduceOp.SUM, group=None) -> list[float]:
     return t.tolist()
 
 
-def resolve_mesh(dp: int, fsdp: int, world: int, tp: int = 1) -> tuple[int, int]:
-    """(dp, fsdp) for a world of `world` ranks at `tp`: `fsdp` 0 takes every
-    rank that dp x tp leaves. dp x fsdp x tp must equal the world (JAX's
-    `fsdp = args.fsdp or n_dev // (dp * tp)` may leave chips idle; here a
-    rank left out would have nothing to do)."""
-    if dp < 1 or fsdp < 0 or tp < 1:
-        raise ValueError(f"--dp {dp} --fsdp {fsdp} --tp {tp}: dp and tp must be "
-                         ">= 1, fsdp >= 0")
+def _mesh_text(dp, pp, fsdp, tp) -> tuple[str, str]:
+    if pp == 1:
+        return f"dp={dp} x fsdp={fsdp} x tp={tp} = {dp * fsdp * tp}", "dp x fsdp x tp"
+    return (f"dp={dp} x pp={pp} x fsdp={fsdp} x tp={tp} = {dp * pp * fsdp * tp}",
+            "dp x pp x fsdp x tp")
+
+
+def resolve_mesh(dp: int, fsdp: int, world: int, tp: int = 1,
+                 pp: int = 1) -> tuple[int, int]:
+    """(dp, fsdp) for a world of `world` ranks at `tp` and `pp`: `fsdp` 0
+    takes every rank that dp x pp x tp leaves (JAX's `fsdp = args.fsdp or
+    n_dev // (dp * tp * pp)`). dp x pp x fsdp x tp must equal the world
+    (JAX's rule may leave chips idle; here a rank left out would have
+    nothing to do)."""
+    if dp < 1 or fsdp < 0 or tp < 1 or pp < 1:
+        raise ValueError(f"--dp {dp} --fsdp {fsdp} --tp {tp} --pp {pp}: dp, tp and pp "
+                         "must be >= 1, fsdp >= 0")
+    others = dp * tp * pp
     if fsdp == 0:
-        if world % (dp * tp):
-            raise ValueError(f"--dp {dp} x --tp {tp} does not divide the world of "
+        if world % others:
+            what = f"--dp {dp} x --tp {tp}" + (f" x --pp {pp}" if pp > 1 else "")
+            raise ValueError(f"{what} does not divide the world of "
                              f"{world} ranks, so --fsdp 0 cannot fill it")
-        fsdp = world // (dp * tp)
-    if dp * fsdp * tp != world:
-        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} x tp={tp} = {dp * fsdp * tp} "
-                         f"!= {world} ranks: dp x fsdp x tp must equal WORLD_SIZE "
-                         f"({world})")
+        fsdp = world // others
+    if others * fsdp != world:
+        text, product = _mesh_text(dp, pp, fsdp, tp)
+        raise ValueError(f"mesh {text} != {world} ranks: {product} must equal "
+                         f"WORLD_SIZE ({world})")
     return dp, fsdp
 
 
-def create_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, *, device_type: str):
-    """The `("dp", "fsdp", "tp")` device mesh over the process group's ranks
-    (dp outermost: across nodes where it spans them; tp innermost, inside a
-    node; `fsdp` 0 as in `resolve_mesh`). `mesh["tp"]` is the tensor-parallel
-    sub-mesh, `mesh["dp", "fsdp"]` the data one."""
+def create_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1, *,
+                device_type: str):
+    """The `("dp", "pp", "fsdp", "tp")` device mesh over the process group's
+    ranks (dp outermost: across nodes where it spans them; tp innermost,
+    inside a node; `fsdp` 0 as in `resolve_mesh`). `mesh["tp"]` is the
+    tensor-parallel sub-mesh, `mesh["pp"]` the pipeline's, `mesh["dp",
+    "fsdp"]` the data one."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp, fsdp = resolve_mesh(dp, fsdp, world, tp)
-    return init_device_mesh(device_type, (dp, fsdp, tp),
-                            mesh_dim_names=("dp", "fsdp", "tp"))
+    dp, fsdp = resolve_mesh(dp, fsdp, world, tp, pp)
+    return init_device_mesh(device_type, (dp, pp, fsdp, tp),
+                            mesh_dim_names=("dp", "pp", "fsdp", "tp"))
+
+
+def stage_of(mesh) -> tuple[int, int]:
+    """(this rank's pipeline stage, the stage count) on `create_mesh`'s
+    mesh: its place in its pp group, the ranks that share its dp, fsdp
+    and tp coordinates (`mesh["pp"].get_group()`)."""
+    return mesh["pp"].get_local_rank(), mesh["pp"].size()
 
 
 def data_group(mesh):
-    """The group of this rank's data replicas (the ranks of its tp index
-    across dp x fsdp): the loss and the decile sums add up over it. The
-    default group where tp is 1. Every rank must call this."""
-    tp = mesh["tp"].size()
-    if tp == 1:
+    """The group of this rank's data replicas (the ranks of its pp and tp
+    coordinates across dp x fsdp): the loss and the decile sums add up
+    over it. The default group where pp and tp are 1. Every rank must call
+    this."""
+    pp, tp = mesh["pp"].size(), mesh["tp"].size()
+    if pp * tp == 1:
         return None
-    ranks = mesh.mesh.reshape(-1, tp)
-    group, _ = dist.new_subgroups_by_enumeration(
-        [ranks[:, t].tolist() for t in range(tp)])
+    ranks = mesh.mesh.permute(1, 3, 0, 2).reshape(pp * tp, -1)
+    group, _ = dist.new_subgroups_by_enumeration([r.tolist() for r in ranks])
     return group

@@ -44,14 +44,20 @@ def shard_dit(model: nn.Module, mesh) -> nn.Module:
     forward), then the root; each group frees its whole parameters after
     its forward and gathers them again for the backward. `mesh` is
     `create_mesh`'s (its data sub-mesh is used) or a data mesh: a 1-D mesh,
-    or dp 1, shards over fsdp; dp > 1 is HSDP. Returns `model`."""
+    or dp 1, shards over fsdp; dp > 1 is HSDP. A pipeline stage
+    (`parallel.pipeline.DiTStage`) shards the blocks it holds. Returns
+    `model`."""
     from torch.distributed.fsdp import fully_shard
 
-    if mesh.ndim == 3:
+    from f_lite_tpu_torch.parallel.pipeline import HeldElsewhere
+
+    if mesh.ndim == 4:
         mesh = mesh["dp", "fsdp"]
     if mesh.ndim == 2 and mesh.size(0) == 1:
         mesh = mesh["fsdp"]
     for block in model.blocks:
+        if isinstance(block, HeldElsewhere):
+            continue
         head = getattr(block, "adaLN_modulation", None)
         if head is not None:
             fully_shard(head, mesh=mesh)
@@ -71,15 +77,20 @@ def local_rows(x, local_world: int, local_rank: int):
 
 
 def rank_rows(node_batch: int, *, world: int = 1, rank: int = 0,
-              local_world: int = 1, multiplicity: int = 1, tp: int = 1):
+              local_world: int = 1, multiplicity: int = 1, tp: int = 1,
+              pp: int = 1, fsdp: int = 1):
     """This rank's share of a step whose node batch has `node_batch` rows,
     each repeated `multiplicity` times (`--batch_multiplicity` tiles the
-    node batch), at `tp` ranks a tp group: (the node rows it takes, repeats
-    included; its first row of the global batch; the global batch's size).
-    The batch splits over the data replicas, rank // tp of world // tp
-    (local_world // tp a node), so tp peers take the same rows and draw
-    the same values (`train.loss.LossDraws.rows` at those bounds)."""
-    replicas, replica, local = world // tp, rank // tp, local_world // tp
+    node batch), on the (dp, pp, fsdp, tp) mesh (`fsdp` matters only where
+    pp > 1): (the node rows it takes, repeats included; its first row of
+    the global batch; the global batch's size). The batch splits over the
+    data replicas, world / (pp x tp) of them, local_world / (pp x tp) a
+    node; replica d x fsdp + f takes block d x fsdp + f, so pp and tp
+    peers take the same rows and draw the same values
+    (`train.loss.LossDraws.rows` at those bounds)."""
+    replicas, local = world // (tp * pp), local_world // (tp * pp)
+    coords = rank // tp  # (d, p, f) flattened
+    replica = coords // (fsdp * pp) * fsdp + coords % fsdp
     n_node = node_batch * multiplicity
     rows = local_rows(np.arange(n_node), local, replica % local) % node_batch
     return rows, replica * len(rows), len(rows) * replicas
@@ -102,17 +113,22 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def full_state_dict(module_or_tensors) -> dict:
+def full_state_dict(module_or_tensors, stages=None) -> dict:
     """{name: whole tensor on the CPU} on rank 0 and {} on the others,
     gathering one tensor at a time (so at most one whole tensor a rank is
     on the device at once). Takes a module (its `state_dict()`) or a
-    {name: tensor} dict; every rank must call it with the same names."""
+    {name: tensor} dict; every rank must call it with the same names, or
+    with its pipeline stage's under `stages` (`parallel.pipeline.
+    StageGroup`: rank 0 gets every stage's)."""
     tensors = (module_or_tensors.state_dict()
                if isinstance(module_or_tensors, nn.Module) else module_or_tensors)
+    gather = full_tensor
+    if stages is not None:
+        tensors, gather = stages.view(tensors), stages.whole
     rank = dist.get_rank() if dist.is_initialized() else 0
     out = {}
     for name, t in tensors.items():
-        whole = full_tensor(t.detach(), name)
+        whole = gather(t.detach(), name)
         if rank == 0:
             out[name] = whole.to("cpu", copy=True)
         del whole

@@ -46,6 +46,7 @@ from f_lite_tpu_torch.convert.from_jax import (
 from f_lite_tpu_torch.convert.ingest import resolve_pretrained
 from f_lite_tpu_torch.convert.to_jax import (
     state_dict_to_jax,
+    to_scan_layout,
     vae_state_dict_to_jax,
 )
 from f_lite_tpu_torch.models.dit import DiT, DiTConfig
@@ -354,13 +355,16 @@ class FLitePipeline:
             text_encoder = text_encoder_from_dir(path, index, device)
         return cls(dit, vae, text_encoder)
 
-    def save_pretrained(self, path: str | Path) -> None:
+    def save_pretrained(self, path: str | Path, scan_layers: bool = False) -> None:
         """Write the native layout as the JAX package's `save_pretrained`
         does: `model_index.json`, `dit/` (config.json and
         flax_params.safetensors, unrolled, in the DiT's dtype; int8 weights
         and fp32 scales when quantized, which load only with
         `quantize=True`) and, with a VAE, `vae/` (fp32). Padded heads are
-        sliced off: the files are those of the unpadded pipeline."""
+        sliced off: the files are those of the unpadded pipeline.
+        `scan_layers`: the blocks scan-stacked (`convert.to_jax.
+        to_scan_layout`) and `scan_layers: true` in the config, as the JAX
+        trainer exports under `--scan_layers` (`pipeline_stages` 1)."""
         path = Path(path)
         (path / "dit").mkdir(parents=True, exist_ok=True)
         (path / "model_index.json").write_text(json.dumps(
@@ -372,10 +376,13 @@ class FLitePipeline:
 
             state = unpad_head_state(state, cfg)
             cfg = dataclasses.replace(cfg, padded_heads=None)
-        (path / "dit" / "config.json").write_text(
-            json.dumps(cfg.to_json_dict(), indent=2))
-        save_file(state_dict_to_jax(state, cfg),
-                  path / "dit" / "flax_params.safetensors")
+        config = cfg.to_json_dict()
+        flat = state_dict_to_jax(state, cfg)
+        if scan_layers:
+            config["scan_layers"] = True
+            flat = to_scan_layout(flat, cfg)
+        (path / "dit" / "config.json").write_text(json.dumps(config, indent=2))
+        save_file(flat, path / "dit" / "flax_params.safetensors")
         if isinstance(self.vae, IdentityVAE):
             return
         (path / "vae").mkdir(exist_ok=True)

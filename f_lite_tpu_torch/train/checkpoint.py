@@ -93,15 +93,17 @@ def read_entry(path: Path) -> tuple[dict, Mapping]:
 
 class Checkpointer:
     def __init__(self, output_dir: str | Path, total_limit: int | None = None, *,
-                 rank: int = 0, group=None):
+                 rank: int = 0, group=None, stages=None):
         """`rank` writes where it is 0; `group` (a host-side process group,
         None for one rank) holds every rank at each save until the write
-        before it is done."""
+        before it is done; `stages`: the pipeline's `StageGroup`, whose
+        other stages' tensors each save also writes."""
         self.root = Path(output_dir).resolve() / "checkpoints"
         self.root.mkdir(parents=True, exist_ok=True)
         self.total_limit = total_limit
         self.rank = rank
         self.group = group
+        self.stages = stages
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
         self.timings: list[dict] = []
@@ -133,12 +135,16 @@ class Checkpointer:
         t1 = time.perf_counter()
         d = self.dir(step)
         entries = {**(extra or {}), "state": tensors}  # `state` last
+        whole_of = full_tensor
+        if self.stages is not None:
+            entries = {k: self.stages.view(v) for k, v in entries.items()}
+            whole_of = self.stages.whole
         timing = {"step": step, "wait": wait, "drain_s": t1 - t0, "gather_s": 0.0}
         self.timings.append(timing)
 
         def gather(t, name):
             tic = time.perf_counter()
-            whole = full_tensor(t.detach(), name)
+            whole = whole_of(t.detach(), name)
             timing["gather_s"] += time.perf_counter() - tic
             return whole
 

@@ -104,28 +104,12 @@ def flow_matching_loss(
             generator, latents.shape, device, uncond_prob=uncond_prob,
             patch_size=patch_size, token_keep_ratio=token_keep_ratio,
             timesteps=timesteps, noise=noise, token_indices=token_indices)
-    drop, timesteps, noise, token_indices = draws
-
-    if drop is not None:
-        context = torch.where(drop[:, None, None], torch.zeros_like(context),
-                              context)
-        if context_mask is not None:
-            context_mask = context_mask | drop[:, None]
-
-    t = timesteps.float()[:, None, None, None]
-    x = latents.float()
-    z_t = x * (1.0 - t) + noise * t
-    v_target = x - noise
+    context, context_mask, z_t, v_target = _noised(latents, context, context_mask, draws)
+    timesteps, token_indices = draws.timesteps, draws.token_indices
 
     pred = dit(z_t.to(latents.dtype), context, context_mask,
                timesteps.to(latents.dtype), token_indices)
-    targ_tok = patchify(v_target, patch_size)
-    if token_indices is None:
-        pred_tok = patchify(pred.float(), patch_size)
-    else:  # token-space prediction of the kept tokens
-        pred_tok = pred.float()
-        targ_tok = torch.take_along_dim(targ_tok, token_indices[..., None], dim=1)
-    per_sample = ((targ_tok - pred_tok) ** 2).mean(dim=(1, 2))  # (B,)
+    per_sample = per_sample_losses(pred, v_target, patch_size, token_indices)
     weight = (torch.ones_like(per_sample) if sample_weight is None
               else sample_weight.float())
     if sample_weight is None and weight_sum is None:
@@ -133,15 +117,83 @@ def flow_matching_loss(
     else:
         total = weight.sum() if weight_sum is None else weight_sum
         loss = (per_sample * weight).sum() / total.clamp_min(1.0)
+    return loss, _aux(loss, per_sample, weight, timesteps)
 
+
+def _noised(latents, context, context_mask, draws: LossDraws):
+    """Caption dropout applied; (context, mask, z_t, v_target)."""
+    drop, timesteps, noise, _ = draws
+    if drop is not None:
+        context = torch.where(drop[:, None, None], torch.zeros_like(context),
+                              context)
+        if context_mask is not None:
+            context_mask = context_mask | drop[:, None]
+    t = timesteps.float()[:, None, None, None]
+    x = latents.float()
+    z_t = x * (1.0 - t) + noise * t
+    return context, context_mask, z_t, x - noise
+
+
+def per_sample_losses(pred, v_target, patch_size: int, token_indices=None):
+    """Each row's MSE in patchified token space (B,), fp32."""
+    targ_tok = patchify(v_target, patch_size)
+    if token_indices is None:
+        pred_tok = patchify(pred.float(), patch_size)
+    else:  # token-space prediction of the kept tokens
+        pred_tok = pred.float()
+        targ_tok = torch.take_along_dim(targ_tok, token_indices[..., None], dim=1)
+    return ((targ_tok - pred_tok) ** 2).mean(dim=(1, 2))
+
+
+def _aux(loss, per_sample, weight, timesteps) -> LossAux:
     bins = torch.clamp((timesteps * 10).to(torch.int64), max=9)
-    zeros = torch.zeros(10, device=device, dtype=torch.float32)
+    zeros = torch.zeros(10, device=per_sample.device, dtype=torch.float32)
     bin_sums = zeros.index_add(0, bins, (per_sample * weight).detach())
     bin_counts = zeros.index_add(0, bins, weight)
-    return loss, LossAux(
+    return LossAux(
         diffusion_loss=loss,
         per_sample_loss=per_sample,
         timesteps=timesteps,
         bin_sums=bin_sums,
         bin_counts=bin_counts,
     )
+
+
+def pipelined_flow_matching_loss(pipe, latents, context, context_mask, *,
+                                 draws: LossDraws, patch_size: int = 2,
+                                 sample_weight=None, weight_sum=None,
+                                 grad_scale: float = 1.0):
+    """`flow_matching_loss` through a pipeline of stages
+    (`parallel.pipeline.PipelinedDiT`), forwards and backwards in one
+    schedule: the last stage computes each microbatch's loss, the weighted
+    sum of its rows' losses over the batch's weight sum (`weight_sum`,
+    else these rows'), so the microbatches' losses add up to the batch's;
+    times `grad_scale` for the backward (the data replicas FSDP averages
+    over). The gradients are in the parameters' `.grad` on return. The
+    loss (detached) and the aux, with every row's loss, are the last
+    stage's, broadcast over the pipeline."""
+    if draws.token_indices is not None:
+        raise ValueError("pipeline_stages > 1 is incompatible with sequence "
+                         "dropout (token_indices) — rope becomes per-sample")
+    context, context_mask, z_t, v_target = _noised(latents, context, context_mask, draws)
+    b = latents.shape[0]
+    weight = (torch.ones(b, device=latents.device) if sample_weight is None
+              else sample_weight.float())
+    total = (weight.sum() if weight_sum is None else weight_sum).clamp_min(1.0)
+    # what the last stage needs of each row: its target and its weight
+    target = torch.cat([v_target.reshape(b, -1), weight[:, None]], dim=1)
+    rows = []
+
+    def loss(pred, tgt):
+        ps = per_sample_losses(pred, tgt[:, :-1].reshape(pred.shape), patch_size)
+        rows.append(ps.detach())
+        return (ps * tgt[:, -1]).sum() / total * grad_scale
+
+    order = pipe.train_microbatches(z_t.to(latents.dtype), context, context_mask,
+                                    draws.timesteps.to(latents.dtype), target, loss)
+    per_sample = torch.zeros(b, device=latents.device)
+    if rows:  # the last stage: back to the batch's order
+        per_sample.index_copy_(0, order, torch.cat(rows))
+    per_sample = pipe.broadcast_from_last(per_sample)
+    loss_value = (per_sample * weight).sum() / total
+    return loss_value, _aux(loss_value, per_sample, weight, draws.timesteps)

@@ -27,6 +27,8 @@ runs on the local shards, `global_norm` is the norm of the whole
 gradient, `state_dict()` hands out the DTensors (the checkpoint gathers
 them) and `load_state_dict` takes whole tensors and keeps this rank's
 shard. Each micro-batch's gradients are reduced by FSDP2 as they come.
+Under pipeline parallelism each stage's optimizer holds its stage's
+parameters, and the norm also sums over the stages (`norm_group`).
 """
 
 from __future__ import annotations
@@ -112,21 +114,25 @@ def _shard_dims(t) -> tuple:
 
 
 @torch.no_grad()
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, group=None) -> torch.Tensor:
     """sqrt(sum of squares) over all tensors, fp32 (`optax.global_norm`).
     DTensor shards give the norm of the whole tensors: each tensor's local
     sum of squares is summed over the groups that split it and never over
     one that replicates it, so the placements may differ from tensor to
     tensor (FSDP2 + TP: column-, row-parallel and tp-replicated
     parameters). Tensors that share their split dims are summed together
-    first, in the order they come (every rank must call this)."""
+    first, in the order they come (every rank must call this). `group`:
+    ranks of more than one that hold other tensors (a pipeline's stages),
+    over which the sum of squares is summed too."""
     tensors = list(tensors)
     norms = torch._foreach_norm([local(t).float() for t in tensors])
     layouts: dict = {}
     for t, n in zip(tensors, norms):
         key = (t.device_mesh, _shard_dims(t)) if _shard_dims(t) else None
         layouts.setdefault(key, []).append(n)
-    if list(layouts) == [None]:  # nothing split: the one-rank arithmetic
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    if list(layouts) == [None] and group is None:  # the one-rank arithmetic
         return torch.linalg.vector_norm(torch.stack(norms))
     total = None
     for key, group_norms in layouts.items():
@@ -136,6 +142,8 @@ def global_norm(tensors) -> torch.Tensor:
             for d in dims:
                 dist.all_reduce(squares, group=mesh.get_group(d))
         total = squares if total is None else total + squares
+    if group is not None:
+        dist.all_reduce(total, group=group)
     return total.sqrt()
 
 
@@ -148,8 +156,9 @@ class AdamW:
     def __init__(self, params, schedule, *, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.01,
                  max_grad_norm: float | None = 1.0,
-                 mu_dtype: torch.dtype | None = None):
+                 mu_dtype: torch.dtype | None = None, norm_group=None):
         self.params = list(params)
+        self.norm_group = norm_group
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -165,7 +174,7 @@ class AdamW:
         Returns the global gradient norm before clipping (a device
         scalar; nothing here waits for the device)."""
         grads = list(grads)
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.norm_group)
         grads = [local(g) for g in grads]
         if self.max_grad_norm is not None:
             factor = torch.where(norm < self.max_grad_norm,
@@ -222,6 +231,7 @@ class Accumulate:
         self.opt = opt
         self.k = k
         self.params = opt.params
+        self.norm_group = opt.norm_group
         self.acc = [torch.zeros_like(p) for p in self.params]
         self.mini_step = 0
 
@@ -232,7 +242,7 @@ class Accumulate:
     @torch.no_grad()
     def step(self, grads) -> torch.Tensor:
         grads = list(grads)
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.norm_group)
         n = self.mini_step
         for acc, g in zip(map(local, self.acc), map(local, grads)):
             acc.add_((g - acc) / (n + 1))
@@ -259,15 +269,18 @@ def build_optimizer(params, *, learning_rate: float = 1e-4,
                     lr_scheduler: str = "linear", num_warmup_steps: int = 0,
                     max_steps: int = 10_000, weight_decay: float = 0.01,
                     max_grad_norm: float | None = 1.0,
-                    moment_dtype=None, accumulation_steps: int = 1):
+                    moment_dtype=None, accumulation_steps: int = 1,
+                    norm_group=None):
     """Clipping + AdamW over `params` with the named schedule;
     `moment_dtype="bfloat16"` keeps mu in bf16 (`--use_8bit_adam`);
-    `accumulation_steps` > 1 wraps it in `Accumulate`."""
+    `accumulation_steps` > 1 wraps it in `Accumulate`; `norm_group`: the
+    pipeline's stages, whose other parameters the norm also counts."""
     schedule = build_lr_schedule(lr_scheduler, learning_rate,
                                  num_warmup_steps=num_warmup_steps,
                                  max_steps=max_steps)
     if isinstance(moment_dtype, str):
         moment_dtype = getattr(torch, moment_dtype)
     opt = AdamW(params, schedule, weight_decay=weight_decay,
-                max_grad_norm=max_grad_norm, mu_dtype=moment_dtype)
+                max_grad_norm=max_grad_norm, mu_dtype=moment_dtype,
+                norm_group=norm_group)
     return Accumulate(opt, accumulation_steps) if accumulation_steps > 1 else opt

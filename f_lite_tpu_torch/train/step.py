@@ -13,12 +13,19 @@ Across `world` data replicas (FSDP2, which averages the replicas'
 gradients) each rank passes its rows, their draws and the global batch's
 weight sum: its loss is its share of the global loss, scaled by `world`
 for the backward, and the metrics are the global batch's (the loss and the
-decile sums all-reduced over `group`, the replicas of this rank's tp
-index; the norm is the whole gradient's). Under tensor parallelism the
+decile sums all-reduced over `group`, the replicas of this rank's pp
+and tp coordinates; the norm is the whole gradient's). Under tensor parallelism the
 ranks of a tp group are one replica: they pass the same rows. Under `debug_nans` the
 checks read those global values, so every rank stops at the same step;
 anomaly mode stays off there, since it would stop one rank alone in the
-middle of the backward's collectives."""
+middle of the backward's collectives.
+
+Under pipeline parallelism (`state.model` a `parallel.pipeline.
+PipelinedDiT`) the forwards and backwards of the step's microbatches run
+in one GPipe schedule (`loss.pipelined_flow_matching_loss`); the loss and
+the deciles are the last stage's, broadcast over the pipeline, each stage
+updates its own parameters, and the optimizer's norm sums over the
+stages (`optim.global_norm(group=)`). Anomaly mode stays off there too."""
 
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import math
 import torch
 import torch.distributed as dist
 
-from f_lite_tpu_torch.train.loss import flow_matching_loss
+from f_lite_tpu_torch.parallel.pipeline import PipelinedDiT
+from f_lite_tpu_torch.train.loss import flow_matching_loss, pipelined_flow_matching_loss
 from f_lite_tpu_torch.train.optim import Accumulate, AdamW, global_norm
 
 
@@ -61,16 +69,23 @@ def train_step(state: TrainState, latents, context, context_mask, *,
         raise ValueError("a step across ranks needs the global batch's weight_sum")
     for p in opt.params:
         p.grad = None
+    pipelined = isinstance(model, PipelinedDiT)
     anomaly = (torch.autograd.detect_anomaly() if debug_nans and world == 1
-               else contextlib.nullcontext())
+               and not pipelined else contextlib.nullcontext())
     with anomaly:
-        loss, aux = flow_matching_loss(
-            model, latents, context, context_mask, generator=generator,
-            uncond_prob=uncond_prob, patch_size=patch_size,
-            token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
-            timesteps=timesteps, noise=noise, token_indices=token_indices,
-            draws=draws, weight_sum=weight_sum if world > 1 else None,
-        )
+        if pipelined:  # the backward runs inside the schedule
+            loss, aux = pipelined_flow_matching_loss(
+                model, latents, context, context_mask, draws=draws,
+                patch_size=patch_size, sample_weight=sample_weight,
+                weight_sum=weight_sum if world > 1 else None, grad_scale=world)
+        else:
+            loss, aux = flow_matching_loss(
+                model, latents, context, context_mask, generator=generator,
+                uncond_prob=uncond_prob, patch_size=patch_size,
+                token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
+                timesteps=timesteps, noise=noise, token_indices=token_indices,
+                draws=draws, weight_sum=weight_sum if world > 1 else None,
+            )
         metrics = {"loss": loss.detach(), "bin_sums": aux.bin_sums,
                    "bin_counts": aux.bin_counts}
         if world > 1:
@@ -82,16 +97,17 @@ def train_step(state: TrainState, latents, context, context_mask, *,
             loss = loss * world
         if debug_nans:
             _check_finite(metrics["loss"], "loss", n)
-        try:
-            loss.backward()
-        except RuntimeError as e:
-            if debug_nans and "nan values" in str(e):
-                raise FloatingPointError(f"--debug_nans: step {n}: {e}") from e
-            raise
+        if not pipelined:
+            try:
+                loss.backward()
+            except RuntimeError as e:
+                if debug_nans and "nan values" in str(e):
+                    raise FloatingPointError(f"--debug_nans: step {n}: {e}") from e
+                raise
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in opt.params]
     if debug_nans:
-        _check_finite(global_norm(grads), "gradient norm", n)
+        _check_finite(global_norm(grads, opt.norm_group), "gradient norm", n)
     grad_norm = opt.step(grads)
     for p in opt.params:
         p.grad = None

@@ -68,8 +68,26 @@ take the same rows, and `--sequence_parallel` (which needs `--tp` > 1, as
 in JAX) splits the residual stream along L over them. A tp that does not
 divide the heads or the MLP width raises ValueError, as the JAX trainer
 does (neither pads). Under torchrun the plan is applied at every tp, 1
-included. `--pp`, `--pp_microbatches` and `--scan_layers` raise "not
-ported yet (ROADMAP A 12c)" when set to a value that would do something. `--train_only_lora` is accepted and unused,
+included.
+
+`--pp P --pp_microbatches M` adds pipeline parallelism
+(`parallel/pipeline.py`): dp x pp x fsdp x tp = WORLD_SIZE, each rank
+holds one of P stages of the blocks (the uniform region's units split
+evenly, v1's front blocks, the embedders and the context projection on
+stage 0, the final layer on the last; a v1 model with no periodic region
+runs whole on every stage), and every step (every `Accumulate`
+micro-step) runs one GPipe schedule of M microbatches through the stages
+(`torch.distributed.pipelining`), each stage's AdamW and EMA on its own
+tensors, the gradient norm summed over the stages. The ranks of a
+pipeline (inside one node) take the same rows and draws; eval and
+sampling run forward through the stages, an off-recipe batch degrading
+to fewer microbatches as in JAX. JAX's checks hold, with its messages:
+`--pp` > 1 needs `--scan_layers` and refuses `--sequence_dropout`,
+`--pp_microbatches` > 1 needs `--pp` > 1, the global batch must divide
+by the microbatches, and `--use_lora` refuses `--scan_layers`.
+`--scan_layers` also makes the export's DiT scan-stacked, as the JAX
+trainer's (`scan_layers: true`, `pipeline_stages: 1`); the port trains
+the blocks unrolled either way. `--train_only_lora` is accepted and unused,
 as in the JAX trainer. The run is on the card (`--device cuda`) unless
 `--device cpu` is given.
 """
@@ -235,13 +253,17 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# option -> (value that does nothing, what it needs)
-# option: (its inert value, what it turns on, the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "scan_layers": (False, "scan-stacked blocks", "A 12c"),
-    "pp": (1, "pipeline parallelism", "A 12c"),
-    "pp_microbatches": (1, "pipeline parallelism", "A 12c"),
-}
+def pipeline_schedule(args) -> tuple[int, int] | None:
+    """(stages, microbatches) of the GPipe schedule the run trains with
+    (`--pp` > 1), or None: no pipeline."""
+    return (args.pp, args.pp_microbatches) if args.pp > 1 else None
+
+
+def global_batch(args) -> int:
+    """The rows the model sees a step, as the JAX trainer counts them:
+    train_batch_size x batch_multiplicity x the nodes (JAX's processes)."""
+    return (args.train_batch_size * max(args.batch_multiplicity, 1)
+            * process_replica_info()[0])
 
 
 def check_mesh(args) -> None:
@@ -249,12 +271,14 @@ def check_mesh(args) -> None:
     `torchrun` started (or did not start), or the batch does not divide
     over a node's ranks."""
     world, _, local_world, _ = launch_info()
+    pp = max(args.pp, 1)
     if not under_torchrun():
-        if args.dp > 1 or args.fsdp > 1 or args.tp > 1:
+        if args.dp > 1 or args.fsdp > 1 or args.tp > 1 or pp > 1:
             raise SystemExit(
-                f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp}: a mesh of more "
-                "than one rank runs one process a GPU, under torchrun: torchrun "
-                "--nproc_per_node N -m f_lite_tpu_torch.train ...")
+                f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp}"
+                + (f" --pp {pp}" if pp > 1 else "")
+                + ": a mesh of more than one rank runs one process a GPU, under "
+                "torchrun: torchrun --nproc_per_node N -m f_lite_tpu_torch.train ...")
         if args.multihost:
             raise SystemExit(
                 "--multihost: the process group forms from torchrun's "
@@ -262,18 +286,25 @@ def check_mesh(args) -> None:
                 "run under torchrun --nnodes M --nproc_per_node N ...")
     else:
         try:
-            resolve_mesh(args.dp, args.fsdp, world, args.tp)
+            _, fsdp = resolve_mesh(args.dp, args.fsdp, world, args.tp, pp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
         if local_world % args.tp:
             raise SystemExit(f"--tp {args.tp} does not divide the {local_world} "
                              "ranks of a node: a tp group lies inside one node")
+        if pp > 1 and local_world % (pp * fsdp * args.tp):
+            raise SystemExit(
+                f"--pp {pp} x fsdp {fsdp} x --tp {args.tp} does not divide the "
+                f"{local_world} ranks of a node: a pipeline lies inside one node "
+                "(its stages take the node's rows), so nodes split along dp")
         if args.multihost and world == local_world:
             raise SystemExit(f"--multihost: torchrun started one node "
                              f"({world} ranks); --multihost is for more than one")
-    replicas = max(local_world // args.tp, 1)  # a node's data replicas
-    over = (f"{local_world} ranks of a node (LOCAL_WORLD_SIZE)" if args.tp == 1 else
-            f"{replicas} data replicas of a node (LOCAL_WORLD_SIZE / tp)")
+    group = args.tp * pp  # the ranks that take the same rows
+    replicas = max(local_world // group, 1)  # a node's data replicas
+    over = (f"{local_world} ranks of a node (LOCAL_WORLD_SIZE)" if group == 1 else
+            f"{replicas} data replicas of a node (LOCAL_WORLD_SIZE / "
+            + ("tp)" if pp == 1 else "(pp x tp))"))
     for name in ("train_batch_size", "eval_batch_size"):
         b = getattr(args, name)
         if b % replicas and (name == "train_batch_size" or args.val_data_path):
@@ -281,8 +312,9 @@ def check_mesh(args) -> None:
 
 
 def check_ported(args) -> None:
-    """Raise SystemExit for a combination the JAX trainer rejects, and for
-    every option set to something the port cannot do yet."""
+    """Raise SystemExit (ValueError for `--sequence_parallel` and
+    `--ema_decay`) for a combination the JAX trainer rejects, with its
+    message, or a mesh that does not fit the processes."""
     if args.use_lora and args.scan_layers:
         raise SystemExit(
             "--use_lora is incompatible with --scan_layers: LoRA factors "
@@ -295,10 +327,24 @@ def check_ported(args) -> None:
             "cannot express per-sample branch-input dropout. The "
             "reference default is 0.0; use --uncond_prob / "
             "--sequence_dropout for regularization instead.")
-    for name, (inert, what, item) in _NOT_PORTED.items():
-        if getattr(args, name) != inert:
-            raise SystemExit(f"--{name} {getattr(args, name)!r}: {what} is not "
-                             f"ported yet (ROADMAP {item})")
+    pp = max(args.pp, 1)
+    if pp > 1 and not args.scan_layers:
+        raise SystemExit("--pp > 1 requires --scan_layers")
+    if pp > 1 and args.sequence_dropout > 0:
+        raise SystemExit(
+            "--pp > 1 is incompatible with --sequence_dropout "
+            "(per-sample rope under token subsetting)")
+    if pp == 1 and args.pp_microbatches > 1:
+        raise SystemExit(
+            "--pp_microbatches > 1 has no effect without --pp > 1 "
+            "(microbatches only stream through a multi-stage pipeline)")
+    if pp > 1 and global_batch(args) % max(args.pp_microbatches, 1):
+        raise SystemExit(
+            f"global batch {global_batch(args)} (= train_batch_size x "
+            f"batch_multiplicity x process_count) must be divisible by "
+            f"--pp_microbatches {args.pp_microbatches} (the model "
+            "degrades off-recipe batches silently, which is meant for "
+            "eval sampling, not the training step)")
     if args.sequence_parallel and args.tp <= 1:
         raise ValueError("--sequence_parallel requires --tp > 1")
     check_mesh(args)
@@ -384,20 +430,26 @@ def load_pretrained(args, model, device):
     pipeline's VAE (None in pixel space, with `--vae_path`, or without
     one)."""
     from f_lite_tpu_torch.models.vae import AutoencoderKL
+    from f_lite_tpu_torch.parallel.pipeline import DiTStage
     from f_lite_tpu_torch.pipeline import FLitePipeline
 
+    # a pipeline stage takes its own tensors of the DiT, read on the host
+    staged = isinstance(model, DiTStage)
     pipe = FLitePipeline.from_pretrained(
-        args.pretrained_model_path, dtype=torch.float32, device=device,
-        load_text_encoder=False)
+        args.pretrained_model_path, dtype=torch.float32,
+        device="cpu" if staged else device, load_text_encoder=False)
+    state = pipe.dit.state_dict()
+    if staged:
+        state = {k: state[k] for k in model.state_dict()}
     try:
-        model.load_state_dict(pipe.dit.state_dict(), strict=True)
+        model.load_state_dict(state, strict=True)
     except RuntimeError as e:
         raise ValueError(
             f"--pretrained_model_path {args.pretrained_model_path}: its DiT "
             f"does not fit the model the arguments build: {e}") from None
     if args.pixel_space or args.vae_path or not isinstance(pipe.vae, AutoencoderKL):
         return None
-    return pipe.vae
+    return pipe.vae.to(device)
 
 
 def rampup_weights(step: int, bsz: int, rampup: int | None, seed: int):
@@ -733,16 +785,19 @@ class swapped_weights:
 def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
              dtype, device, batch_multiplicity: int = 1, uncond_prob: float,
              patch_size: int, token_keep_ratio: float = 1.0, ranks=(1, 0, 1),
-             group=None, tp: int = 1) -> float | None:
+             group=None, tp: int = 1, pp: int = 1, fsdp: int = 1) -> float | None:
     """The mean loss over at most 20 validation batches, without
     gradients; batch vi's draws come from the generators of step
     (1 << 30) + global_step * 32 + vi, so no draw of the training run
     moves. None without a batch. Across `ranks` (world, rank,
     local_world) each rank takes its rows of each batch and its rows of
-    the global batch's draws (a tp group of `tp` ranks the same rows),
-    every rank runs the least batch count of all ranks, and the losses and
-    their count are summed over `group` (a host-side group of every rank;
-    tp peers add equal losses and counts, so the mean is the replicas')."""
+    the global batch's draws (the ranks of a tp group of `tp` and of a
+    pipeline of `pp` the same rows; `fsdp` places the replicas on the
+    mesh), every rank runs the least batch count of all ranks, and the
+    losses and their count are summed over `group` (a host-side group of
+    every rank; pp and tp peers add equal losses and counts, so the mean
+    is the replicas'). A pipelined model (`PipelinedDiT`) runs forward
+    only through its stages."""
     from f_lite_tpu_torch.parallel.mesh import host_all_reduce
     from f_lite_tpu_torch.parallel.sharding import rank_rows
     from f_lite_tpu_torch.train.loss import draw_loss_inputs, flow_matching_loss
@@ -758,7 +813,8 @@ def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
         key = (1 << 30) + global_step * 32 + vi
         rows, lo, n_global = rank_rows(len(vbatch["caption"]), world=world, rank=rank,
                                        local_world=local_world,
-                                       multiplicity=batch_multiplicity, tp=tp)
+                                       multiplicity=batch_multiplicity, tp=tp, pp=pp,
+                                       fsdp=fsdp)
         latents, ctx, mask = encode_batch(
             vbatch, vae, text_encoder, generator=encode_generator(device, seed, key),
             dtype=dtype, device=device, rows=rows)
@@ -802,16 +858,17 @@ def state_tensors(trained: dict, opt) -> dict:
     return out
 
 
-def restore_state(trained: dict, opt, tensors, meta: dict) -> None:
+def restore_state(trained: dict, opt, tensors, meta: dict, names=None) -> None:
     """Copy a checkpoint's tensors (a mapping of whole tensors, read one
     at a time) back into the trained tensors and the optimizer (which must
     have been built with the same options); a sharded tensor keeps its
-    shard."""
-    expected = state_tensors(trained, opt)
-    if set(tensors) != set(expected):
+    shard. `names`: every name the run's checkpoint holds, where this
+    rank's tensors are a part of them (a pipeline stage's)."""
+    expected = set(names if names is not None else state_tensors(trained, opt))
+    if set(tensors) != expected:
         raise ValueError(
             "checkpoint does not match this run's trained tensors and "
-            f"optimizer: {sorted(set(tensors) ^ set(expected))[:5]}")
+            f"optimizer: {sorted(set(tensors) ^ expected)[:5]}")
     load_full_state_dict(trained, tensors)
     state = {"count": meta["count"], "mini_step": meta["mini_step"],
              "names": list(trained)}
@@ -870,18 +927,20 @@ def device_stats(device) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
 
 
-def export_dit(model, cfg, *, ema, lora, lora_alpha, lora_rank, rank: int):
+def export_dit(model, cfg, *, ema, lora, lora_alpha, lora_rank, rank: int,
+               stages=None):
     """The DiT to export, whole and on the CPU, on rank 0 (None on the
-    others; every rank gathers): the trained weights, the EMA where it is
-    on, the LoRA factors (or their EMA) merged into the frozen base."""
+    others; every rank gathers; a pipeline stage's ranks through `stages`):
+    the trained weights, the EMA where it is on, the LoRA factors (or their
+    EMA) merged into the frozen base."""
     from f_lite_tpu_torch.convert.from_jax import unflatten
     from f_lite_tpu_torch.models.dit import DiT
     from f_lite_tpu_torch.parallel.sharding import full_state_dict
     from f_lite_tpu_torch.train.lora import apply_lora, flatten_lora
 
-    state = full_state_dict(model)
+    state = full_state_dict(model, stages)
     source = ema if ema is not None else (flatten_lora(lora) if lora is not None else {})
-    override = full_state_dict(source)
+    override = full_state_dict(source, stages) if source else {}
     if rank != 0:
         return None
     if lora is not None:  # the frozen base, its parametrizations' originals
@@ -930,6 +989,14 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
         data_group,
         host_all_reduce,
         host_group,
+        stage_of,
+    )
+    from f_lite_tpu_torch.parallel.pipeline import (
+        PipelinedDiT,
+        StageGroup,
+        build_stage,
+        pipeline_region,
+        stage_blocks,
     )
     from f_lite_tpu_torch.parallel.sharding import (
         full_state_dict,
@@ -954,8 +1021,8 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     world, rank, local_world, local_rank = ranks
     nodes, node_rank = process_replica_info()
     grouped = dist.is_initialized()
-    tp = args.tp
-    dp, fsdp = resolve_mesh(args.dp, args.fsdp, world, tp)
+    tp, pp = args.tp, max(args.pp, 1)
+    dp, fsdp = resolve_mesh(args.dp, args.fsdp, world, tp, pp)
     host = host_group() if grouped else None
     seed = args.seed or 0
     if args.seed is not None:
@@ -966,8 +1033,25 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     k_acc = args.gradient_accumulation_steps
 
     cfg = build_config(args)
-    with torch.device(device):
-        model = DiT(cfg)  # fp32 master weights; compute in cfg.dtype
+    if args.scan_layers:  # the export's layout must hold the config
+        pipeline_region(cfg)
+    mesh = create_mesh(dp, fsdp, tp, pp, device_type=device.type) if grouped else None
+    schedule = pipeline_schedule(args)
+    stages = stage = blocks = None
+    if schedule is not None:
+        stage, n_stages = stage_of(mesh)
+        layout = stage_blocks(cfg, schedule[0], scan_layers=args.scan_layers)
+        if layout is None:  # v1 without a periodic region: nothing to split
+            logger.info("pipeline: no periodic block region at depth %d, every "
+                        "stage holds and runs the whole model", cfg.depth)
+            schedule = None
+        else:
+            blocks = layout[stage]
+    if blocks is not None:  # fp32 master weights; compute in cfg.dtype
+        model = build_stage(cfg, stage, n_stages, blocks, device)
+    else:
+        with torch.device(device):
+            model = DiT(cfg)
     vae = None
     if args.pretrained_model_path:
         vae = load_pretrained(args, model, device)
@@ -986,14 +1070,19 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 else init_lora_params(model, rank=args.lora_rank, targets=targets,
                                       generator=torch.Generator(device).manual_seed(7)))
         attach_lora(model, tree, alpha=args.lora_alpha, rank=args.lora_rank)
-    data = None  # the group the loss sums over: the default one at tp 1
+    data = None  # the group the loss sums over: the default one at pp x tp 1
     if grouped:
-        mesh = create_mesh(dp, fsdp, tp, device_type=device.type)
         data = data_group(mesh)
         # tensor parallelism over the tp sub-mesh (at tp 1 too), then
         # FSDP2 over the data sub-mesh
         parallelize_dit(model, mesh["tp"], sequence_parallel=args.sequence_parallel)
         shard_dit(model, mesh)
+    net = model  # what the step, eval and sampling call
+    if schedule is not None:
+        pp_group = mesh["pp"].get_group()
+        net = PipelinedDiT(model, pp_group, schedule[1], device)
+        leader = all(mesh[d].get_local_rank() == 0 for d in ("dp", "fsdp", "tp"))
+        stages = StageGroup(pp_group, stage, leader)
     # after fully_shard: its Parameters replace the module's
     if args.use_lora:
         lora = attached_factors(model)
@@ -1034,16 +1123,17 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
         max_steps=max_steps, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm,
         moment_dtype=torch.bfloat16 if args.use_8bit_adam else None,
-        accumulation_steps=k_acc)
+        accumulation_steps=k_acc,
+        norm_group=stages.group if stages is not None else None)
     lr_fn = build_lr_schedule(args.lr_scheduler, args.learning_rate,
                               num_warmup_steps=args.num_warmup_steps,
                               max_steps=max_steps)
-    state = TrainState(model, opt)
+    state = TrainState(net, opt)
     # caption dropout: 0.01 on the precomputed path, as in the JAX trainer
     uncond_prob = 0.01 if args.use_precomputed_data else args.uncond_prob
 
     ckpt = Checkpointer(args.output_dir, total_limit=args.checkpoints_total_limit,
-                        rank=rank, group=host)
+                        rank=rank, group=host, stages=stages)
     global_step = 0
     if args.resume_from_checkpoint:
         step_no = [ckpt.resolve(args.resume_from_checkpoint)]
@@ -1052,7 +1142,9 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
         step_no = step_no[0]
         if step_no is not None:
             meta, tensors = ckpt.load(step_no)
-            restore_state(trained, opt, tensors, meta)
+            names = (None if stages is None
+                     else stages.view(state_tensors(trained, opt)))
+            restore_state(trained, opt, tensors, meta, names)
             del tensors
             global_step = state.step = int(meta["step"])
             sstate = ckpt.load_sampler_state(step_no)
@@ -1090,6 +1182,9 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     if grouped:
         logger.info("tensor parallel: tp=%d sequence_parallel=%s", tp,
                     args.sequence_parallel)
+    if blocks is not None:
+        logger.info("pipeline: pp=%d microbatches=%d, stage %d holds blocks %d-%d",
+                    n_stages, schedule[1], stage, blocks.start, blocks.stop - 1)
     logger.info("dataset=%d images, %d batches/epoch, max_steps=%d",
                 len(dl.dataset), epoch_batches, max_steps)
     # the batches each replica has run in the sampler's epoch (those the
@@ -1155,7 +1250,8 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 prof = _start_profile(device)
             rows, lo, n_global = rank_rows(
                 len(batch["caption"]), world=world, rank=rank,
-                local_world=local_world, multiplicity=args.batch_multiplicity, tp=tp)
+                local_world=local_world, multiplicity=args.batch_multiplicity, tp=tp,
+                pp=pp, fsdp=fsdp)
             latents, ctx, mask = encode_batch(
                 batch, coder, text_encoder,
                 generator=encode_generator(device, seed, global_step),
@@ -1174,7 +1270,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 else torch.from_numpy(weight[lo:lo + len(rows)]).to(device),
                 weight_sum=torch.tensor(
                     float(n_global if weight is None else weight.sum()), device=device),
-                world=world // tp, group=data, debug_nans=args.debug_nans)
+                world=world // (tp * pp), group=data, debug_nans=args.debug_nans)
             if ema is not None:
                 ema_update(ema, trained, args.ema_decay)
             global_step += 1
@@ -1221,7 +1317,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 # runs the wrapped forward, rank 0 writes
                 with swapped_weights(trained, ema):
                     grid = sample_images(
-                        model, coder, text_encoder, global_step,
+                        net, coder, text_encoder, global_step,
                         image_size=args.resolution,
                         num_inference_steps=8 if args.debug else 50,
                         prompts_file=args.sample_prompts_file,
@@ -1229,13 +1325,14 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
                 metrics_logger.log_image("samples", grid, global_step)
             if val_dl is not None and args.eval_every \
                     and global_step % args.eval_every == 0:
-                v = evaluate(model, val_dl, coder, text_encoder,
+                v = evaluate(net, val_dl, coder, text_encoder,
                              global_step=global_step, seed=seed, dtype=dtype,
                              device=device,
                              batch_multiplicity=args.batch_multiplicity,
                              uncond_prob=uncond_prob, patch_size=cfg.patch_size,
                              token_keep_ratio=1.0 - args.sequence_dropout,
-                             ranks=(world, rank, local_world), group=host, tp=tp)
+                             ranks=(world, rank, local_world), group=host, tp=tp,
+                             pp=pp, fsdp=fsdp)
                 if v is not None:
                     metrics_logger.log({"val/loss": v, "val/diffusion_loss": v},
                                        global_step)
@@ -1278,10 +1375,11 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
 
     if args.export_pipeline:
         dit = export_dit(model, cfg, ema=ema, lora=lora, lora_alpha=args.lora_alpha,
-                         lora_rank=args.lora_rank, rank=rank)
+                         lora_rank=args.lora_rank, rank=rank, stages=stages)
         if rank == 0:
             export_dir = Path(args.output_dir) / "pipeline"
-            FLitePipeline(dit, vae).save_pretrained(export_dir)
+            FLitePipeline(dit, vae).save_pretrained(export_dir,
+                                                    scan_layers=args.scan_layers)
             logger.info("exported pipeline to %s", export_dir)
     if grouped:  # every rank returns once rank 0 has written
         dist.barrier(group=host)

@@ -70,7 +70,8 @@ ONLINE_MODULES = ("f_lite_tpu_torch.data.dataset", "f_lite_tpu_torch.data.loader
                   "f_lite_tpu_torch.data.image_ops", "f_lite_tpu_torch.utils.env")
 PARALLEL_MODULES = ("f_lite_tpu_torch.parallel", "f_lite_tpu_torch.parallel.mesh",
                     "f_lite_tpu_torch.parallel.sharding",
-                    "f_lite_tpu_torch.parallel.tensor", "f_lite_tpu_torch.convert.heads")
+                    "f_lite_tpu_torch.parallel.tensor", "f_lite_tpu_torch.parallel.pipeline",
+                    "f_lite_tpu_torch.convert.heads")
 TOOL_MODULES = ("f_lite_tpu_torch.tools.precompute_embeddings",
                 "f_lite_tpu_torch.tools.convert_checkpoint")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
@@ -96,7 +97,7 @@ def test_port_imports_without_jax_or_reference_package():
                + FRONTEND_MODULES + ONLINE_MODULES + PARALLEL_MODULES
                + TOOL_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 49, out.stdout
+    assert n_modules >= 50, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 

@@ -315,16 +315,16 @@ def test_trainer_result_and_log_line(tmp_path, caplog):
     (["--fsdp", "2"], "torchrun --nproc_per_node"),
     (["--multihost"], "WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE"),
     (["--tp", "2"], "torchrun --nproc_per_node"),
-    (["--pp", "2"], r"not ported yet \(ROADMAP A 12c\)"),
+    (["--pp", "2"], r"--pp > 1 requires --scan_layers"),
     (["--tp", "2", "--sequence_parallel"], "torchrun --nproc_per_node"),
-    (["--scan_layers"], r"not ported yet \(ROADMAP A 12c\)"),
+    (["--pp_microbatches", "2"], r"--pp_microbatches > 1 has no effect without --pp > 1"),
     (["--dp", "2"], "torchrun --nproc_per_node"),
 ])
 def test_unported_or_unlaunched_parallel_options_raise(tmp_path, extra, match):
-    """pp and scan-stacked blocks are not ported; a mesh of more than one
-    rank (tensor parallelism, with or without sequence parallelism,
-    included), and --multihost, need torchrun's processes, which this one
-    is not."""
+    """JAX's checks of the pipeline options (the rest of them in
+    tests/test_torch_pipeline_parallel.py); a mesh of more than one rank
+    (tensor parallelism, with or without sequence parallelism, included),
+    and --multihost, need torchrun's processes, which this one is not."""
     argv = _tiny_argv(tmp_path, tmp_path / "out") + extra
     with pytest.raises(SystemExit, match=match):
         train(parse_args(argv))
