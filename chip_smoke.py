@@ -111,7 +111,7 @@ Phases (any failed check raises and the run exits non-zero):
    front-ends') pseudo tokens, printed; `--quantize`: exactly 30 * 12
    forward and 30 * 48 launches of each int8 kernel, pixels equal to the
    direct int8 call; once more as a subprocess (`python -m
-   f_lite_tpu_torch.generate`), bit-equal;
+   f_lite_tpu_torch.generate`, started first, beside the rest), bit-equal;
 8f. the fixture through `serve`: batch mode from a `.jsonl` of 4 captions
    with seeds at batch 2, each PNG equal to the solo request with its seed
    bit for bit, exactly 2 * 30 * 12 forward launches, images/min printed;
@@ -127,11 +127,29 @@ Phases (any failed check raises and the run exits non-zero):
    (`--hf_dir`): each loaded with `from_pretrained` gives phase 7's images
    bit for bit with phase 7's launch counts, the conversions launch
    nothing; `--test_image` on the card (pixel space: latents) finite with
-   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 2
+   exactly 4 * 12 forward launches; then `DiTConfig.f_lite_7b()` at depth 1
    (full width; the depth cut stated in the output), seeded, saved
    natively, `--export_torch --pt_file` and `--pt` back: each direction's
    host seconds, GB written and GB/s, the re-ingested tensors bit-equal to
    the saved ones;
+8i. the fabricated 7B release (`python -m
+   f_lite_tpu_torch.tools.fabricated_release_dryrun --convert_only` as a
+   subprocess on the card, started after phase 6b and running beside
+   phases 7-12c): the full `freepik-f-lite-7b` manifest (depth 40) drawn on
+   the card in the released diffusers layout (the reference's keys, a
+   Flux-shaped VAE in diffusers naming), written in memory (`memory_tmp`:
+   the 39 GB of files fail the phase where memory cannot hold them) and
+   ingested with F_LITE_STRICT_INGEST=error: exit 0, 399 keys and
+   4,749,401,703 parameters, fabricate and convert seconds. Then, in a
+   thread of this process beside phases 7-12c, the pipeline of phases 9-11:
+   `from_pretrained` in bf16 of the tool's strict `resolve_pretrained` of
+   the snapshot, which takes the cache (cached load seconds);
+   F_LITE_STRICT_INGEST given back; every tensor finite, peak under 80
+   GB. After phase 11a, the tool's serve step
+   (`fabricated_release_dryrun.serve`) on the int8 pipeline: the JAX
+   tool's embeddings, 2 images of 1024 px in 30 steps, finite, exactly
+   2 * 30 * 56 forward and 2 * 30 * 248 launches of each int8 kernel, the
+   sample PNG read back, peak under 80 GB, p50 s/image;
 9a. T5-XXL at full width and depth (`T5Config()`: 24 blocks, d_model
    4096, 64 heads x 64, d_ff 10240, gated-gelu), seeded bf16 weights, at
    return_index -8 (blocks 0-16): one prompt of 77 seeded ids padded to
@@ -152,11 +170,12 @@ Phases (any failed check raises and the run exits non-zero):
    `pipe(prompt=...)` without and then with a negative prompt, 1024 px,
    30 steps, g=6; finite images and exactly 30 * 56 forward launches
    each; s/image with the encode's share, peak GB with T5 resident.
-   Phases 9b, 9a and 9c run in that order before phase 9, whose figures
-   are taken with T5 freed again;
-9. serving, one 7B-width request (DiT f_lite_7b + Flux VAE, seeded random
-   weights): 1024x1024, 30 steps, g=6, 128 text tokens of which 77 are
-   real; finite output, exactly 30 * 56 forward launches;
+   Phases 9b, 9a, (12-12c, T5 resident) and 9c run in that order before
+   phase 9, whose figures are taken with T5 freed again;
+9. serving, one 7B-width request on phase 8i's release (DiT f_lite_7b +
+   Flux VAE, seeded random weights through the released layout, bf16):
+   1024x1024, 30 steps, g=6, 128 text tokens of which 77 are real; finite
+   output, exactly 30 * 56 forward launches;
 10. image to image with a mask at 1280 px on the same pipeline: strength
    0.5 (15 of 30 steps), the left half repainted, encode and decode tiled
    (9 tiles each); finite output, exactly 15 * 56 forward launches, the
@@ -213,7 +232,8 @@ Phases (any failed check raises and the run exits non-zero):
    `--resume_from_checkpoint latest` to 40, with `--async_checkpoint` saves
    at step 20: every step's loss and the final checkpoint's tensors
    bit-equal, exactly 12 launches of each kernel a step; SIGTERM to a
-   trainer subprocess once it has logged a step: exit 0, the stop
+   trainer subprocess (started first, training beside those runs) once it
+   has logged a step: exit 0, the stop
    (`preempted_at`) logged with a checkpoint at its step, and a resume 10
    steps on;
 12c. fine-tuning: the committed fixture through `--pretrained_model_path`
@@ -264,13 +284,13 @@ Phases (any failed check raises and the run exits non-zero):
    `--center_crop`, batch 8, 20 steps: every batch of one shape, the
    kernels seeing 2064, 2256 and 2320 self tokens, 12 launches of each a
    step;
-13d. `f_lite_7b_width_d20_train512` on the online path (after 13c): a
-   dummy-backed JSON table of 512x512 rows, the Flux VAE at full width
-   with seeded weights (`--vae_path`) encoding in fp32,
+13d. 13f's run (the 7B width at depth 12) on the online path (after 13f):
+   13f's dummy-backed JSON table of 512x512 rows, the Flux VAE at full
+   width with seeded weights (`--vae_path`) encoding in fp32,
    `ZeroTextEncoder(4096, 32)`, batch 4, bf16, 10 steps: finite loss and
-   grad norm, 46/31/31 launches a step, peak under 80 GB; s/step, the VAE
+   grad norm, 26/21/21 launches a step, peak under 80 GB; s/step, the VAE
    encode's ms a step, the loader's wait ms, idle share and peak GB
-   beside phase 13's;
+   beside 13f's run from the same images' cache;
 12g. the trainer under torchrun (`torchrun --standalone --nproc_per_node 1
    -m f_lite_tpu_torch.train --fsdp 0`, a subprocess: a real NCCL process
    group of one rank, the DiT under FSDP2's `fully_shard`), phase 12b's
@@ -281,19 +301,20 @@ Phases (any failed check raises and the run exits non-zero):
    step-20 checkpoint resumed in an unwrapped run gives 12b's steps 21-40;
    s/step beside phase 12's;
 12h. tensor and sequence parallelism at tp 1: phase 12b's straight run in a
-   torchrun subprocess of this script (an NCCL group of one) in which the
+   torchrun subprocess of this script (an NCCL group of one; it runs
+   beside 12g's, and 12g's resume waits for it) in which the
    trainer's `parallelize_dit` is applied with `sequence_parallel=True`
    on the one-rank tp mesh (the split stream, its all-gathers and
    reduce-scatters, and the permuted fused rows at their tp-1 identity;
    the run logs that it was applied): every loss bit-equal to 12b's, or
    within 1e-6 relative with the gap printed; exactly 12 launches of each
-   kernel a step; s/step beside 12g's;
-13e. `f_lite_7b_width_d20_train512` under torchrun with `--fsdp 0`, 10
-   steps: finite loss and grad norm, 46/31/31 launches a step, peak under
-   80 GB; whether its losses equal phase 13's bit for bit (printed), its
-   s/step, peak GB and idle share (the run's own trace of step 9)
-   beside phase 13's, the final full-state checkpoint's gather and write
-   seconds beside 13c's sync save;
+   kernel a step; s/step beside 12g's (both taken side by side);
+13e. 13f's run (the 7B width at depth 12 from the tool's cache) under
+   torchrun with `--fsdp 0`, 10 steps (after 13f): finite loss and grad
+   norm, 26/21/21 launches a step, peak under 80 GB; whether its losses
+   equal 13f's bit for bit (printed), its s/step, peak GB and idle share
+   (the run's own trace of step 9) beside 13f's, the final full-state
+   checkpoint's gather and write seconds beside 13c's sync save;
 13f. the cache builder (`f_lite_tpu_torch.tools.precompute_embeddings`): the
    first 256 rows of phase 12d's PNG table with a seeded tiny VAE
    (`--vae_path`), the zero encoder and `--center_crop`, built on the card
@@ -303,25 +324,28 @@ Phases (any failed check raises and the run exits non-zero):
    (64 rows) through the Flux VAE at full width and `ZeroTextEncoder(4096,
    32)`: s/image split into the VAE encode (CUDA events) and the text
    encode (host clock), the cache's GB on disk and peak GB; and
-   the 7B width at depth 10 (`OPTIONS_7B_DEPTH`) for 10 steps from that
-   cache with phase 13's checks, s/step beside phase 13's;
-13g. pipeline parallelism at one stage: `f_lite_7b_width_d20_train512`
-   (phase 13's arguments plus `--scan_layers --export_pipeline`) in a
+   the 7B width at depth 12 (`TOOL_CACHE_7B_DEPTH`) for 10 steps from
+   that cache with phase 13's checks (26/21/21 launches a step), s/step
+   beside phase 13's;
+13g. pipeline parallelism at one stage: 13f's run (the 7B width at depth
+   12 from the tool's cache) plus `--scan_layers --export_pipeline` in a
    torchrun subprocess of this script (an NCCL group of one) whose trainer
    runs the GPipe schedule (`parallel/pipeline.py`) at 1 stage and 2
    microbatches (the trainer's own check, as JAX's, refuses microbatches
    without `--pp` > 1; the run logs that it was applied), 10 steps:
-   finite losses, exactly 92 / 62 / 62 launches a step (2 x phase 13's),
-   step 1's loss within 1e-3 relative of phase 13's and every loss within
+   finite losses, exactly 52 / 42 / 42 launches a step (2 x 13f's),
+   step 1's loss within 1e-3 relative of 13f's and every loss within
    1e-2 (the gaps printed), peak under 80 GB, s/step and peak GB beside
-   phase 13's; the export (the scan-stacked layout, `scan_layers: true`,
+   13f's; the export (the scan-stacked layout, `scan_layers: true`,
    `pipeline_stages: 1`) loaded back on the card by
    `FLitePipeline.from_pretrained` bit-equal to the final checkpoint's
    weights (its files in memory where there is room, `memory_tmp`);
 14. a `{"gpus": N, "multi_rank_checks": "cpu/gloo"}` line (runs of 2 and 4
    ranks, tp and dp x tp among them, are checked on the CPU with gloo:
-   the card's machine has one GPU), a `{"kernels": [...]}` line, the
-   script's total seconds, then the
+   the card's machine has one GPU), a `{"kernels": [...]}` line (with
+   the `release_7b` record of phase 8i: fabricate, convert and cached-load
+   seconds, bf16 and int8 s/image, peak GB), the script's total seconds,
+   then the
    card line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of another path launched there fails the run.
@@ -1446,82 +1470,81 @@ def run_fixture_resume(tmp: Path, steps=40) -> dict:
     against `steps` / 2, then `--resume_from_checkpoint latest` to `steps`,
     both with `--async_checkpoint` saves at `steps` / 2: every step's loss
     and the final checkpoint's tensors bit-equal, exactly 12 launches of
-    each kernel a step. Then SIGTERM to a trainer subprocess: exit 0, the
-    stop logged (`preempted_at`) with a checkpoint at its step, and a
-    resume 10 steps on."""
+    each kernel a step. Then SIGTERM to a trainer subprocess (started
+    first, training beside the runs here) once it has logged a step: exit
+    0, the stop logged (`preempted_at`) with a checkpoint at its step, and
+    a resume 10 steps on."""
     import signal
 
     cache = tmp / "shapes_cache"
-    per = fixture_attention_calls()
-    half = steps // 2
-    extra = ["--checkpointing_steps", str(half), "--async_checkpoint"]
-    reset_counts()
-    _, _, straight_watch, straight = run_counted(
-        fixture_argv(cache, tmp / "resume_a", steps) + extra)
-    straight_counts = read_counts()
-    reset_counts()
-    _, _, w1, first = run_counted(fixture_argv(cache, tmp / "resume_b", half) + extra)
-    _, _, w2, rest = run_counted(fixture_argv(cache, tmp / "resume_b", steps) + extra
-                                 + ["--resume_from_checkpoint", "latest"])
-    resumed_counts = read_counts()
-    want = checkpoint_tensors(tmp / "resume_a", steps)
-    got = checkpoint_tensors(tmp / "resume_b", steps)
-    unequal = [k for k in want if not torch_equal(want[k], got.get(k))]
-    per_step = straight_watch.per_step + w1.per_step + w2.per_step
-    res = dict(steps=steps, resumed_at=half, losses_equal=straight == first + rest,
-               tensors=len(want), tensors_unequal=unequal[:5],
-               launches_straight=straight_counts, launches_resumed=resumed_counts,
-               s_per_step=statistics.median(straight_watch.times[2:]))
-    log("fixture_resume", json.dumps(res))
-    res["straight_losses"] = straight
-    if not res["losses_equal"] or len(straight) != steps:
-        raise AssertionError(f"fixture resume: losses {straight} against {first + rest}")
-    if unequal or set(want) != set(got):
-        raise AssertionError(f"fixture resume: checkpoint tensors differ: {unequal[:5]}")
-    expected = launches(fwd=per, dq=per, dkv=per)
-    if any(c != expected for c in per_step):
-        raise AssertionError(f"fixture resume: launch counts off: {per_step[:3]}")
-
-    # preemption: SIGTERM once the subprocess has logged a step
     out = tmp / "sigterm"
-    argv = [sys.executable, "-m", "f_lite_tpu_torch.train",
-            *fixture_argv(cache, out, 100000), "--checkpointing_steps", "0",
-            "--log_every", "5"]
     log_path = tmp / "sigterm.log"
     t0 = time.perf_counter()
     with open(log_path, "w") as lf:
-        proc = subprocess.Popen(argv, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "f_lite_tpu_torch.train",
+             *fixture_argv(cache, out, 100000), "--checkpointing_steps", "0",
+             "--log_every", "5"], stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT)
     try:
+        per = fixture_attention_calls()
+        half = steps // 2
+        extra = ["--checkpointing_steps", str(half), "--async_checkpoint"]
+        reset_counts()
+        _, _, straight_watch, straight = run_counted(
+            fixture_argv(cache, tmp / "resume_a", steps) + extra)
+        straight_counts = read_counts()
+        reset_counts()
+        _, _, w1, first = run_counted(fixture_argv(cache, tmp / "resume_b", half) + extra)
+        _, _, w2, rest = run_counted(fixture_argv(cache, tmp / "resume_b", steps) + extra
+                                     + ["--resume_from_checkpoint", "latest"])
+        resumed_counts = read_counts()
+        want = checkpoint_tensors(tmp / "resume_a", steps)
+        got = checkpoint_tensors(tmp / "resume_b", steps)
+        unequal = [k for k in want if not torch_equal(want[k], got.get(k))]
+        per_step = straight_watch.per_step + w1.per_step + w2.per_step
+        res = dict(steps=steps, resumed_at=half, losses_equal=straight == first + rest,
+                   tensors=len(want), tensors_unequal=unequal[:5],
+                   launches_straight=straight_counts, launches_resumed=resumed_counts,
+                   s_per_step=statistics.median(straight_watch.times[2:]))
+        log("fixture_resume", json.dumps(res))
+        res["straight_losses"] = straight
+        if not res["losses_equal"] or len(straight) != steps:
+            raise AssertionError(f"fixture resume: losses {straight} against {first + rest}")
+        if unequal or set(want) != set(got):
+            raise AssertionError(f"fixture resume: checkpoint tensors differ: {unequal[:5]}")
+        expected = launches(fwd=per, dq=per, dkv=per)
+        if any(c != expected for c in per_step):
+            raise AssertionError(f"fixture resume: launch counts off: {per_step[:3]}")
+
+        # preemption: SIGTERM once the subprocess has logged a step
         while " loss " not in log_path.read_text():
             if proc.poll() is not None or time.perf_counter() - t0 > 300:
                 raise AssertionError("sigterm: no step logged:\n" + log_path.read_text())
             time.sleep(0.2)
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    text = log_path.read_text()
-    if rc != 0 or "stopping on signal" not in text:
-        raise AssertionError(f"sigterm: exit {rc}\n{text[-3000:]}")
-    stopped = int(text.split("stopping on signal")[1].split("at step")[1].split(";")[0])
-    from f_lite_tpu_torch.train.checkpoint import Checkpointer
+        text = log_path.read_text()
+        if rc != 0 or "stopping on signal" not in text:
+            raise AssertionError(f"sigterm: exit {rc}\n{text[-3000:]}")
+        stopped = int(text.split("stopping on signal")[1].split("at step")[1].split(";")[0])
+        from f_lite_tpu_torch.train.checkpoint import Checkpointer
 
-    latest = Checkpointer(out).latest
-    reset_counts()
-    result, _, watch, _ = run_counted(fixture_argv(cache, out, stopped + 10)
-                                      + ["--resume_from_checkpoint", "latest"])
-    res["sigterm"] = dict(exit_code=rc, preempted_at=stopped, latest_checkpoint=latest,
-                          resumed_to=result["global_step"], launches=read_counts(),
-                          subprocess_s=time.perf_counter() - t0)
-    log("fixture_sigterm", json.dumps(res["sigterm"]))
-    if latest != stopped or result["global_step"] != stopped + 10 \
-            or "preempted_at" in result:
-        raise AssertionError(f"sigterm: {res['sigterm']}")
-    if any(c != expected for c in watch.per_step):
-        raise AssertionError(f"sigterm resume: launch counts off: {watch.per_step[:3]}")
-    return res
+        latest = Checkpointer(out).latest
+        reset_counts()
+        result, _, watch, _ = run_counted(fixture_argv(cache, out, stopped + 10)
+                                          + ["--resume_from_checkpoint", "latest"])
+        res["sigterm"] = dict(exit_code=rc, preempted_at=stopped, latest_checkpoint=latest,
+                              resumed_to=result["global_step"], launches=read_counts(),
+                              subprocess_s=time.perf_counter() - t0)
+        log("fixture_sigterm", json.dumps(res["sigterm"]))
+        if latest != stopped or result["global_step"] != stopped + 10 \
+                or "preempted_at" in result:
+            raise AssertionError(f"sigterm: {res['sigterm']}")
+        if any(c != expected for c in watch.per_step):
+            raise AssertionError(f"sigterm resume: launch counts off: {watch.per_step[:3]}")
+        return res
+    finally:
+        stop_process(proc)
 
 
 def torch_equal(a, b) -> bool:
@@ -1902,12 +1925,14 @@ def write_7b_cache(tmp: Path, batch=4):
     return cache
 
 
-def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20) -> list:
+def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20, cache=None) -> list:
+    """The trainer's arguments of `f_lite_7b_width_d20_train512` at `depth`,
+    from `write_7b_cache` or another precomputed `cache`."""
     from f_lite_tpu_torch.models.dit import DiTConfig
 
     cfg = DiTConfig.f_lite_7b(depth=depth)
     return ["--device", "cuda", "--use_precomputed_data",
-            "--precomputed_data_dir", str(write_7b_cache(tmp, batch)),
+            "--precomputed_data_dir", str(cache or write_7b_cache(tmp, batch)),
             "--model_width", str(cfg.hidden_size), "--model_depth", str(depth),
             "--model_head_dim", str(cfg.head_dim),
             "--in_channels", str(cfg.in_channels),
@@ -1935,10 +1960,13 @@ def train_7b_launches(depth: int) -> dict:
 
 # depths cut to keep the script inside its time (PERF.md §4): 13c's two
 # full-state saves (an async one, then the final one beside it) stay on the
-# card machine's disk, the one phase whose files do; 13b's options and 13f's
-# run from the tool's cache are measured at a shallower depth than 13's 20
+# card machine's disk, the one phase whose files do; 13b's options, 13f's
+# run from the tool's cache, and 13d, 13e and 13g beside 13f's run, are
+# measured at a shallower depth than 13's 20. 13f's depth is the least from
+# 10 up whose blocks 13g's scan-stacked layout takes: (depth - 8) % 4 == 0
 CHECKPOINT_7B_DEPTH = 6
 OPTIONS_7B_DEPTH = 10
+TOOL_CACHE_7B_DEPTH = 12
 
 
 def checkpoint_7b_gb(depth: int) -> float:
@@ -1972,9 +2000,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
     import torch
 
     out = (out_root or tmp) / label
-    argv = argv_7b(tmp, out, steps, batch, depth) + list(extra)
-    if cache is not None:
-        argv[argv.index("--precomputed_data_dir") + 1] = str(cache)
+    argv = argv_7b(tmp, out, steps, batch, depth, cache) + list(extra)
     expected = launches(**train_7b_launches(depth))
     finite, losses = [], []
 
@@ -2118,27 +2144,35 @@ class EncodeTimer:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20,
-                  out_root=None) -> dict:
-    """Phase 13d: `f_lite_7b_width_d20_train512` on the online path: a
-    dummy-backed JSON table of 512x512 rows with --center_crop, the Flux
-    VAE at full width (seeded, `--vae_path`) encoding each batch in fp32,
-    ZeroTextEncoder(4096, 32), batch 4, bf16, full remat from block 8, 10
-    steps: finite loss and grad norm, exactly 46 forward, 31 dq and 31 dkv
-    launches a step, peak under 80 GB; s/step, the VAE encode's ms a step
-    (CUDA events), the loader's wait ms a step, idle share and peak GB,
-    each beside phase 13's."""
+def write_7b_online_table(tmp: Path, batch=4) -> Path:
+    """The dummy-backed JSON table of 512x512 rows (16 batches) that 13f
+    caches and 13d trains from."""
+    table = tmp / "7b_online.json"
+    table.write_text(json.dumps([
+        {"media_path": f"dummy://photos/{i}.jpg", "captions": [f"prompt {i}"],
+         "width": 512, "height": 512} for i in range(16 * batch)]))
+    return table
+
+
+def run_7b_online(tmp: Path, phase13f: dict, steps=10, batch=4, out_root=None) -> dict:
+    """Phase 13d (after 13f): 13f's run (the 7B width at its depth) on the
+    online path: 13f's dummy-backed JSON table of 512x512 rows with
+    --center_crop, the Flux VAE at full width (seeded, `--vae_path`)
+    encoding each batch in fp32, ZeroTextEncoder(4096, 32), batch 4, bf16,
+    full remat from block 8, 10 steps: finite loss and grad norm, the
+    launches a step of phase 13 at that depth, peak under 80 GB; s/step,
+    the VAE encode's ms a step (CUDA events), the loader's wait ms a step,
+    idle share and peak GB, each beside 13f's run from the same images'
+    cache."""
     import shutil
 
     import torch
 
     from f_lite_tpu_torch.models.dit import DiTConfig
 
+    reference, depth = phase13f["train"], phase13f["depth"]
     cfg = DiTConfig.f_lite_7b(depth=depth)
-    table = tmp / "7b_online.json"
-    table.write_text(json.dumps([
-        {"media_path": f"dummy://photos/{i}.jpg", "captions": [f"prompt {i}"],
-         "width": 512, "height": 512} for i in range(16 * batch)]))
+    table = write_7b_online_table(tmp, batch)
     vae_dir = write_flux_vae(tmp / "flux_vae")
     out = (out_root or tmp) / "7b_online"
     argv = online_argv(argv_7b(tmp, out, steps, batch, depth), table,
@@ -2167,18 +2201,18 @@ def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20,
     with EncodeTimer() as enc:
         result, _ = run_training(argv, watch)
     encode_ms = enc.ms()
-    res = dict(config="f_lite_7b_width_d20_train512 (online)", batch=batch,
+    res = dict(config=f"f_lite_7b_width_d{depth}_train512 (online)", batch=batch,
                tokens=1040, cross_tokens=32, steps=result["global_step"],
                s_per_step=statistics.median(watch.times[2:]),
-               phase_13_s_per_step=phase13["s_per_step"], step_s=watch.times,
+               reference_s_per_step=reference["s_per_step"], step_s=watch.times,
                vae_encode_ms_per_step=statistics.median(encode_ms[2:]),
                vae_encode_ms=encode_ms,
                loader_wait_ms_per_step=result["loader_wait_s"] / steps * 1e3,
                idle_share=watch.profile["idle_share"],
-               phase_13_idle_share=phase13["step_profile"]["idle_share"],
+               reference_idle_share=reference["step_profile"]["idle_share"],
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                allocated_at_start_gb=start_gb,
-               phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+               reference_max_memory_allocated_gb=reference["max_memory_allocated_gb"],
                launches=read_counts(), per_step=watch.per_step[0],
                per_step_expected=expected, all_finite=all(finite),
                step_profile=watch.profile)
@@ -2203,13 +2237,13 @@ def run_7b_online(tmp: Path, phase13: dict, steps=10, batch=4, depth=20,
 # phases 12g and 13e: the trainer under torchrun, the DiT under FSDP2
 # ---------------------------------------------------------------------------
 
-def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900,
-                 target=("-m", "f_lite_tpu_torch.train")) -> tuple:
-    """`torchrun --standalone --nproc_per_node 1 -m f_lite_tpu_torch.train`
-    (or another `target`) with `argv` as a subprocess (a real NCCL process
-    group of one rank, the DiT under `fully_shard`), its output in
-    `log_path`: (the step lines of its `metrics.jsonl`, its result line,
-    the subprocess' seconds)."""
+def start_torchrun(argv: list, log_path: Path,
+                   target=("-m", "f_lite_tpu_torch.train")) -> dict:
+    """Start `torchrun --standalone --nproc_per_node 1 -m
+    f_lite_tpu_torch.train` (or another `target`) with `argv` as a
+    subprocess (a real NCCL process group of one rank, the DiT under
+    `fully_shard`), its output in `log_path`; a thread notes when it ends.
+    The job for `finish_torchrun`."""
     import gc
 
     import torch
@@ -2219,17 +2253,67 @@ def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900,
     log("torchrun_parent_reserved_gb", torch.cuda.memory_reserved() / 1e9)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", *target, *argv]
-    t0 = time.perf_counter()
-    with open(log_path, "w") as lf:
-        proc = subprocess.run(cmd, stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT,
-                              timeout=timeout)
-    wall = time.perf_counter() - t0
+    job = dict(log_path=log_path, log_file=open(log_path, "w"), t0=time.perf_counter(),
+               started=time.time())
+    job["proc"] = subprocess.Popen(cmd, stdout=job["log_file"], stderr=subprocess.STDOUT,
+                                   cwd=ROOT)
+
+    def wait():
+        job["proc"].wait()
+        job["wall"] = time.perf_counter() - job["t0"]
+
+    job["waiter"] = threading.Thread(target=wait, daemon=True)
+    job["waiter"].start()
+    return job
+
+
+def stop_process(proc, grace=30) -> None:
+    """SIGTERM (torchrun passes it to its workers), then SIGKILL after
+    `grace` seconds, if `proc` still runs."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def wait_torchrun(job: dict, timeout=900) -> None:
+    """Wait for a `start_torchrun` job to end (stopped past `timeout`
+    seconds from its start); the first wait notes this process' launch
+    counts then (`parent_launches`: none may happen beside a subprocess)."""
+    job["waiter"].join(max(1.0, timeout - (time.perf_counter() - job["t0"])))
+    if job["waiter"].is_alive():
+        stop_process(job["proc"])
+        raise AssertionError(f"torchrun {job['log_path'].name}: over {timeout} s")
+    job["log_file"].close()
+    job.setdefault("parent_launches", read_counts())
+
+
+def finish_torchrun(job: dict, out: Path, timeout=900) -> tuple:
+    """(the step lines of a `start_torchrun` job's `metrics.jsonl`, its
+    result line, the subprocess' seconds), once it has ended."""
+    wait_torchrun(job, timeout)
+    wall, started, log_path = job["wall"], job["started"], job["log_path"]
     text = log_path.read_text()
-    if proc.returncode != 0 or "mesh: dp=1 fsdp=1 world=1 nodes=1" not in text:
-        raise AssertionError(f"torchrun exit {proc.returncode}:\n{text[-4000:]}")
+    if job["proc"].returncode != 0 or "mesh: dp=1 fsdp=1 world=1 nodes=1" not in text:
+        raise AssertionError(f"torchrun exit {job['proc'].returncode}:\n{text[-4000:]}")
     lines = [json.loads(x) for x in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
     steps = [x for x in lines if "train/loss" in x]
+    # where a subprocess' seconds go: to its first logged step (start-up and
+    # that step), the steps, after its last (the final save and the exit)
+    log("torchrun_seconds", json.dumps(dict(
+        log=log_path.name, wall_s=wall, to_first_step_s=steps[0]["time"] - started,
+        steps_s=steps[-1]["time"] - steps[0]["time"],
+        after_last_step_s=started + wall - steps[-1]["time"])))
     return steps, lines[-1]["result"], wall
+
+
+def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900,
+                 target=("-m", "f_lite_tpu_torch.train")) -> tuple:
+    """`start_torchrun`, then `finish_torchrun`."""
+    return finish_torchrun(start_torchrun(argv, log_path, target), out, timeout)
 
 
 def per_step_launches(records: list) -> list:
@@ -2249,14 +2333,15 @@ def step_seconds(records: list) -> float:
     return statistics.median(b - a for a, b in zip(times[2:], times[3:]))
 
 
-def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict) -> dict:
+def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict, beside=None) -> dict:
     """Phase 12g: phase 12b's straight run (the fixture recipe on phase 12's
     cache, `--checkpointing_steps` half-way, `--async_checkpoint`) under
     torchrun with `--fsdp 0`: every step's loss bit-equal to 12b's
     unwrapped run (or within 1e-6 relative, the gap printed), exactly 12
     launches of each kernel a step; the step-`steps` / 2 checkpoint
     resumed in an unwrapped run gives 12b's losses after it; s/step beside
-    phase 12's."""
+    phase 12's. `beside`: a `start_torchrun` job running beside this one
+    (12h's), waited for before the resume launches kernels here."""
     import shutil
 
     cache = tmp / "shapes_cache"
@@ -2277,6 +2362,8 @@ def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict) -> dict:
     def rel_gap(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
 
+    if beside is not None:
+        wait_torchrun(beside)
     resume = tmp / "fsdp_fixture_resume"
     shutil.copytree(out / "checkpoints" / str(half), resume / "checkpoints" / str(half))
     reset_counts()
@@ -2325,34 +2412,40 @@ def sequence_parallel_train_worker(argv: list) -> int:
     return 0
 
 
-def run_fixture_sp(tmp: Path, phase12b: dict, phase12g: dict) -> dict:
+def start_fixture_sp(tmp: Path, phase12b: dict) -> dict:
+    """Phase 12h (a): its torchrun subprocess, started beside 12g's."""
+    out = tmp / "sp_fixture"
+    argv = fixture_argv(tmp / "shapes_cache", out, phase12b["steps"]) + [
+        "--fsdp", "0", "--log_every", "1"]
+    reset_counts()
+    return dict(out=out, job=start_torchrun(argv, tmp / "sp_fixture.log",
+                                            target=(str(ROOT / "chip_smoke.py"), SP_WORKER)))
+
+
+def run_fixture_sp(started: dict, phase12b: dict, phase12g: dict) -> dict:
     """Phase 12h: phase 12b's straight run under torchrun (a subprocess of
-    this script, `SP_WORKER`) with `parallelize_dit(sequence_parallel=
-    True)` on the one-rank tp mesh: every loss bit-equal to 12b's (or
-    within 1e-6 relative, the gap printed), exactly 12 launches of each
-    kernel a step; s/step beside 12g's."""
+    this script, `SP_WORKER`, beside 12g's) with `parallelize_dit(
+    sequence_parallel=True)` on the one-rank tp mesh: every loss bit-equal
+    to 12b's (or within 1e-6 relative, the gap printed), exactly 12
+    launches of each kernel a step; s/step beside 12g's (the two taken
+    side by side)."""
     import shutil
 
-    cache = tmp / "shapes_cache"
     steps = phase12b["steps"]
     straight = phase12b["straight_losses"]
-    out = tmp / "sp_fixture"
-    argv = fixture_argv(cache, out, steps) + ["--fsdp", "0", "--log_every", "1"]
-    reset_counts()
-    log_path = tmp / "sp_fixture.log"
-    records, result, wall = run_torchrun(argv, out, log_path,
-                                         target=(str(ROOT / "chip_smoke.py"), SP_WORKER))
-    parent = read_counts()
+    out, job = started["out"], started["job"]
+    records, result, wall = finish_torchrun(job, out)
+    parent = job["parent_launches"]  # noted when 12g waited for it
     losses = [r["train/loss"] for r in records]
     per = fixture_attention_calls()
     per_step = per_step_launches(records)
-    applied = "sequence parallelism applied on a tp mesh of 1" in log_path.read_text()
+    applied = "sequence parallelism applied on a tp mesh of 1" in job["log_path"].read_text()
     res = dict(steps=len(losses), losses_bit_equal=losses == straight,
                max_rel_gap=max(abs(x - y) / abs(y) for x, y in zip(losses, straight,
                                                                     strict=True)),
                applied=applied, per_step_launches=per_step[0],
                s_per_step=step_seconds(records), phase_12g_s_per_step=phase12g["s_per_step"],
-               subprocess_s=wall, parent_launches=parent)
+               beside="12g", subprocess_s=wall, parent_launches=parent)
     log("fixture_sp", json.dumps(res))
     shutil.rmtree(out, ignore_errors=True)
     if not applied or len(losses) != steps or res["max_rel_gap"] > 1e-6:
@@ -2363,19 +2456,21 @@ def run_fixture_sp(tmp: Path, phase12b: dict, phase12g: dict) -> dict:
     return res
 
 
-def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20,
+def run_7b_fsdp(tmp: Path, phase13f: dict, phase13c: dict, steps=10,
                 out_root=None) -> dict:
-    """Phase 13e: `f_lite_7b_width_d20_train512` (phase 13's arguments)
-    under torchrun with `--fsdp 0`, `steps` steps and a profile of the
-    last but one: finite loss and grad norm, 46 / 31 / 31 launches a step,
-    peak under 80 GB; s/step, peak GB and idle share beside phase 13's,
-    and the final full-state checkpoint's gather and write seconds beside
-    phase 13c's sync save."""
+    """Phase 13e: phase 13f's run (the 7B width at its depth, from the
+    tool's cache) under torchrun with `--fsdp 0`, `steps` steps and a
+    profile of the last but one: finite loss and grad norm, the launches a
+    step of phase 13 at that depth, peak under 80 GB; whether its losses
+    equal 13f's bit for bit (printed), its s/step, peak GB and idle share
+    beside 13f's, and the final full-state checkpoint's gather and write
+    seconds beside 13c's sync save."""
     import shutil
 
+    reference, depth = phase13f["train"], phase13f["depth"]
     out = (out_root or tmp) / "fsdp_7b"
     window = (steps - 2, steps - 1)
-    argv = argv_7b(tmp, out, steps, depth=depth) + [
+    argv = argv_7b(tmp, out, steps, depth=depth, cache=phase13f["cache"]) + [
         "--fsdp", "0", "--profile_steps", f"{window[0]},{window[1]}"]
     expected = train_7b_launches(depth)
     reset_counts()
@@ -2386,17 +2481,18 @@ def run_7b_fsdp(tmp: Path, phase13: dict, phase13c: dict, steps=10, depth=20,
                  for r in records)
     save = result["checkpoints"][-1]
     phase13c_sync = next(s for s in phase13c["saves"] if s["wait"])
-    res = dict(config="f_lite_7b_width_d20_train512", steps=len(records),
-               losses=[r["train/loss"] for r in records],
-               losses_equal_phase_13=[r["train/loss"] for r in records] == phase13["losses"],
+    losses = [r["train/loss"] for r in records]
+    res = dict(config=f"f_lite_7b_width_d{depth}_train512 (13f's cache)",
+               steps=len(records), losses=losses,
+               losses_equal_reference=losses == reference["losses"],
                grad_norms=[r["train/grad_norm"] for r in records], all_finite=finite,
                per_step_launches=per_step[0], per_step_expected=expected,
                s_per_step=step_seconds(records),
-               phase_13_s_per_step=phase13["s_per_step"],
+               reference_s_per_step=reference["s_per_step"],
                max_memory_allocated_gb=records[-1]["peak_gb"],
-               phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+               reference_max_memory_allocated_gb=reference["max_memory_allocated_gb"],
                idle_share=trace["idle_share"],
-               phase_13_idle_share=phase13["step_profile"]["idle_share"],
+               reference_idle_share=reference["step_profile"]["idle_share"],
                trace_kernels=trace["names"], final_save=save,
                final_checkpoint_gb=disk_gb(out / "checkpoints" / str(steps)),
                phase_13c_sync_save=phase13c_sync, subprocess_s=wall,
@@ -2431,25 +2527,26 @@ def pipeline_train_worker(argv: list) -> int:
     return 0
 
 
-def run_7b_pipeline(tmp: Path, phase13: dict, steps=10, depth=20) -> dict:
-    """Phase 13g: `f_lite_7b_width_d20_train512` (phase 13's arguments plus
-    `--scan_layers --export_pipeline`) under torchrun with the schedule at
-    1 stage and 2 microbatches (`PP_WORKER`), `steps` steps: finite losses,
-    exactly twice phase 13's launches a step, step 1's loss within 1e-3
-    relative of phase 13's and every loss within 1e-2, peak under 80 GB;
-    the export loaded back on the card bit-equal to the final
-    checkpoint's weights."""
+def run_7b_pipeline(tmp: Path, phase13f: dict, steps=10) -> dict:
+    """Phase 13g: phase 13f's run (the 7B width at its depth, from the
+    tool's cache) plus `--scan_layers --export_pipeline` under torchrun
+    with the schedule at 1 stage and 2 microbatches (`PP_WORKER`), `steps`
+    steps: finite losses, exactly twice 13f's launches a step, step 1's
+    loss within 1e-3 relative of 13f's and every loss within 1e-2, peak
+    under 80 GB; the export loaded back on the card bit-equal to the final
+    checkpoint's weights (its files in memory where there is room)."""
     import torch
 
     from f_lite_tpu_torch.pipeline import FLitePipeline
     from f_lite_tpu_torch.train.checkpoint import Checkpointer
 
+    reference, depth = phase13f["train"], phase13f["depth"]
     per = train_7b_launches(depth)
     expected = {k: 2 * v for k, v in per.items()}
     # the final checkpoint and the export (a third of its size)
-    with memory_tmp(phase13["final_checkpoint_gb"] * 4 / 3) as (root, where):
+    with memory_tmp(reference["final_checkpoint_gb"] * 4 / 3) as (root, where):
         out = root / "pipeline_7b"
-        argv = argv_7b(tmp, out, steps, depth=depth) + [
+        argv = argv_7b(tmp, out, steps, depth=depth, cache=phase13f["cache"]) + [
             "--scan_layers", "--export_pipeline", "--fsdp", "0"]
         reset_counts()
         log_path = tmp / "pipeline_7b.log"
@@ -2463,7 +2560,7 @@ def run_7b_pipeline(tmp: Path, phase13: dict, steps=10, depth=20) -> dict:
         per_step = per_step_launches(records)
         finite = all(math.isfinite(r["train/loss"]) and math.isfinite(r["train/grad_norm"])
                      for r in records)
-        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, phase13["losses"], strict=True)]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, reference["losses"], strict=True)]
         export = out / "pipeline"
         config = json.loads((export / "dit" / "config.json").read_text())
         t0 = time.perf_counter()
@@ -2475,15 +2572,15 @@ def run_7b_pipeline(tmp: Path, phase13: dict, steps=10, depth=20) -> dict:
         loaded = dit.state_dict()
         mismatched = [k for k, v in loaded.items()
                       if not torch.equal(v.cpu(), trained[k])]
-        res = dict(config="f_lite_7b_width_d20_train512", options=["--scan_layers",
-                                                                  "--export_pipeline"],
+        res = dict(config=f"f_lite_7b_width_d{depth}_train512 (13f's cache)",
+                   options=["--scan_layers", "--export_pipeline"],
                    stages=1, microbatches=2, applied=applied, steps=len(records),
-                   losses=losses, phase_13_losses=phase13["losses"], rel_gaps=gaps,
+                   losses=losses, reference_losses=reference["losses"], rel_gaps=gaps,
                    all_finite=finite, per_step_launches=per_step[0],
                    per_step_expected=expected, s_per_step=step_seconds(records),
-                   phase_13_s_per_step=phase13["s_per_step"],
+                   reference_s_per_step=reference["s_per_step"],
                    max_memory_allocated_gb=records[-1]["peak_gb"],
-                   phase_13_max_memory_allocated_gb=phase13["max_memory_allocated_gb"],
+                   reference_max_memory_allocated_gb=reference["max_memory_allocated_gb"],
                    final_save=result["checkpoints"][-1],
                    export_config={k: config[k] for k in ("scan_layers", "pipeline_stages")},
                    export_gb=disk_gb(export), export_load_s=load_s,
@@ -2499,8 +2596,8 @@ def run_7b_pipeline(tmp: Path, phase13: dict, steps=10, depth=20) -> dict:
         raise AssertionError(f"7b pipeline: launch counts {per_step[:3]}, expected "
                              f"{expected}, parent {parent}")
     if gaps[0] > 1e-3 or max(gaps) > 1e-2:
-        raise AssertionError(f"7b pipeline: losses {losses} against phase 13's "
-                             f"{phase13['losses']} (gaps {gaps})")
+        raise AssertionError(f"7b pipeline: losses {losses} against 13f's "
+                             f"{reference['losses']} (gaps {gaps})")
     if not res["max_memory_allocated_gb"] < 80:
         raise AssertionError(f"7b pipeline peak {res['max_memory_allocated_gb']} GB")
     if mismatched or config["scan_layers"] is not True or config["pipeline_stages"] != 1:
@@ -2656,7 +2753,8 @@ def run_cache_builder(tmp: Path, tables: dict, phase13: dict, steps=10, batch=4,
 
     parity = cache_builder_parity(tmp, tables)
     cache = tmp / "13f_cache_7b"
-    n_rows = len(json.loads((tmp / "7b_online.json").read_text()))
+    table = write_7b_online_table(tmp, batch)
+    n_rows = len(json.loads(table.read_text()))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2664,7 +2762,7 @@ def run_cache_builder(tmp: Path, tables: dict, phase13: dict, steps=10, batch=4,
     torch.cuda.synchronize()
     with EncodeTimer() as enc, Recorded(ZeroTextEncoder, "encode") as text:
         n, build_s = timed_main(precompute_embeddings.main, [
-            "--train_data_path", str(tmp / "7b_online.json"), "--root_dir_type", "json",
+            "--train_data_path", str(table), "--root_dir_type", "json",
             "--base_url", "dummy://", "--resolution", "512", "--center_crop",
             "--vae_path", str(write_flux_vae(tmp / "flux_vae")),
             "--text_encoder_type", "zero", "--cross_attn_input_size",
@@ -2690,7 +2788,7 @@ def run_cache_builder(tmp: Path, tables: dict, phase13: dict, steps=10, batch=4,
         train = run_7b_training(root, steps, batch, depth, (), "7b_train_from_tool_cache",
                                 cache=cache)
     return dict(parity=parity, full_width=full, train=train, checkpoint_in=where,
-                phase_13_s_per_step=phase13["s_per_step"])
+                phase_13_s_per_step=phase13["s_per_step"], cache=cache, depth=depth)
 
 
 # ---------------------------------------------------------------------------
@@ -3161,7 +3259,8 @@ def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
     what `--no_text_encoder` attaches) and with JAX's front-ends' 128,
     printed; `--quantize` at `--num_images 1`: exactly 30 * 12 forward and
     30 * 48 launches of each int8 kernel, pixels equal to the direct int8
-    call. Then once as a subprocess, bit-equal to the in-process files."""
+    call. Then once as a subprocess (started first, running beside the
+    rest), bit-equal to the in-process files."""
     import numpy as np
     import torch
 
@@ -3173,99 +3272,106 @@ def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
     captions = fixture_captions([classes[i] for i in picked])
     base = ["--model", str(FIXTURE), "--no_text_encoder", "--width", "64", "--height", "64",
             "--num_inference_steps", str(steps), "--guidance_scale", str(guidance)]
-    pipe = fixture_prompt_pipe()
-    cfg = pipe.dit.config
-    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-    res = {}
-    files, seconds = [], []
-    reset_counts()
-    for i, cap in enumerate(captions):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        files.append(generate.main(base + ["--prompt", cap, "--num_images", "2",
-                                           "--seed", str(i),
-                                           "--output_file", str(tmp / f"gen{i}.png")]))
-        seconds.append(time.perf_counter() - t0)
-    counts = read_counts()
-    expected = launches(fwd=len(captions) * steps * n_blocks)
-    images = [read_png(f.read_bytes()) for fs in files for f in fs]
-    direct = np.concatenate([
-        pipe(prompt=cap, height=64, width=64, num_inference_steps=steps,
-             guidance_scale=guidance, num_images_per_prompt=2,
-             generator=torch.Generator("cuda").manual_seed(i)).images
-        for i, cap in enumerate(captions)])
-    per_image = [classes[i] for i in picked for _ in range(2)]
-    res["bf16"] = dict(files=[f.name for fs in files for f in fs], s_per_call=seconds,
-                       launches=counts, expected_launches=expected,
-                       equal_to_direct=bool(np.array_equal(np.stack(images), direct)),
-                       both_acc=class_hits(images, per_image) / len(images),
-                       stamp=read_metadata(files[0][1]))
-    if counts != expected:
-        raise AssertionError(f"fixture generate: launches {counts}, expected {expected}")
-
-    again = []
-    for i, fs in enumerate(files):
-        again += generate.main(["--from_png", str(fs[0]), "--no_text_encoder",
-                                "--output_file", str(tmp / f"re{i}.png")])
-    res["from_png_equal"] = bool(np.array_equal(
-        np.stack([read_png(f.read_bytes()) for f in again]), direct))
-    # why `--no_text_encoder` draws the trainer's 32 pseudo tokens: the 24
-    # captions with JAX's front-end length (128) beside them
-    from f_lite_tpu_torch.text.encoder import PSEUDO_TEXT_LEN, ZeroTextEncoder
-
-    res["both_acc_24_captions_by_pseudo_len"] = {}
-    for seq_len in (PSEUDO_TEXT_LEN, 128):
-        pipe.text_encoder = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=seq_len)
-        out = pipe(prompt=fixture_captions(classes), height=64, width=64,
-                   num_inference_steps=steps, guidance_scale=guidance,
-                   generator=torch.Generator("cuda").manual_seed(0), output_type="np")
-        res["both_acc_24_captions_by_pseudo_len"][seq_len] = both_acc(out.images, classes)
-    del pipe
-    torch.cuda.empty_cache()
-
-    qpipe = fixture_prompt_pipe(quantize=True)
-    per_forward = int8_layers(qpipe.dit)
-    reset_counts()
-    (qfile,) = generate.main(base + ["--prompt", captions[0], "--seed", "0", "--quantize",
-                                     "--output_file", str(tmp / "int8.png")])
-    counts = read_counts()
-    expected = launches(fwd=steps * n_blocks, quantize=steps * per_forward,
-                        gemm=steps * per_forward)
-    qimg = read_png(qfile.read_bytes())
-    qdirect = qpipe(prompt=captions[0], height=64, width=64, num_inference_steps=steps,
-                    guidance_scale=guidance,
-                    generator=torch.Generator("cuda").manual_seed(0)).images[0]
-    res["int8"] = dict(launches=counts, expected_launches=expected,
-                       equal_to_direct=bool(np.array_equal(qimg, qdirect)),
-                       both_acc=class_hits([qimg], [classes[picked[0]]]))
-    del qpipe
-    torch.cuda.empty_cache()
-    if counts != expected:
-        raise AssertionError(f"fixture generate int8: launches {counts}, expected {expected}")
-
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    t_sub = time.perf_counter()
+    sub_log = open(tmp / "generate_subprocess.log", "w")
+    sub_proc = subprocess.Popen(
         [sys.executable, "-m", "f_lite_tpu_torch.generate", *base, "--prompt", captions[0],
          "--num_images", "2", "--seed", "0", "--output_file", str(tmp / "sub.png")],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    res["subprocess_s"] = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"generate subprocess failed: {out.stderr[-2000:]}")
-    sub = [read_png((tmp / f"sub_{j}.png").read_bytes()) for j in (1, 2)]
-    res["subprocess_equal"] = bool(np.array_equal(np.stack(sub), direct[:2]))
-    log("fixture_generate", json.dumps(res))
-    for key, what in (("equal_to_direct", "bf16 files differ from the direct call"),):
-        if not res["bf16"][key]:
-            raise AssertionError(f"fixture generate: {what}")
-    if not res["int8"]["equal_to_direct"]:
-        raise AssertionError("fixture generate: the int8 file differs from the direct call")
-    if not res["from_png_equal"]:
-        raise AssertionError("fixture generate: --from_png differs from the first run")
-    if not res["subprocess_equal"]:
-        raise AssertionError("fixture generate: the subprocess's files differ")
-    if res["bf16"]["both_acc"] < 0.95:
-        raise AssertionError(f"fixture generate: both_acc {res['bf16']['both_acc']} < 0.95")
-    return res
+        cwd=ROOT, stdout=sub_log, stderr=subprocess.STDOUT)
+    try:
+        pipe = fixture_prompt_pipe()
+        cfg = pipe.dit.config
+        n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+        res = {}
+        files, seconds = [], []
+        reset_counts()
+        for i, cap in enumerate(captions):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            files.append(generate.main(base + ["--prompt", cap, "--num_images", "2",
+                                               "--seed", str(i),
+                                               "--output_file", str(tmp / f"gen{i}.png")]))
+            seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+        expected = launches(fwd=len(captions) * steps * n_blocks)
+        images = [read_png(f.read_bytes()) for fs in files for f in fs]
+        direct = np.concatenate([
+            pipe(prompt=cap, height=64, width=64, num_inference_steps=steps,
+                 guidance_scale=guidance, num_images_per_prompt=2,
+                 generator=torch.Generator("cuda").manual_seed(i)).images
+            for i, cap in enumerate(captions)])
+        per_image = [classes[i] for i in picked for _ in range(2)]
+        res["bf16"] = dict(files=[f.name for fs in files for f in fs], s_per_call=seconds,
+                           launches=counts, expected_launches=expected,
+                           equal_to_direct=bool(np.array_equal(np.stack(images), direct)),
+                           both_acc=class_hits(images, per_image) / len(images),
+                           stamp=read_metadata(files[0][1]))
+        if counts != expected:
+            raise AssertionError(f"fixture generate: launches {counts}, expected {expected}")
+
+        again = []
+        for i, fs in enumerate(files):
+            again += generate.main(["--from_png", str(fs[0]), "--no_text_encoder",
+                                    "--output_file", str(tmp / f"re{i}.png")])
+        res["from_png_equal"] = bool(np.array_equal(
+            np.stack([read_png(f.read_bytes()) for f in again]), direct))
+        # why `--no_text_encoder` draws the trainer's 32 pseudo tokens: the 24
+        # captions with JAX's front-end length (128) beside them
+        from f_lite_tpu_torch.text.encoder import PSEUDO_TEXT_LEN, ZeroTextEncoder
+
+        res["both_acc_24_captions_by_pseudo_len"] = {}
+        for seq_len in (PSEUDO_TEXT_LEN, 128):
+            pipe.text_encoder = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=seq_len)
+            out = pipe(prompt=fixture_captions(classes), height=64, width=64,
+                       num_inference_steps=steps, guidance_scale=guidance,
+                       generator=torch.Generator("cuda").manual_seed(0), output_type="np")
+            res["both_acc_24_captions_by_pseudo_len"][seq_len] = both_acc(out.images, classes)
+        del pipe
+        torch.cuda.empty_cache()
+
+        qpipe = fixture_prompt_pipe(quantize=True)
+        per_forward = int8_layers(qpipe.dit)
+        reset_counts()
+        (qfile,) = generate.main(base + ["--prompt", captions[0], "--seed", "0", "--quantize",
+                                         "--output_file", str(tmp / "int8.png")])
+        counts = read_counts()
+        expected = launches(fwd=steps * n_blocks, quantize=steps * per_forward,
+                            gemm=steps * per_forward)
+        qimg = read_png(qfile.read_bytes())
+        qdirect = qpipe(prompt=captions[0], height=64, width=64, num_inference_steps=steps,
+                        guidance_scale=guidance,
+                        generator=torch.Generator("cuda").manual_seed(0)).images[0]
+        res["int8"] = dict(launches=counts, expected_launches=expected,
+                           equal_to_direct=bool(np.array_equal(qimg, qdirect)),
+                           both_acc=class_hits([qimg], [classes[picked[0]]]))
+        del qpipe
+        torch.cuda.empty_cache()
+        if counts != expected:
+            raise AssertionError(f"fixture generate int8: launches {counts}, expected {expected}")
+
+        rc = sub_proc.wait(timeout=600)
+        res["subprocess_s"] = time.perf_counter() - t_sub
+        if rc != 0:
+            raise AssertionError("generate subprocess failed: "
+                                 + (tmp / "generate_subprocess.log").read_text()[-2000:])
+        sub = [read_png((tmp / f"sub_{j}.png").read_bytes()) for j in (1, 2)]
+        res["subprocess_equal"] = bool(np.array_equal(np.stack(sub), direct[:2]))
+        log("fixture_generate", json.dumps(res))
+        for key, what in (("equal_to_direct", "bf16 files differ from the direct call"),):
+            if not res["bf16"][key]:
+                raise AssertionError(f"fixture generate: {what}")
+        if not res["int8"]["equal_to_direct"]:
+            raise AssertionError("fixture generate: the int8 file differs from the direct call")
+        if not res["from_png_equal"]:
+            raise AssertionError("fixture generate: --from_png differs from the first run")
+        if not res["subprocess_equal"]:
+            raise AssertionError("fixture generate: the subprocess's files differ")
+        if res["bf16"]["both_acc"] < 0.95:
+            raise AssertionError(f"fixture generate: both_acc {res['bf16']['both_acc']} < 0.95")
+        return res
+    finally:
+        stop_process(sub_proc)
+        sub_log.close()
 
 
 class Client:
@@ -3498,6 +3604,27 @@ class Recorded:
         setattr(self.owner, self.name, self.fn)
 
 
+def available_memory_gb() -> float:
+    """GB of host memory new pages can take (`MemAvailable`: free pages and
+    the reclaimable cache; a tmpfs file's pages are not reclaimable)."""
+    import os
+
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def fs_free_gb(path: Path) -> float:
+    """GB free on `path`'s file system."""
+    import shutil
+
+    return shutil.disk_usage(path).free / 1e9
+
+
 def memory_tmp(need_gb: float):
     """A temporary directory in /dev/shm where it holds `need_gb` with room
     to spare in memory, else in the default temporary directory: the
@@ -3507,12 +3634,10 @@ def memory_tmp(need_gb: float):
     Yields (path, "tmpfs" or "disk")."""
     import contextlib
     import os
-    import shutil
 
     shm = Path("/dev/shm")
-    avail_gb = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
     in_memory = (shm.is_dir() and os.access(shm, os.W_OK)
-                 and min(shutil.disk_usage(shm).free / 1e9, avail_gb) > 1.5 * need_gb)
+                 and min(fs_free_gb(shm), available_memory_gb()) > 1.5 * need_gb)
 
     @contextlib.contextmanager
     def scope():
@@ -3668,30 +3793,181 @@ def convert_7b_in(root: Path, where: str, cfg, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 9-11: serving at 7B width (DiT f_lite_7b + the Flux VAE, seeded
-# random weights)
+# phase 8i: the fabricated 7B release (`python -m
+# f_lite_tpu_torch.tools.fabricated_release_dryrun`), the pipeline of phases
+# 9-11
 # ---------------------------------------------------------------------------
 
-def build_7b_pipe():
+RELEASE_MANIFEST = "freepik-f-lite-7b"
+RELEASE_KEYS = 399
+RELEASE_PARAMS = 4_749_401_703
+
+
+def release_files_gb() -> float:
+    """GB of the release's fp32 files: the snapshot (the DiT and the Flux
+    VAE) and its conversion."""
     import torch
 
-    from f_lite_tpu_torch.models.dit import DiT, DiTConfig
     from f_lite_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    with torch.device("meta"):
+        vae = sum(p.numel() for p in AutoencoderKL(VAEConfig.flux()).parameters())
+    return 2 * 4 * (RELEASE_PARAMS + vae) / 1e9
+
+
+def start_release_ingest(stack) -> dict:
+    """Phase 8i (a): the tool's `--convert_only` run as a subprocess on the
+    card, its work dir in memory (`memory_tmp`, closed by `stack`): the
+    full 7B manifest fabricated there (depth 40) and ingested with strict
+    key coverage. A thread of this process waits for it and then loads the
+    pipeline of phases 9-11: `from_pretrained` in bf16 of the tool's strict
+    `resolve_pretrained` of the snapshot, which takes the cache. Both run
+    beside phases 7-12c. The files (about 39 GB) must fit in memory: on
+    the disk they would use up the run's write limit, so the phase fails
+    with the figures instead."""
+    import os
+
+    import torch
+
     from f_lite_tpu_torch.pipeline import FLitePipeline
-    from f_lite_tpu_torch.utils.random_weights import randomize_
+    from f_lite_tpu_torch.tools import fabricated_release_dryrun as release
 
-    with torch.device("cuda"):
-        prev = torch.get_default_dtype()
-        torch.set_default_dtype(torch.bfloat16)
+    need_gb = release_files_gb()
+    root, where = stack.enter_context(memory_tmp(need_gb))
+    figures = dict(need_gb=need_gb, available_gb=available_memory_gb(),
+                   shm_free_gb=fs_free_gb(Path("/dev/shm")), where=where)
+    log("release_7b_files", json.dumps(figures))
+    if where != "tmpfs":
+        raise AssertionError(f"8i: the release's files do not fit in memory: {figures}")
+    job = dict(snapshot=root / "release" / "snapshot", out=root / "release_report.json",
+               log=root / "release_convert.log", files=figures,
+               strict_before=os.environ.get("F_LITE_STRICT_INGEST"))
+    cmd = [sys.executable, "-m", "f_lite_tpu_torch.tools.fabricated_release_dryrun",
+           "--manifest", RELEASE_MANIFEST, "--workdir", str(root / "release"),
+           "--out", str(job["out"]), "--convert_only", "--device", "cuda"]
+    log_file = stack.enter_context(open(job["log"], "w"))
+    job["t0"] = time.perf_counter()
+    job["proc"] = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def chain():
         try:
-            dit = DiT(DiTConfig.f_lite_7b()).eval()
-        finally:
-            torch.set_default_dtype(prev)
-        vae = AutoencoderKL(VAEConfig.flux()).eval()
-    randomize_(dit, seed=1)
-    randomize_(vae, seed=2)
-    return FLitePipeline(dit, vae)
+            rc = job["proc"].wait()
+            job["subprocess_s"] = time.perf_counter() - job["t0"]
+            if rc != 0:
+                raise AssertionError(f"8i: the tool's --convert_only run exit {rc}:\n"
+                                     f"{job['log'].read_text()[-4000:]}")
+            job["report"] = json.loads(job["out"].read_text())
+            job["fingerprint"] = (job["snapshot"] / "f_lite_tpu_converted"
+                                  / "source_fingerprint.json")
+            job["stamp"] = job["fingerprint"].stat().st_mtime_ns
+            t0 = time.perf_counter()
+            native, resolve_s = release.convert(job["snapshot"])
+            pipe = FLitePipeline.from_pretrained(native, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            job.update(pipe=pipe, native=native, resolve_s=resolve_s,
+                       load_s=time.perf_counter() - t0,
+                       loaded_at_s=time.perf_counter() - job["t0"])
+        except BaseException as e:  # raised again where the thread is joined
+            job["error"] = e
 
+    def stop():
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+
+    job["loader"] = threading.Thread(target=chain, daemon=True)
+    job["loader"].start()
+    stack.callback(job["loader"].join)
+    stack.callback(stop)  # runs first on a failure, so the join is short
+    return job
+
+
+def finish_release_ingest(job: dict) -> tuple:
+    """Phase 8i (b): the loading thread joined; the tool's report (strict
+    ingest of 399 keys, 4,749,401,703 parameters; fabricate and convert
+    seconds), the cache taken (its fingerprint file untouched),
+    F_LITE_STRICT_INGEST given back, the DiT's 399 tensors bf16 and finite,
+    peak under 80 GB. The load ran beside phases that launch kernels, so
+    it is not launch-counted. Returns (the pipeline, the figures)."""
+    import os
+
+    import torch
+
+    t = time.perf_counter()
+    job["loader"].join()
+    if "error" in job:
+        raise job["error"]
+    report, pipe = job["report"], job.pop("pipe")
+    res = dict(files=job["files"], waited_s=time.perf_counter() - t,
+               subprocess_s=job["subprocess_s"], tool=report,
+               cached_load_s=job["load_s"], cached_resolve_s=job["resolve_s"],
+               loaded_at_s=job["loaded_at_s"], beside="phases 7-12c")
+    sd = pipe.dit.state_dict()
+    res.update(keys=len(sd), params=sum(v.numel() for v in sd.values()),
+               dtypes=sorted({str(v.dtype) for v in sd.values()}),
+               finite=all(bool(torch.isfinite(v).all()) for v in sd.values()),
+               converted_gb=disk_gb(job["native"]), cache_taken=(
+                   job["native"] == job["fingerprint"].parent
+                   and job["fingerprint"].stat().st_mtime_ns == job["stamp"]),
+               strict_env_restored=(os.environ.get("F_LITE_STRICT_INGEST")
+                                    == job["strict_before"]),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del sd
+    log("release_7b_ingest", json.dumps(res))
+    if report.get("strict_ingest") != "error" or not report["status"].startswith("converted"):
+        raise AssertionError(f"8i: the tool's report {report}")
+    if (report["dit_keys"], report["dit_params"]) != (RELEASE_KEYS, RELEASE_PARAMS) \
+            or (res["keys"], res["params"]) != (RELEASE_KEYS, RELEASE_PARAMS):
+        raise AssertionError(f"8i: {report['dit_keys']} keys / {report['dit_params']} "
+                             f"parameters fabricated, {res['keys']} / {res['params']} loaded")
+    if not (res["cache_taken"] and res["strict_env_restored"] and res["finite"]):
+        raise AssertionError(f"8i: cache taken {res['cache_taken']}, F_LITE_STRICT_INGEST "
+                             f"restored {res['strict_env_restored']}, finite {res['finite']}")
+    if res["dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"8i: dtypes {res['dtypes']}")
+    if not res["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"8i: peak {res['max_memory_allocated_gb']} GB")
+    return pipe, res
+
+
+def run_release_serve(pipe, tmp: Path, size=1024, steps=30, repeats=2) -> dict:
+    """Phase 8i (c), after phase 11a: the tool's serve step
+    (`fabricated_release_dryrun.serve`) on phase 11a's int8 pipeline, the
+    JAX tool's embeddings (seed 0, 128 rows), `repeats` images of `size` px
+    in `steps` steps: finite, exactly `repeats` x 30 x 56 forward and
+    `repeats` x 30 x 248 launches of each int8 kernel, the sample PNG read
+    back at its size, peak under 80 GB; p50 s/image."""
+    import torch
+
+    from f_lite_tpu_torch.tools import fabricated_release_dryrun as release
+    from f_lite_tpu_torch.utils.image import read_png
+
+    n_int8 = int8_layers(pipe.dit)
+    expected = launches(fwd=repeats * steps * blocks_7b(pipe),
+                        quantize=repeats * steps * n_int8, gemm=repeats * steps * n_int8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = release.serve(pipe, size=size, steps=steps, seed=0, repeats=repeats,
+                        png=tmp / release.SAMPLE_PNG)
+    res.update(launches=read_counts(), expected_launches=expected,
+               png_shape=list(read_png(Path(res["sample_png"]).read_bytes()).shape),
+               hbm=release.device_memory(torch.device("cuda")))
+    log("release_7b_serve", json.dumps(res))
+    if res["launches"] != expected or not res["finite"] \
+            or res["png_shape"] != [size, size, 3]:
+        raise AssertionError(f"8i serve: launches {res['launches']}, expected {expected}, "
+                             f"finite {res['finite']}, png {res['png_shape']}")
+    if not res["hbm"]["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"8i serve: peak {res['hbm']['max_memory_allocated_gb']} GB")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: serving at 7B width (the release of phase 8i: DiT f_lite_7b +
+# the Flux VAE, seeded random weights through the released layout)
+# ---------------------------------------------------------------------------
 
 def text_7b(pipe, text_len=128, real_len=77):
     """128 text rows of which the first 77 are real, seeded."""
@@ -4607,7 +4883,29 @@ def profile_summary(prof, wall_ms, label="step_profile") -> dict:
     return res
 
 
+def bytecode_cache() -> None:
+    """Keep this run's compiled Python: where PYTHONDONTWRITEBYTECODE is set
+    and the package files sit on a slow file system (the card's machine),
+    every subprocess would compile torch's modules again. This process
+    writes the bytecode of what it imports from here on to a temporary
+    prefix, in memory where it can, and the subprocesses it starts read it
+    there (each torchrun's seconds to its first step are logged)."""
+    import atexit
+    import os
+    import shutil
+
+    shm = Path("/dev/shm")
+    prefix = tempfile.mkdtemp(prefix="chip_smoke_pycache_",
+                              dir=shm if shm.is_dir() and os.access(shm, os.W_OK) else None)
+    atexit.register(shutil.rmtree, prefix, True)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main() -> int:
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -4656,74 +4954,89 @@ def main() -> int:
     block = phase(check_block_grads)
     int8_rows, int8_edges, int8_fit = phase(check_int8)
     int8_given = phase(check_int8_given)
-    fixture, full_images = phase(run_fixture)
-    fixture_extras = phase(run_fixture_extras, full_images)
-    fixture_int8 = phase(run_fixture_int8, full_images)
-    fixture_int8_tp1 = phase(run_fixture_int8_tp1, fixture_int8)
-    fixture_prompts = phase(run_fixture_prompts, full_images)
-    with tempfile.TemporaryDirectory() as tmp:
-        fixture_lora = phase(run_fixture_lora, full_images, Path(tmp))
-        fixture_saved = phase(run_fixture_save_ingest, full_images, Path(tmp))
-        fixture_generate = phase(run_fixture_generate, Path(tmp))
-        fixture_serve = phase(run_fixture_serve, Path(tmp))
-        fixture_convert = phase(run_fixture_convert, full_images, Path(tmp))
-        convert_7b = phase(run_7b_convert, Path(tmp), 2)
-    qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
-    t5_res, t5_stack = phase(run_text_tower, "t5")
-    pipe = build_7b_pipe()
-    card_state("before phase 9")
-    prompt_7b = phase(run_7b_prompt, pipe, t5_stack)
-    del t5_stack
-    torch.cuda.empty_cache()
-    big = phase(run_7b, pipe)
-    with contextlib.ExitStack() as stack:
-        # 9.5 GB of files, in memory where there is room, as phase 8g's; the
-        # server loads them while phases 10-9f run here
-        tmp, where = stack.enter_context(memory_tmp(12))
-        log("7b_serve_tp1 files:", where)
-        server_tp1 = phase(start_7b_serve, pipe, tmp)
-        stack.callback(server_tp1.stop)
-        img2img = phase(run_img2img, pipe)
-        strength_one = phase(run_strength_one, pipe)
-        big_lora = phase(run_7b_lora, pipe, big)
-        big_http = phase(run_7b_http, pipe, big)
-        padded_7b = phase(run_7b_padded, pipe, big)
-        serve_tp1 = phase(finish_7b_serve, server_tp1, big_http)
-    from f_lite_tpu_torch.quant import quantize_dit
+    with contextlib.ExitStack() as run_files:
+        # the training phases' files, from phase 12 on
+        train_tmp = Path(run_files.enter_context(tempfile.TemporaryDirectory()))
+        with contextlib.ExitStack() as release_files:
+            # phase 8i: the tool fabricates and converts the release in a
+            # subprocess, and a thread of this process then loads it, beside
+            # phases 7-12c; its files stay in memory until the pipeline of
+            # phases 9-11 is loaded from them
+            release_job = phase(start_release_ingest, release_files)
+            fixture, full_images = phase(run_fixture)
+            fixture_extras = phase(run_fixture_extras, full_images)
+            fixture_int8 = phase(run_fixture_int8, full_images)
+            fixture_int8_tp1 = phase(run_fixture_int8_tp1, fixture_int8)
+            fixture_prompts = phase(run_fixture_prompts, full_images)
+            with tempfile.TemporaryDirectory() as tmp:
+                fixture_lora = phase(run_fixture_lora, full_images, Path(tmp))
+                fixture_saved = phase(run_fixture_save_ingest, full_images, Path(tmp))
+                fixture_generate = phase(run_fixture_generate, Path(tmp))
+                fixture_serve = phase(run_fixture_serve, Path(tmp))
+                fixture_convert = phase(run_fixture_convert, full_images, Path(tmp))
+                convert_7b = phase(run_7b_convert, Path(tmp), 1)
+            qwen = phase(run_text_tower, "qwen2")[0]  # the tower is freed here
+            t5_res, t5_stack = phase(run_text_tower, "t5")
+            fixture_train = phase(run_fixture_training, train_tmp)
+            fixture_resume = phase(run_fixture_resume, train_tmp)
+            fixture_finetune = phase(run_fixture_finetune, train_tmp)
+            pipe, release_ingest = phase(finish_release_ingest, release_job)
+        card_state("before phase 9")
+        prompt_7b = phase(run_7b_prompt, pipe, t5_stack)
+        del t5_stack
+        torch.cuda.empty_cache()
+        big = phase(run_7b, pipe)
+        with contextlib.ExitStack() as stack:
+            # 9.5 GB of files, in memory where there is room, as phase 8g's; the
+            # server loads them while phases 10-9f run here
+            tmp, where = stack.enter_context(memory_tmp(12))
+            log("7b_serve_tp1 files:", where)
+            server_tp1 = phase(start_7b_serve, pipe, tmp)
+            stack.callback(server_tp1.stop)
+            img2img = phase(run_img2img, pipe)
+            strength_one = phase(run_strength_one, pipe)
+            big_lora = phase(run_7b_lora, pipe, big)
+            big_http = phase(run_7b_http, pipe, big)
+            padded_7b = phase(run_7b_padded, pipe, big)
+            serve_tp1 = phase(finish_7b_serve, server_tp1, big_http)
+        from f_lite_tpu_torch.quant import quantize_dit
 
-    quantize_dit(pipe.dit)
-    big_int8 = phase(run_7b, pipe, 30, 6.0, 1024, "7b_int8")
-    padded_7b_int8 = phase(check_7b_padded_int8, padded_7b, big_int8)
-    log("7b_int8_vs_bf16", json.dumps({
-        **{key: dict(bf16=big[key], int8=big_int8[key])
-           for key in ("s_per_step", "s_per_image", "decode_s", "max_memory_allocated_gb")},
-        "step_by_class_ms": dict(bf16=big["step_profile"]["by_class_ms"],
-                                 int8=big_int8["step_profile"]["by_class_ms"])}))
-    del pipe
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        fixture_train = phase(run_fixture_training, Path(tmp))
-        fixture_resume = phase(run_fixture_resume, Path(tmp))
-        fixture_finetune = phase(run_fixture_finetune, Path(tmp))
-        fixture_online = phase(run_fixture_online, Path(tmp), fixture_train)
-        fixture_online_resume = phase(run_fixture_online_resume, Path(tmp),
+        quantize_dit(pipe.dit)
+        big_int8 = phase(run_7b, pipe, 30, 6.0, 1024, "7b_int8")
+        padded_7b_int8 = phase(check_7b_padded_int8, padded_7b, big_int8)
+        with tempfile.TemporaryDirectory() as tmp:
+            release_serve = phase(run_release_serve, pipe, Path(tmp))
+        log("7b_int8_vs_bf16", json.dumps({
+            **{key: dict(bf16=big[key], int8=big_int8[key])
+               for key in ("s_per_step", "s_per_image", "decode_s", "max_memory_allocated_gb")},
+            "step_by_class_ms": dict(bf16=big["step_profile"]["by_class_ms"],
+                                     int8=big_int8["step_profile"]["by_class_ms"])}))
+        del pipe
+        torch.cuda.empty_cache()
+        fixture_online = phase(run_fixture_online, train_tmp, fixture_train)
+        fixture_online_resume = phase(run_fixture_online_resume, train_tmp,
                                       fixture_online["tables"])
-        fixture_buckets = phase(run_fixture_buckets, Path(tmp))
-        fixture_fsdp = phase(run_fixture_fsdp, Path(tmp), fixture_train, fixture_resume)
-        fixture_sp = phase(run_fixture_sp, Path(tmp), fixture_resume, fixture_fsdp)
-        train_7b = in_memory(run_7b_training, Path(tmp))
-        train_7b_dots = in_memory(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
+        fixture_buckets = phase(run_fixture_buckets, train_tmp)
+        with contextlib.ExitStack() as beside:
+            # 12h's subprocess runs beside 12g's: both fixture-sized
+            sp_started = phase(start_fixture_sp, train_tmp, fixture_resume)
+            beside.callback(stop_process, sp_started["job"]["proc"])
+            fixture_fsdp = phase(run_fixture_fsdp, train_tmp, fixture_train, fixture_resume,
+                                 sp_started["job"])
+            fixture_sp = phase(run_fixture_sp, sp_started, fixture_resume, fixture_fsdp)
+        train_7b = in_memory(run_7b_training, train_tmp)
+        train_7b_dots = in_memory(run_7b_training, train_tmp, 10, 4, OPTIONS_7B_DEPTH,
                                   ("--remat_policy", "dots"), "7b_train_dots")
-        train_7b_seqdrop = in_memory(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
+        train_7b_seqdrop = in_memory(run_7b_training, train_tmp, 10, 4, OPTIONS_7B_DEPTH,
                                      ("--sequence_dropout", "0.5"), "7b_train_seqdrop")
-        train_7b_lora = phase(run_7b_training, Path(tmp), 10, 4, OPTIONS_7B_DEPTH,
+        train_7b_lora = phase(run_7b_training, train_tmp, 10, 4, OPTIONS_7B_DEPTH,
                               ("--use_lora", "--lora_rank", "64"), "7b_train_lora")
-        checkpoint_7b = phase(run_7b_checkpoint, Path(tmp), CHECKPOINT_7B_DEPTH)
-        train_7b_online = in_memory(run_7b_online, Path(tmp), train_7b)
-        fsdp_7b = in_memory(run_7b_fsdp, Path(tmp), train_7b, checkpoint_7b)
-        cache_builder = phase(run_cache_builder, Path(tmp), fixture_online["tables"],
-                              train_7b, 10, 4, OPTIONS_7B_DEPTH)
-        pipeline_7b = phase(run_7b_pipeline, Path(tmp), train_7b)
+        checkpoint_7b = phase(run_7b_checkpoint, train_tmp, CHECKPOINT_7B_DEPTH)
+        cache_builder = phase(run_cache_builder, train_tmp, fixture_online["tables"],
+                              train_7b, 10, 4, TOOL_CACHE_7B_DEPTH)
+        train_7b_online = in_memory(run_7b_online, train_tmp, cache_builder)
+        fsdp_7b = in_memory(run_7b_fsdp, train_tmp, cache_builder, checkpoint_7b)
+        pipeline_7b = phase(run_7b_pipeline, train_tmp, cache_builder)
     log("7b_train_options", json.dumps({
         r["options"] and " ".join(r["options"]) or "full": {k: r[k] for k in (
             "s_per_step", "max_memory_allocated_gb", "per_step", "trained_params",
@@ -4742,6 +5055,7 @@ def main() -> int:
         launches=train_7b["launches"]["fwd"],
         launches_per_train_step=train_7b["per_step"]["fwd"],
         launches_serving_7b_image=big["launches"],
+        launches_serving_7b_release_tool_int8_2_images=release_serve["launches"]["fwd"],
         launches_serving_7b_img2img_1280=img2img["launches"]["fwd"],
         launches_serving_fixture=fixture["launches"],
         launches_serving_fixture_prompts=fixture_prompts["launches"]["fwd"],
@@ -4769,16 +5083,16 @@ def main() -> int:
         launches_fixture_resume=fixture_resume["launches_resumed"]["fwd"],
         launches_per_fixture_finetune_micro_step=fixture_finetune["per_micro_step"]["fwd"],
         launches_online={
-            "per_7b_step": train_7b_online["per_step"]["fwd"],
+            "per_7b_d12_step": train_7b_online["per_step"]["fwd"],
             "per_fixture_step": fixture_online["per_step"]["fwd"],
             "per_fixture_eval_of_2_batches": [c["fwd"] for c in fixture_online["evals"]],
             "per_fixture_sample_grid": fixture_online["sample_grids"][0]["fwd"],
             "per_fixture_bucket_step": fixture_buckets["per_step"]["fwd"],
             "fixture_resume_and_debug_nans": fixture_online_resume["launches"]["fwd"]},
         launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"]["fwd"],
-                       "per_7b_step": fsdp_7b["per_step_launches"]["fwd"]},
+                       "per_7b_d12_step": fsdp_7b["per_step_launches"]["fwd"]},
         launches_pipeline_one_stage={
-            "per_7b_step_2_microbatches": pipeline_7b["per_step_launches"]["fwd"]},
+            "per_7b_d12_step_2_microbatches": pipeline_7b["per_step_launches"]["fwd"]},
         launches_tp_at_tp1={
             "per_fixture_step_sequence_parallel": fixture_sp["per_step_launches"]["fwd"],
             "serving_fixture_int8": fixture_int8_tp1["launches"]["fwd"]},
@@ -4819,16 +5133,16 @@ def main() -> int:
             launches_per_fixture_finetune_micro_step=(
                 fixture_finetune["per_micro_step"][which]),
             launches_online={
-                "per_7b_step": train_7b_online["per_step"][which],
+                "per_7b_d12_step": train_7b_online["per_step"][which],
                 "per_fixture_step": fixture_online["per_step"][which],
                 "per_fixture_eval_of_2_batches": [c[which] for c in fixture_online["evals"]],
                 "per_fixture_sample_grid": fixture_online["sample_grids"][0][which],
                 "per_fixture_bucket_step": fixture_buckets["per_step"][which],
                 "fixture_resume_and_debug_nans": fixture_online_resume["launches"][which]},
             launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"][which],
-                           "per_7b_step": fsdp_7b["per_step_launches"][which]},
+                           "per_7b_d12_step": fsdp_7b["per_step_launches"][which]},
             launches_pipeline_one_stage={
-                "per_7b_step_2_microbatches": pipeline_7b["per_step_launches"][which]},
+                "per_7b_d12_step_2_microbatches": pipeline_7b["per_step_launches"][which]},
             launches_tp_at_tp1={"per_fixture_step_sequence_parallel":
                                 fixture_sp["per_step_launches"][which]},
             launches_tools={"per_7b_step_from_tool_cache":
@@ -4913,6 +5227,7 @@ def main() -> int:
                 fixture_generate["int8"]["launches"][counter]),
             launches_serving_fixture_int8_tp_at_tp1=fixture_int8_tp1["launches"][counter],
             launches_serving_7b_padded_heads_int8=padded_7b["int8"]["counts"][counter],
+            launches_serving_7b_release_tool_int8_2_images=release_serve["launches"][counter],
             ms=int8_main[f"{key}_ms"], plain_ms=int8_main[f"{key}_plain_ms"],
             bound_ms=int8_main[f"{key}_bound_ms"],
             bound_by=int8_main[f"{key}_bound_by"],
@@ -4943,8 +5258,8 @@ def main() -> int:
     # where the checks of 2 and 4 ranks ran (tests/test_torch_parallel.py)
     log(json.dumps({"gpus": torch.cuda.device_count(), "multi_rank_checks": "cpu/gloo",
                     "pipeline_one_stage_7b": {k: pipeline_7b[k] for k in (
-                        "rel_gaps", "s_per_step", "phase_13_s_per_step",
-                        "max_memory_allocated_gb", "phase_13_max_memory_allocated_gb",
+                        "config", "rel_gaps", "s_per_step", "reference_s_per_step",
+                        "max_memory_allocated_gb", "reference_max_memory_allocated_gb",
                         "export_bit_equal", "export_load_s", "files")},
                     "tp_at_tp1": {
                         "fixture_sequence_parallel": {k: fixture_sp[k] for k in (
@@ -4961,7 +5276,23 @@ def main() -> int:
                             "max_abs_err_vs_phase_9", "tolerance", "s_per_image",
                             "max_memory_allocated_gb", "phase_9")},
                         "int8": padded_7b_int8}}))
+    release_7b = dict(
+        manifest=RELEASE_MANIFEST, strict_ingest=release_ingest["tool"]["strict_ingest"],
+        keys=release_ingest["keys"], params=release_ingest["params"],
+        fabricate_s=release_ingest["tool"]["fabricate_seconds"],
+        convert_s=release_ingest["tool"]["convert_seconds"],
+        beside=release_ingest["beside"], waited_for_load_s=release_ingest["waited_s"],
+        cached_load_s=release_ingest["cached_load_s"],
+        bf16_s_per_image=big["s_per_image"], int8_s_per_image=big_int8["s_per_image"],
+        tool_int8_p50_s_per_image=release_serve["p50_seconds_per_image"],
+        tool_int8_s_per_image=release_serve["seconds_per_image"],
+        peak_gb=max(release_ingest["max_memory_allocated_gb"], big["max_memory_allocated_gb"],
+                    big_int8["max_memory_allocated_gb"],
+                    release_serve["hbm"]["max_memory_allocated_gb"]),
+        files=release_ingest["files"]["where"],
+        fabricate_peak_host_rss_gb=release_ingest["tool"]["peak_host_rss_gb"])
     log(json.dumps({"kernels": kernels,
+                    "release_7b": release_7b,
                     "block_grads_max_rel": block["max_rel"],
                     "backward_shapes": bwd_rows,
                     "fixture_int8": dict(both_acc=fixture_int8["both_acc"],
@@ -5019,19 +5350,20 @@ def main() -> int:
                             fixture_online_resume["debug_nans_losses_equal"],
                         "bucket_self_lengths": fixture_buckets["self_lengths"],
                         "7b": {k: train_7b_online[k] for k in (
-                            "s_per_step", "phase_13_s_per_step", "vae_encode_ms_per_step",
-                            "loader_wait_ms_per_step", "idle_share", "phase_13_idle_share",
+                            "config", "s_per_step", "reference_s_per_step",
+                            "vae_encode_ms_per_step", "loader_wait_ms_per_step",
+                            "idle_share", "reference_idle_share",
                             "max_memory_allocated_gb", "allocated_at_start_gb",
-                            "phase_13_max_memory_allocated_gb")}},
+                            "reference_max_memory_allocated_gb")}},
                     "fsdp": {
                         "fixture": {k: fixture_fsdp[k] for k in (
                             "losses_bit_equal", "max_rel_gap", "resumed_unwrapped_bit_equal",
                             "resumed_max_rel_gap", "s_per_step", "phase_12_s_per_step")},
                         "7b": {k: fsdp_7b[k] for k in (
-                            "losses_equal_phase_13", "s_per_step", "phase_13_s_per_step",
-                            "max_memory_allocated_gb",
-                            "phase_13_max_memory_allocated_gb", "idle_share",
-                            "phase_13_idle_share", "final_save", "phase_13c_sync_save")}},
+                            "config", "losses_equal_reference", "s_per_step",
+                            "reference_s_per_step", "max_memory_allocated_gb",
+                            "reference_max_memory_allocated_gb", "idle_share",
+                            "reference_idle_share", "final_save", "phase_13c_sync_save")}},
                     "tools": {
                         "fixture_convert": {k: fixture_convert[k] for k in (
                             "export_s", "hf_dir_ingest_s")}

@@ -200,10 +200,11 @@ def dit_config_from_state_dict(
 
 def _load_strict(model: torch.nn.Module, sd: dict, consumed: set) -> None:
     """Load the keys of `model` from `sd` (numpy), strictly, as fp32
-    tensors that become the model's own; record them in `consumed`."""
+    tensors that become the model's own (sharing an fp32 array's memory:
+    a 7B's weights are 19 GB); record them in `consumed`."""
     keys = set(model.state_dict())
     consumed.update(keys & set(sd))
-    model.load_state_dict({k: torch.from_numpy(np.array(sd[k], np.float32))
+    model.load_state_dict({k: torch.from_numpy(np.asarray(sd[k], np.float32))
                            for k in keys if k in sd}, strict=True, assign=True)
 
 
@@ -299,9 +300,10 @@ def convert_reference_checkpoint(
                    logger=logger)
     (out / "dit" / "config.json").write_text(
         json.dumps(dit_cfg.to_json_dict(), indent=2))
-    save_file(state_dict_to_jax(dit.state_dict(), dit_cfg),
-              out / "dit" / "flax_params.safetensors")
-    del dit, sd
+    flat = state_dict_to_jax(dit.state_dict(), dit_cfg)
+    del dit, sd  # the source's copy goes before the native one is written
+    save_file(flat, out / "dit" / "flax_params.safetensors")
+    del flat
 
     index = {"_class_name": "FLitePipeline", "framework": "f-lite-tpu",
              "return_index": -8}

@@ -824,3 +824,34 @@ def test_cache_builder_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         np.testing.assert_array_equal(
             np.load(caches["cuda"] / "text_embeddings" / e["embedding_file"]),
             np.load(caches["cpu"] / "text_embeddings" / e["embedding_file"]))
+
+
+@pytest.mark.cuda
+def test_release_dryrun_runs_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """`tools.fabricated_release_dryrun.main` on the card at a tiny manifest
+    (hidden 512, depth 3, 2 heads of 256, residual_v) beside the Flux VAE
+    at full size: fabricated there, ingested strictly, loaded in bf16 with
+    int8 projections, two 64 px images of 2 steps. The report's status ok
+    and finite images; #1 launched 2 x 2 x 6 times (3 self and 3 cross
+    attentions a forward) and each int8 kernel 2 x 2 x 24 times (5
+    projections a block and 3 more in each cross-attention)."""
+    import json
+
+    from f_lite_tpu_torch.convert.manifest import expected_torch_keys
+    from f_lite_tpu_torch.tools import fabricated_release_dryrun as tool
+
+    cfg = dict(hidden_size=512, depth=3, num_heads=2, cross_attn_input_size=64,
+               residual_v=True, train_bias_and_rms=False)
+    (tmp_path / "tiny.json").write_text(json.dumps({
+        "repo_id": "tiny/F-Lite-tiny", "config": cfg,
+        "keys": sorted(expected_torch_keys(tool.dit_config({"config": cfg})))}))
+    monkeypatch.setattr(tool, "MANIFEST_DIR", tmp_path)
+    before = _counts()
+    report = tool.main(["--manifest", "tiny", "--workdir", str(tmp_path / "work"),
+                        "--out", str(tmp_path / "report.json"), "--size", "64",
+                        "--steps", "2", "--repeats", "2"])
+    after = _counts()
+    assert report["status"] == "ok" and report["finite"] and report["device"] == "cuda"
+    assert report["fabricated_on"] == "cuda"
+    assert [b - a for a, b in zip(before, after)] == [24, 0, 0, 0, 96, 96]
+    assert report["hbm"]["max_memory_allocated_gb"] < 80

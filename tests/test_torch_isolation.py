@@ -73,7 +73,8 @@ PARALLEL_MODULES = ("f_lite_tpu_torch.parallel", "f_lite_tpu_torch.parallel.mesh
                     "f_lite_tpu_torch.parallel.tensor", "f_lite_tpu_torch.parallel.pipeline",
                     "f_lite_tpu_torch.convert.heads")
 TOOL_MODULES = ("f_lite_tpu_torch.tools.precompute_embeddings",
-                "f_lite_tpu_torch.tools.convert_checkpoint")
+                "f_lite_tpu_torch.tools.convert_checkpoint",
+                "f_lite_tpu_torch.tools.fabricated_release_dryrun")
 LAB_MODULES = ("f_lite_tpu_torch.ops.cuda.flash_variants",
                "f_lite_tpu_torch.tools.flash_variants",
                "f_lite_tpu_torch.tools.forward_tiles",
@@ -97,7 +98,7 @@ def test_port_imports_without_jax_or_reference_package():
                + FRONTEND_MODULES + ONLINE_MODULES + PARALLEL_MODULES
                + TOOL_MODULES) <= set(names.split()), names
     n_modules = int(summary.split()[0])
-    assert n_modules >= 50, out.stdout
+    assert n_modules >= 51, out.stdout
     assert out.stdout.strip().endswith("built-at-import: 0"), out.stdout
 
 
@@ -504,6 +505,57 @@ def test_repo_tools_run_without_jax_safetensors_or_transformers():
     re-ingest on the CPU, as on the card's machine (no JAX, safetensors or
     transformers): the re-ingested DiT and VAE bit-equal to the source."""
     out = _run(TOOLS_WITHOUT_JAX_SAFETENSORS_OR_TRANSFORMERS)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+
+RELEASE_DRYRUN_WITHOUT_JAX_SAFETENSORS_OR_PIL = textwrap.dedent("""
+    import importlib, importlib.abc, json, os, sys, tempfile
+    from pathlib import Path
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "f_lite_tpu",
+               "safetensors", "PIL")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from f_lite_tpu_torch.convert.manifest import expected_torch_keys
+    from f_lite_tpu_torch.tools import fabricated_release_dryrun as tool
+
+    torch.set_num_threads(1)
+    cfg = dict(hidden_size=512, depth=2, num_heads=2, cross_attn_input_size=64,
+               residual_v=True, train_bias_and_rms=False)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "tiny.json").write_text(json.dumps({
+            "repo_id": "tiny/F-Lite-tiny", "config": cfg,
+            "keys": sorted(expected_torch_keys(tool.dit_config({"config": cfg})))}))
+        tool.MANIFEST_DIR = d
+        argv = ["--manifest", "tiny", "--workdir", str(d / "work"), "--device", "cpu",
+                "--out", str(d / "report.json"), "--size", "32", "--steps", "1",
+                "--repeats", "1"]
+        partial = tool.main(argv + ["--convert_only"])
+        assert partial["status"].startswith("converted"), partial
+        report = tool.main(argv)
+        assert report["status"] == "ok" and report["finite"], report
+        assert "fabricate_seconds" not in report, report
+        assert Path(report["sample_png"]).exists() and not (d / "work").exists()
+        assert "F_LITE_STRICT_INGEST" not in os.environ
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_release_dryrun_runs_without_jax_safetensors_or_pil():
+    """The fabricated-release dry run's `--convert_only` and its serve on a
+    tiny manifest, as on the card's machine (no JAX, safetensors or PIL)."""
+    out = _run(RELEASE_DRYRUN_WITHOUT_JAX_SAFETENSORS_OR_PIL)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok"), out.stdout
 
