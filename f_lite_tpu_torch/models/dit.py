@@ -68,6 +68,7 @@ from f_lite_tpu_torch.parallel import tensor as tpar
 from f_lite_tpu_torch.parallel.sharding import local as _local
 from f_lite_tpu_torch.quant import QUANT_TARGETS, quant_matmul
 from f_lite_tpu_torch.utils.random_weights import lecun_normal_
+from f_lite_tpu_torch.utils.trace import span
 
 
 # `dit/config.json` fields that shape only the JAX program or the saved
@@ -330,7 +331,16 @@ class SwiGLUMLP(nn.Module):
     def forward(self, x, seq=False):
         if self.tp is not None:
             x = tpar.enter_columns(x, self.tp, seq)
-        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        # silu(gate) * up in span op.swiglu, the three GEMMs outside it; each
+        # product is freed where the single expression freed it
+        h = self.gate_proj(x)
+        with span("op.swiglu"):
+            h = F.silu(h)
+        up = self.up_proj(x)
+        with span("op.swiglu"):
+            h = h * up
+        del up
+        y = self.down_proj(h)
         if self.tp is not None:
             y = tpar.exit_rows(y, self.tp, seq)
         return y
@@ -352,6 +362,7 @@ class DiTBlock(nn.Module):
     def __init__(self, cfg: DiTConfig, idx: int):
         super().__init__()
         self.cfg = cfg
+        self.index = idx
         d = cfg.hidden_size
         self.do_cross_attn = cfg.block_has_cross_attn(idx)
         self.norm1 = RMSNormModule(d)
@@ -368,6 +379,14 @@ class DiTBlock(nn.Module):
 
     def forward(self, x, context, context_mask, modulation, rope,
                 v_first=None, seq=False):
+        """Span `dit.block` (with the block's index; again when a checkpointed
+        block runs in the backward), `block.adaln` around each modulation
+        and each gated residual add."""
+        with span("dit.block", index=self.index):
+            return self._forward(x, context, context_mask, modulation, rope,
+                                 v_first, seq)
+
+    def _forward(self, x, context, context_mask, modulation, rope, v_first, seq):
         # on a share of the sequence, the replicated modulation and norm
         # weights see a share of the rows: their gradients sum over tp
         tp = self.tp if seq else None
@@ -377,17 +396,27 @@ class DiTBlock(nn.Module):
         (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
          shift_mlp, scale_mlp, gate_mlp) = m
 
-        norm_x = self.norm1(x, tp) * (1 + scale_sa) + shift_sa
+        norm_x = self.norm1(x, tp)
+        with span("block.adaln"):
+            norm_x = norm_x * (1 + scale_sa) + shift_sa
         attn_out, v_first = self.self_attn(norm_x, rope=rope, v_first=v_first,
                                            seq=seq)
-        x = x + attn_out * gate_sa
+        with span("block.adaln"):
+            x = x + attn_out * gate_sa
         if self.do_cross_attn:
-            norm_x = self.norm2(x, tp) * (1 + scale_ca) + shift_ca
+            norm_x = self.norm2(x, tp)
+            with span("block.adaln"):
+                norm_x = norm_x * (1 + scale_ca) + shift_ca
             ca, _ = self.cross_attn(norm_x, context=context,
                                     context_mask=context_mask, seq=seq)
-            x = x + ca * gate_ca
-        norm_x = self.norm3(x, tp) * (1 + scale_mlp) + shift_mlp
-        x = x + self.mlp(norm_x, seq) * gate_mlp
+            with span("block.adaln"):
+                x = x + ca * gate_ca
+        norm_x = self.norm3(x, tp)
+        with span("block.adaln"):
+            norm_x = norm_x * (1 + scale_mlp) + shift_mlp
+        mlp_out = self.mlp(norm_x, seq)
+        with span("block.adaln"):
+            x = x + mlp_out * gate_mlp
         return x, v_first
 
 
@@ -529,9 +558,11 @@ class DiT(nn.Module):
         positions run through the blocks (with the 16 register tokens
         prepended), with their own rope rows (or positional rows), and the
         output is token-space (B, K, p*p*C) instead of an image."""
-        s = self.embed(x, context, context_mask, t, token_indices)
+        with span("dit.embed"):
+            s = self.embed(x, context, context_mask, t, token_indices)
         s = self.run_blocks(s, 0, self.config.depth)
-        return self.head(s)
+        with span("dit.head"):
+            return self.head(s)
 
     def rope(self, grid, device):
         """The rope tables (cos, sin) of a (gh, gw) patch grid behind the

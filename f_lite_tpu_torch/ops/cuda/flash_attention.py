@@ -41,7 +41,7 @@ so that each tile of them is one aligned bulk copy.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. `LAUNCHES`, `DQ_LAUNCHES` and
-`DKV_LAUNCHES` count kernel launches.
+`DKV_LAUNCHES` count kernel launches (counters of `utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ import functools
 import torch
 
 from f_lite_tpu_torch.ops.cuda.build import load
+from f_lite_tpu_torch.utils.trace import counter
 
 HEAD_DIMS = (64, 256)  # the compiled instances; other D are padded up
 STAT_ROWS = 128  # the bf16 backward's lse / delta rows: a multiple of this
@@ -94,19 +95,9 @@ def grad_tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
     return tolerance(ref, dtype)
 
 
-class LaunchCounter:
-    """A plain count of kernel launches, reset by whoever reads it."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
-LAUNCHES = LaunchCounter()      # the forward kernel
-DQ_LAUNCHES = LaunchCounter()   # the dq kernel
-DKV_LAUNCHES = LaunchCounter()  # the dkv kernel
+LAUNCHES = counter("flash_fwd")          # the forward kernel
+DQ_LAUNCHES = counter("flash_bwd_dq")    # the dq kernel
+DKV_LAUNCHES = counter("flash_bwd_dkv")  # the dkv kernel
 
 
 def padded_head_dim(d: int) -> int:

@@ -40,6 +40,7 @@ import torch
 
 from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 from f_lite_tpu_torch.ops.cuda.build import load
+from f_lite_tpu_torch.utils.trace import counter
 
 LOG2E = 1.4426950408889634
 # the TPU kernel's running-max start value (-0.7 * float32 max)
@@ -71,7 +72,7 @@ FLAG_TWINS = (("exp2", "prescale"), ("alphabf16", "prescale"),
 # the largest |flag_step - 1| a kernel's flag branch may show
 FLAG_STEP_TOLERANCE = 0.25
 
-LAUNCHES = fa.LaunchCounter()
+LAUNCHES = counter("flash_variants")
 
 
 def flag_step(got: torch.Tensor, own: torch.Tensor, twin: torch.Tensor) -> float:

@@ -35,7 +35,7 @@ On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernels or raise. The plain product is exact int32 on the
 CPU and float64 on the card (exact while 127^2 * K < 2^53; CUDA has no
 integer matmul). `QUANTIZE_LAUNCHES` (every entry of the quantize kernel)
-and `GEMM_LAUNCHES` count kernel launches.
+and `GEMM_LAUNCHES` count kernel launches (counters of `utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -46,10 +46,10 @@ import functools
 import torch
 
 from f_lite_tpu_torch.ops.cuda.build import load
-from f_lite_tpu_torch.ops.cuda.flash_attention import LaunchCounter
+from f_lite_tpu_torch.utils.trace import counter
 
-QUANTIZE_LAUNCHES = LaunchCounter()  # quantize_rows, _given, row_amax
-GEMM_LAUNCHES = LaunchCounter()      # int8_gemm_dequant (and its int32 mode)
+QUANTIZE_LAUNCHES = counter("int8_quantize")  # quantize_rows, _given, row_amax
+GEMM_LAUNCHES = counter("int8_gemm")          # int8_gemm_dequant (and its int32 mode)
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}

@@ -7,15 +7,19 @@ from __future__ import annotations
 
 import torch
 
+from f_lite_tpu_torch.utils.trace import span
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None, *,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMS-normalise the last axis in fp32, optionally scaling by `weight`."""
-    x32 = x.float()
-    y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
-    if weight is not None:
-        y = y * weight.float()
-    return y.to(x.dtype)
+    """RMS-normalise the last axis in fp32, optionally scaling by `weight`
+    (span `op.rms_norm`)."""
+    with span("op.rms_norm"):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
+        if weight is not None:
+            y = y * weight.float()
+        return y.to(x.dtype)
 
 
 def qk_norm(q, k, *, q_weight=None, k_weight=None, eps: float = 1e-6):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from f_lite_tpu_torch.utils.trace import span
+
 
 def rope_2d_freqs(head_dim: int, h: int, w: int, *, base: float = 10000.0,
                   n_register_tokens: int = 0, device=None):
@@ -39,12 +41,13 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE in fp32. x (B, H, T, D); cos/sin (T, D // 2) or
     per batch row (B, T, D // 2) (the rows gathered under sequence
-    dropout)."""
+    dropout). Span `op.rope`."""
     if cos.dim() == 3:  # (B, T, D/2): broadcast over the heads
         cos, sin = cos[:, None], sin[:, None]
-    x32 = x.float()
-    d = x32.shape[-1] // 2
-    x1, x2 = x32[..., :d], x32[..., d:]
-    y1 = x1 * cos + x2 * sin
-    y2 = -x1 * sin + x2 * cos
-    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+    with span("op.rope"):
+        x32 = x.float()
+        d = x32.shape[-1] // 2
+        x1, x2 = x32[..., :d], x32[..., d:]
+        y1 = x1 * cos + x2 * sin
+        y2 = -x1 * sin + x2 * cos
+        return torch.cat([y1, y2], dim=-1).to(x.dtype)

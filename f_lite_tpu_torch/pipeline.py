@@ -73,6 +73,7 @@ from f_lite_tpu_torch.sampling.euler import (
 from f_lite_tpu_torch.train.lora import apply_lora, load_lora_weights, lora_rank
 from f_lite_tpu_torch.utils.device import resolve_device
 from f_lite_tpu_torch.utils.safetensors import load_file, save_file
+from f_lite_tpu_torch.utils.trace import span
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "pil")
 
@@ -501,108 +502,114 @@ class FLitePipeline:
         The noise of image to image and inpainting comes from `generator`
         after the start noise.
         """
-        if output_type not in OUTPUT_TYPES:
-            raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
-        device = self.device
-        dtype = self.dit.dtype
-        apg = apg_config if (apg_config and apg_config.enabled) else None
+        with span("pipeline.request"):
+            with span("pipeline.prepare"):
+                if output_type not in OUTPUT_TYPES:
+                    raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
+                device = self.device
+                dtype = self.dit.dtype
+                apg = apg_config if (apg_config and apg_config.enabled) else None
 
-        if prompt_embeds is not None:
-            embeds, neg, mask, neg_mask = self._context(
-                prompt_embeds, negative_embeds, context_mask,
-                negative_context_mask,
-            )
-        elif prompt is not None:
-            embeds, neg, mask, neg_mask = self.encode_prompt(prompt, negative_prompt)
-        else:
-            raise ValueError("pass prompt or prompt_embeds")
-        if pad_context_to:
-            t = -(-embeds.shape[1] // pad_context_to) * pad_context_to
-            embeds, mask = _pad_seq(embeds, mask, t)
-            neg, neg_mask = _pad_seq(neg, neg_mask, t)
-        if num_images_per_prompt > 1:
-            embeds, neg, mask, neg_mask = (
-                np.repeat(a, num_images_per_prompt, axis=0)
-                for a in (embeds, neg, mask, neg_mask)
-            )
+                if prompt_embeds is not None:
+                    embeds, neg, mask, neg_mask = self._context(
+                        prompt_embeds, negative_embeds, context_mask,
+                        negative_context_mask,
+                    )
+                elif prompt is not None:
+                    embeds, neg, mask, neg_mask = self.encode_prompt(prompt, negative_prompt)
+                else:
+                    raise ValueError("pass prompt or prompt_embeds")
+                if pad_context_to:
+                    t = -(-embeds.shape[1] // pad_context_to) * pad_context_to
+                    embeds, mask = _pad_seq(embeds, mask, t)
+                    neg, neg_mask = _pad_seq(neg, neg_mask, t)
+                if num_images_per_prompt > 1:
+                    embeds, neg, mask, neg_mask = (
+                        np.repeat(a, num_images_per_prompt, axis=0)
+                        for a in (embeds, neg, mask, neg_mask)
+                    )
 
-        batch = embeds.shape[0]
-        lh, lw = height // self.vae_scale_factor, width // self.vae_scale_factor
-        lat_shape = (batch, lh, lw, self.dit.config.in_channels)
-        settings = DenoiseSettings(
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, apg=apg, alpha=alpha,
-            guidance_interval=tuple(guidance_interval) if guidance_interval else None,
-            method=sampler,
-        )
-        if generator is None:
-            generator = torch.Generator(device).manual_seed(0)
-        start_step, inpaint = 0, None
-        if mask_image is not None and image is None:
-            raise ValueError("mask_image requires image")
-        if image is not None:
-            if latents is not None:
-                raise ValueError("pass image or latents, not both")
-            if isinstance(self.vae, IdentityVAE):
-                raise ValueError("image-to-image requires a VAE")
-            if not 0.0 < strength <= 1.0:
-                raise ValueError(f"strength must be in (0, 1], got {strength}")
-            n = num_inference_steps
-            start_step = n - max(1, min(n, int(round(strength * n))))
-            t0 = schedule_start_time(settings, lh, lw, start_step)
-            # checked on every path, whether or not the encode runs
-            x = _preprocess_image(image, height, width)
-            if x.shape[0] not in (1, batch):
-                raise ValueError(f"got {x.shape[0]} images for batch {batch}")
-            if t0 >= 1.0 and mask_image is None:
-                # the image would be multiplied by exactly zero
-                latents = torch.randn(lat_shape, generator=generator,
-                                      device=device, dtype=dtype)
-            else:
-                lat = normalize_latents(
-                    self._encode_image_latents(torch.from_numpy(x).to(device)).float(),
-                    self.vae.config)
-                lat = lat.expand(batch, *lat.shape[1:])  # one image for all
-                if tuple(lat.shape) != lat_shape:
-                    raise ValueError(f"encoded image latents {tuple(lat.shape)} "
-                                     f"!= {lat_shape}")
-                noise = torch.randn(lat_shape, generator=generator, device=device)
-                latents = ((1.0 - t0) * lat + t0 * noise).to(dtype)
-                if mask_image is not None:
-                    m = torch.from_numpy(_preprocess_mask(mask_image, lh, lw, batch))
-                    step_noise = torch.randn((n - start_step, *lat_shape),
-                                             generator=generator, device=device)
-                    inpaint = (lat, m.to(device), step_noise)
-        elif latents is None:
-            latents = torch.randn(lat_shape, generator=generator, device=device,
-                                  dtype=dtype)
-        else:
-            latents = torch.as_tensor(latents, device=device)
-        if steps_per_dispatch is None:
-            steps_per_dispatch = auto_steps_per_dispatch(
-                batch, num_inference_steps, lh * lw)
+                batch = embeds.shape[0]
+                lh, lw = height // self.vae_scale_factor, width // self.vae_scale_factor
+                lat_shape = (batch, lh, lw, self.dit.config.in_channels)
+                settings = DenoiseSettings(
+                    num_inference_steps=num_inference_steps,
+                    guidance_scale=guidance_scale, apg=apg, alpha=alpha,
+                    guidance_interval=tuple(guidance_interval) if guidance_interval else None,
+                    method=sampler,
+                )
+                if generator is None:
+                    generator = torch.Generator(device).manual_seed(0)
+                start_step, inpaint = 0, None
+                if mask_image is not None and image is None:
+                    raise ValueError("mask_image requires image")
+                if image is not None:
+                    if latents is not None:
+                        raise ValueError("pass image or latents, not both")
+                    if isinstance(self.vae, IdentityVAE):
+                        raise ValueError("image-to-image requires a VAE")
+                    if not 0.0 < strength <= 1.0:
+                        raise ValueError(f"strength must be in (0, 1], got {strength}")
+                    n = num_inference_steps
+                    start_step = n - max(1, min(n, int(round(strength * n))))
+                    t0 = schedule_start_time(settings, lh, lw, start_step)
+                    # checked on every path, whether or not the encode runs
+                    x = _preprocess_image(image, height, width)
+                    if x.shape[0] not in (1, batch):
+                        raise ValueError(f"got {x.shape[0]} images for batch {batch}")
+                    if t0 >= 1.0 and mask_image is None:
+                        # the image would be multiplied by exactly zero
+                        latents = torch.randn(lat_shape, generator=generator,
+                                              device=device, dtype=dtype)
+                    else:
+                        lat = normalize_latents(
+                            self._encode_image_latents(torch.from_numpy(x).to(device)).float(),
+                            self.vae.config)
+                        lat = lat.expand(batch, *lat.shape[1:])  # one image for all
+                        if tuple(lat.shape) != lat_shape:
+                            raise ValueError(f"encoded image latents {tuple(lat.shape)} "
+                                             f"!= {lat_shape}")
+                        noise = torch.randn(lat_shape, generator=generator, device=device)
+                        latents = ((1.0 - t0) * lat + t0 * noise).to(dtype)
+                        if mask_image is not None:
+                            m = torch.from_numpy(_preprocess_mask(mask_image, lh, lw, batch))
+                            step_noise = torch.randn((n - start_step, *lat_shape),
+                                                     generator=generator, device=device)
+                            inpaint = (lat, m.to(device), step_noise)
+                elif latents is None:
+                    latents = torch.randn(lat_shape, generator=generator, device=device,
+                                          dtype=dtype)
+                else:
+                    latents = torch.as_tensor(latents, device=device)
+                if steps_per_dispatch is None:
+                    steps_per_dispatch = auto_steps_per_dispatch(
+                        batch, num_inference_steps, lh * lw)
 
-        final = denoise(
-            self.dit, latents,
-            torch.from_numpy(embeds).to(device=device, dtype=dtype),
-            torch.from_numpy(neg).to(device=device, dtype=dtype),
-            torch.from_numpy(mask).to(device),
-            settings,
-            negative_mask=torch.from_numpy(neg_mask).to(device),
-            start_step=start_step, inpaint=inpaint,
-            steps_per_dispatch=steps_per_dispatch, callback=callback,
-        )
-        if return_latents:
-            return FLitePipelineOutput(images=final.cpu())
-        if output_type == "latent":
-            return FLitePipelineOutput(images=final)
+                embeds = torch.from_numpy(embeds).to(device=device, dtype=dtype)
+                neg = torch.from_numpy(neg).to(device=device, dtype=dtype)
+                mask = torch.from_numpy(mask).to(device)
+                neg_mask = torch.from_numpy(neg_mask).to(device)
+            with span("pipeline.denoise"):
+                final = denoise(
+                    self.dit, latents, embeds, neg, mask, settings,
+                    negative_mask=neg_mask, start_step=start_step, inpaint=inpaint,
+                    steps_per_dispatch=steps_per_dispatch, callback=callback,
+                )
+            del embeds, neg, mask, neg_mask  # the context, freed before the decode
+            if return_latents:
+                with span("pipeline.return"):
+                    return FLitePipelineOutput(images=final.cpu())
+            if output_type == "latent":
+                return FLitePipelineOutput(images=final)
 
-        decoded = self._decode(final)
-        if output_type == "np":
-            return FLitePipelineOutput(images=decoded.float().cpu().numpy())
-        u8 = to_uint8(decoded).cpu().numpy()
-        if output_type == "uint8":
-            return FLitePipelineOutput(images=u8)
-        from PIL import Image as PILImage
+            with span("pipeline.decode"):
+                decoded = self._decode(final)
+            with span("pipeline.return"):
+                if output_type == "np":
+                    return FLitePipelineOutput(images=decoded.float().cpu().numpy())
+                u8 = to_uint8(decoded).cpu().numpy()
+                if output_type == "uint8":
+                    return FLitePipelineOutput(images=u8)
+                from PIL import Image as PILImage
 
-        return FLitePipelineOutput(images=[PILImage.fromarray(a) for a in u8])
+                return FLitePipelineOutput(images=[PILImage.fromarray(a) for a in u8])

@@ -33,6 +33,7 @@ import torch
 
 from f_lite_tpu_torch.ops.guidance import APGConfig, guidance_combine
 from f_lite_tpu_torch.ops.timesteps import euler_timestep_pairs, resolution_alpha
+from f_lite_tpu_torch.utils.trace import span
 
 SAMPLERS = ("euler", "ab2")
 
@@ -101,7 +102,9 @@ def denoise_schedule(dit: Callable, latents, prompt_embeds, negative_embeds,
     h_prev == 0) starts without history.
 
     `inpaint` = (x_lat (B,h,w,C) fp32, mask (B,h,w,1) fp32, noise (N,B,h,w,C)
-    fp32): row i puts the kept region back with noise[i]."""
+    fp32): row i puts the kept region back with noise[i].
+
+    Each row run is span `sample.step` (index: the row of this slice)."""
     b = latents.shape[0]
     ab2 = settings.method == "ab2"
     do_cfg = settings.guidance_scale >= 1.0
@@ -132,18 +135,19 @@ def denoise_schedule(dit: Callable, latents, prompt_embeds, negative_embeds,
             h_prev = zero
             if not t > t_next:
                 continue  # a zero-dt row changes nothing
-        dt = t - t_next
-        v = velocity(z, t)
-        if ab2 and h_prev > 0:
-            v_eff = v + (dt / (2.0 * h_prev)) * (v - v_prev)
-        else:
-            v_eff = v
-        z_new = z + dt * v_eff
-        if inpaint is not None:
-            x_lat, mask, noise = inpaint
-            known = (1.0 - t_next) * x_lat + t_next * noise[i]
-            z_new = mask * z_new + (1.0 - mask) * known
-        z, v_prev, h_prev = z_new, v, dt
+        with span("sample.step", index=i):
+            dt = t - t_next
+            v = velocity(z, t)
+            if ab2 and h_prev > 0:
+                v_eff = v + (dt / (2.0 * h_prev)) * (v - v_prev)
+            else:
+                v_eff = v
+            z_new = z + dt * v_eff
+            if inpaint is not None:
+                x_lat, mask, noise = inpaint
+                known = (1.0 - t_next) * x_lat + t_next * noise[i]
+                z_new = mask * z_new + (1.0 - mask) * known
+            z, v_prev, h_prev = z_new, v, dt
     return z, (v_prev, h_prev)
 
 

@@ -511,9 +511,13 @@ def _row_latents(pipe, seeds, height, width):
 
 class ServerMetrics:
     """Prometheus-text-format counters for the HTTP endpoint: requests by
-    endpoint and status, images, device seconds, calls, rows a call and a
-    p50/p95 window of the call time. The JAX server's compile-cache gauges
-    have no counterpart: the port compiles nothing per shape."""
+    endpoint and status, images, calls, rows a call, the calls' seconds by
+    the host clock (`f_lite_generate_seconds_total`, and a p50/p95 window
+    of them) and on the card (`f_lite_device_seconds_total`, CUDA events:
+    `_device_timed`), and the batcher's queue wait
+    (`f_lite_queue_seconds_total`, enqueue to dispatch). The JAX server's
+    compile-cache gauges have no counterpart: the port compiles nothing
+    per shape."""
 
     def __init__(self):
         import collections
@@ -521,7 +525,9 @@ class ServerMetrics:
 
         self._lock = threading.Lock()
         self.requests = {}  # (endpoint, status) -> count
+        self.generate_seconds = 0.0
         self.device_seconds = 0.0
+        self.queue_seconds = 0.0
         self.images = 0
         self.batch_rows = 0
         self.dispatch_count = 0
@@ -532,13 +538,20 @@ class ServerMetrics:
             k = (endpoint, str(status))
             self.requests[k] = self.requests.get(k, 0) + 1
 
-    def record_dispatch(self, device_s: float, rows: int):
-        """Once per pipeline call."""
+    def record_dispatch(self, generate_s: float, device_s: float | None, rows: int):
+        """Once per pipeline call: its host seconds, its device seconds
+        (None off the card) and its rows."""
         with self._lock:
-            self.device_seconds += device_s
+            self.generate_seconds += generate_s
+            self.device_seconds += device_s or 0.0
             self.batch_rows += rows
             self.dispatch_count += 1
-            self._latency.append(device_s)
+            self._latency.append(generate_s)
+
+    def record_queue(self, wait_s: float):
+        """Seconds requests waited in the batcher's queue."""
+        with self._lock:
+            self.queue_seconds += wait_s
 
     def record_image(self):
         with self._lock:
@@ -555,8 +568,12 @@ class ServerMetrics:
             lines += [
                 "# TYPE f_lite_images_total counter",
                 f"f_lite_images_total {self.images}",
+                "# TYPE f_lite_generate_seconds_total counter",
+                f"f_lite_generate_seconds_total {self.generate_seconds:.3f}",
                 "# TYPE f_lite_device_seconds_total counter",
                 f"f_lite_device_seconds_total {self.device_seconds:.3f}",
+                "# TYPE f_lite_queue_seconds_total counter",
+                f"f_lite_queue_seconds_total {self.queue_seconds:.3f}",
                 "# TYPE f_lite_dispatches_total counter",
                 f"f_lite_dispatches_total {self.dispatch_count}",
                 "# TYPE f_lite_batch_rows_avg gauge",
@@ -662,17 +679,33 @@ class RankGroup:
             dist.broadcast_object_list([("stop", None)], src=0, group=self.group)
 
 
+def _device_timed(pipe, fn):
+    """(fn(), its device seconds): CUDA events recorded on the current
+    stream before and after the call, read once the call's own copy back
+    to the host has waited for its work (None off the card)."""
+    import torch
+
+    if pipe.device.type != "cuda":
+        return fn(), None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()  # the stream has drained at the copy back
+    return out, start.elapsed_time(end) / 1e3
+
+
 def _dispatch(pipe, args, kind: str, payload, dp_index: int):
     """What every rank runs for a `RankGroup` dispatch: "generate" (one
-    request at dp 1: its image), "rows" (a batcher's dp rows: this dp
-    group's row, as a stamped PNG and its seconds) or "warm" (a warm-up
-    by embeddings)."""
+    request at dp 1: its image and device seconds), "rows" (a batcher's dp
+    rows: this dp group's row, as a stamped PNG, its seconds and device
+    seconds) or "warm" (a warm-up by embeddings)."""
     if kind == "generate":
-        return _serve_generate(pipe, args, payload).images[0]
+        return _device_timed(pipe, lambda: _serve_generate(pipe, args, payload).images[0])
     if kind == "rows":
         key, reqs = payload
-        pngs, dt = _generate_rows(pipe, args, key, reqs[dp_index:dp_index + 1])
-        return pngs[0], dt
+        pngs, dt, device_s = _generate_rows(pipe, args, key, reqs[dp_index:dp_index + 1])
+        return pngs[0], dt, device_s
     if kind == "warm":
         return _warm_by_embeds(pipe, args, *payload)
     raise ValueError(f"unknown dispatch {kind!r}")
@@ -681,28 +714,32 @@ def _dispatch(pipe, args, kind: str, payload, dp_index: int):
 def _generate_rows(pipe, args, key, reqs: list[dict]):
     """Requests of one shape key as one pipeline call, each row with its
     own latents (drawn as its solo call draws them): (their stamped PNGs,
-    the call's seconds)."""
+    the call's seconds, its device seconds)."""
     from f_lite_tpu_torch.utils.image import png_bytes_with_metadata
 
     width, height, steps, sampler, g = key
+
+    def call():
+        embeds, mask, nemb, nmask = _encode_rows(
+            pipe, [r["prompt"] for r in reqs], [r["negative_prompt"] for r in reqs])
+        return pipe(
+            prompt_embeds=embeds, negative_embeds=nemb,
+            context_mask=mask, negative_context_mask=nmask,
+            latents=_row_latents(pipe, [r["seed"] for r in reqs], height, width),
+            height=height, width=width, num_inference_steps=steps,
+            guidance_scale=g, guidance_interval=args.guidance_interval,
+            steps_per_dispatch=args.steps_per_dispatch, sampler=sampler,
+            pad_context_to=args.text_bucket or None,
+        )
+
     # timed: text encode, latents, denoise and decode, the work the
     # one-GPU path times inside its lock
     t0 = time.perf_counter()
-    embeds, mask, nemb, nmask = _encode_rows(
-        pipe, [r["prompt"] for r in reqs], [r["negative_prompt"] for r in reqs])
-    out = pipe(
-        prompt_embeds=embeds, negative_embeds=nemb,
-        context_mask=mask, negative_context_mask=nmask,
-        latents=_row_latents(pipe, [r["seed"] for r in reqs], height, width),
-        height=height, width=width, num_inference_steps=steps,
-        guidance_scale=g, guidance_interval=args.guidance_interval,
-        steps_per_dispatch=args.steps_per_dispatch, sampler=sampler,
-        pad_context_to=args.text_bucket or None,
-    )
+    out, device_s = _device_timed(pipe, call)
     dt = time.perf_counter() - t0
     # no batch_size / batch_index stamp: each row reproduces alone
     return [png_bytes_with_metadata(img, _request_metadata(r, args))
-            for img, r in zip(out.images, reqs)], dt
+            for img, r in zip(out.images, reqs)], dt, device_s
 
 
 class RequestBatcher:
@@ -716,7 +753,8 @@ class RequestBatcher:
     across the ranks (`RankGroup`), each dp group denoising its row. Each
     row's latents are drawn as a batch-1 call with its seed draws them,
     so a row is its request's solo image. FIFO head-of-line: other keys
-    wait their turn."""
+    wait their turn. The seconds each request waited from its enqueue to
+    its dispatch go to the server's `record_queue`."""
 
     def __init__(self, pipe, args, group, max_batch: int, window_s: float):
         import threading
@@ -725,7 +763,7 @@ class RequestBatcher:
         self.max_batch, self.window = max_batch, window_s
         self.metrics = None  # the server's ServerMetrics, where it has one
         self._cv = threading.Condition()
-        self._q: list = []  # (key, request, Future)
+        self._q: list = []  # (key, request, Future, enqueue time)
         self._stop = False
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="f-lite-batcher")
@@ -750,7 +788,7 @@ class RequestBatcher:
         with self._cv:
             if self._stop:
                 raise RuntimeError("batcher stopped")
-            self._q.append((self._key(r), r, f))
+            self._q.append((self._key(r), r, f, time.monotonic()))
             self._cv.notify_all()
         return f
 
@@ -767,7 +805,7 @@ class RequestBatcher:
                     self._cv.wait()
                 if self._stop:
                     err = RuntimeError("server shutting down")
-                    for _, _, f in self._q:
+                    for _, _, f, _ in self._q:
                         f.set_exception(err)
                     self._q.clear()
                     return
@@ -775,7 +813,7 @@ class RequestBatcher:
                 deadline = time.monotonic() + self.window
 
                 def matching():
-                    return [i for i, (k, _, _) in enumerate(self._q) if k == key]
+                    return [i for i, (k, _, _, _) in enumerate(self._q) if k == key]
 
                 while len(matching()) < self.max_batch and not self._stop:
                     left = deadline - time.monotonic()
@@ -788,18 +826,23 @@ class RequestBatcher:
                 batch = [self._q[i] for i in idxs]
                 for i in reversed(idxs):
                     del self._q[i]
+            if self.metrics is not None:
+                now = time.monotonic()
+                self.metrics.record_queue(sum(now - t for _, _, _, t in batch))
             try:
-                reqs = [r for _, r, _ in batch]
+                reqs = [r for _, r, _, _ in batch]
                 rows = reqs + [reqs[-1]] * (self.max_batch - len(reqs))
                 answers = self.group.call("rows", (key, rows))
                 dt = max(a[1] for a in answers)
+                # card-seconds: the device seconds of each dp group's leader
+                device_s = sum(a[2] for a in answers if a[2] is not None)
                 if self.metrics is not None:
-                    self.metrics.record_dispatch(dt, len(batch))
-                for (_, _, f), (png, _) in zip(batch, answers):
+                    self.metrics.record_dispatch(dt, device_s, len(batch))
+                for (_, _, f, _), (png, _, _) in zip(batch, answers):
                     f.set_result((png, dt, len(batch)))
             except Exception as e:  # to every waiter; the loop serves on
                 logger.exception("batched generation failed")
-                for _, _, f in batch:
+                for _, _, f, _ in batch:
                     if not f.done():
                         f.set_exception(e)
 
@@ -1038,12 +1081,13 @@ def make_http_server(pipe, args, host="127.0.0.1", port=0, batcher=None,
                     png, dt, rows = batcher.submit(r).result()
                 else:
                     with device_lock:
-                        # timed inside the lock: device time, not queue wait
+                        # timed inside the lock: the call, not the queue
                         t0 = time.perf_counter()
-                        image = (_serve_generate(pipe, args, r).images[0]
-                                 if group is None else group.call("generate", r)[0])
+                        image, device_s = (
+                            _device_timed(pipe, lambda: _serve_generate(pipe, args, r).images[0])
+                            if group is None else group.call("generate", r)[0])
                         dt = time.perf_counter() - t0
-                    metrics.record_dispatch(dt, 1)
+                    metrics.record_dispatch(dt, device_s, 1)
                     png = png_bytes_with_metadata(image, _request_metadata(r, args))
             except KeyError as e:
                 if precomputed_te is not None:

@@ -41,6 +41,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from f_lite_tpu_torch.parallel.sharding import copy_full_, local
+from f_lite_tpu_torch.utils.trace import span
 
 _F32 = np.float32
 
@@ -172,36 +173,40 @@ class AdamW:
     def step(self, grads) -> torch.Tensor:
         """Clip `grads` (one per parameter) and apply one AdamW update.
         Returns the global gradient norm before clipping (a device
-        scalar; nothing here waits for the device)."""
+        scalar; nothing here waits for the device). Spans `optim.norm`,
+        `optim.clip` and `optim.update`."""
         grads = list(grads)
-        norm = global_norm(grads, self.norm_group)
+        with span("optim.norm"):
+            norm = global_norm(grads, self.norm_group)
         grads = [local(g) for g in grads]
         if self.max_grad_norm is not None:
-            factor = torch.where(norm < self.max_grad_norm,
-                                 torch.ones_like(norm),
-                                 self.max_grad_norm / norm)
-            grads = torch._foreach_mul(grads, factor)
-        lr = self.schedule(self.count)
-        self.count += 1
-        b1, b2 = self.b1, self.b2
-        bc1 = float(_F32(1) - _F32(b1) ** _F32(self.count))
-        bc2 = float(_F32(1) - _F32(b2) ** _F32(self.count))
-        for p, g, mu, nu in zip(map(local, self.params), grads,
-                                map(local, self.mu), map(local, self.nu)):
-            if mu.dtype == g.dtype:
-                mu.mul_(b1).add_(g, alpha=1 - b1)
-                mu_new = mu
-            else:
-                # low-precision mu: optax multiplies it by b1 rounded to
-                # mu's dtype, in mu's dtype, then adds in fp32
-                b1_low = float(torch.tensor(b1, dtype=mu.dtype))
-                mu_new = (1 - b1) * g + (b1_low * mu).to(g.dtype)
-            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-            update = (mu_new / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
-            update.add_(p, alpha=self.weight_decay)
-            p.add_(update, alpha=-lr)
-            if mu_new is not mu:
-                mu.copy_(mu_new)
+            with span("optim.clip"):
+                factor = torch.where(norm < self.max_grad_norm,
+                                     torch.ones_like(norm),
+                                     self.max_grad_norm / norm)
+                grads = torch._foreach_mul(grads, factor)
+        with span("optim.update"):
+            lr = self.schedule(self.count)
+            self.count += 1
+            b1, b2 = self.b1, self.b2
+            bc1 = float(_F32(1) - _F32(b1) ** _F32(self.count))
+            bc2 = float(_F32(1) - _F32(b2) ** _F32(self.count))
+            for p, g, mu, nu in zip(map(local, self.params), grads,
+                                    map(local, self.mu), map(local, self.nu)):
+                if mu.dtype == g.dtype:
+                    mu.mul_(b1).add_(g, alpha=1 - b1)
+                    mu_new = mu
+                else:
+                    # low-precision mu: optax multiplies it by b1 rounded to
+                    # mu's dtype, in mu's dtype, then adds in fp32
+                    b1_low = float(torch.tensor(b1, dtype=mu.dtype))
+                    mu_new = (1 - b1) * g + (b1_low * mu).to(g.dtype)
+                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+                update = (mu_new / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+                update.add_(p, alpha=self.weight_decay)
+                p.add_(update, alpha=-lr)
+                if mu_new is not mu:
+                    mu.copy_(mu_new)
         return norm
 
     def state_dict(self) -> dict:
@@ -241,11 +246,14 @@ class Accumulate:
 
     @torch.no_grad()
     def step(self, grads) -> torch.Tensor:
+        """Spans `optim.norm` and `optim.accumulate`; `opt`'s on the k-th call."""
         grads = list(grads)
-        norm = global_norm(grads, self.norm_group)
+        with span("optim.norm"):
+            norm = global_norm(grads, self.norm_group)
         n = self.mini_step
-        for acc, g in zip(map(local, self.acc), map(local, grads)):
-            acc.add_((g - acc) / (n + 1))
+        with span("optim.accumulate"):
+            for acc, g in zip(map(local, self.acc), map(local, grads)):
+                acc.add_((g - acc) / (n + 1))
         self.mini_step = (n + 1) % self.k
         if self.mini_step == 0:
             self.opt.step(self.acc)

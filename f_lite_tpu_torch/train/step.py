@@ -39,6 +39,7 @@ import torch.distributed as dist
 from f_lite_tpu_torch.parallel.pipeline import PipelinedDiT
 from f_lite_tpu_torch.train.loss import flow_matching_loss, pipelined_flow_matching_loss
 from f_lite_tpu_torch.train.optim import Accumulate, AdamW, global_norm
+from f_lite_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -62,57 +63,64 @@ def train_step(state: TrainState, latents, context, context_mask, *,
     docstring); without it nothing waits for the device. With `world` > 1
     data replicas (every rank of the default group calls this; `group`:
     this rank's replicas, None for the default group) `weight_sum` is the
-    global batch's weight sum (its row count without `sample_weight`)."""
-    model, opt = state.model, state.optimizer
-    n = state.step + 1
-    if world > 1 and weight_sum is None:
-        raise ValueError("a step across ranks needs the global batch's weight_sum")
-    for p in opt.params:
-        p.grad = None
-    pipelined = isinstance(model, PipelinedDiT)
-    anomaly = (torch.autograd.detect_anomaly() if debug_nans and world == 1
-               and not pipelined else contextlib.nullcontext())
-    with anomaly:
-        if pipelined:  # the backward runs inside the schedule
-            loss, aux = pipelined_flow_matching_loss(
-                model, latents, context, context_mask, draws=draws,
-                patch_size=patch_size, sample_weight=sample_weight,
-                weight_sum=weight_sum if world > 1 else None, grad_scale=world)
-        else:
-            loss, aux = flow_matching_loss(
-                model, latents, context, context_mask, generator=generator,
-                uncond_prob=uncond_prob, patch_size=patch_size,
-                token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
-                timesteps=timesteps, noise=noise, token_indices=token_indices,
-                draws=draws, weight_sum=weight_sum if world > 1 else None,
-            )
-        metrics = {"loss": loss.detach(), "bin_sums": aux.bin_sums,
-                   "bin_counts": aux.bin_counts}
-        if world > 1:
-            packed = torch.cat([loss.detach().reshape(1), aux.bin_sums,
-                                aux.bin_counts])
-            dist.all_reduce(packed, group=group)
-            metrics = {"loss": packed[0], "bin_sums": packed[1:11],
-                       "bin_counts": packed[11:]}
-            loss = loss * world
+    global batch's weight sum (its row count without `sample_weight`).
+
+    Spans: `train.step`, and in it `train.loss` (the forward and the loss;
+    under pipeline parallelism the whole schedule) and `train.backward`;
+    the optimizer's own (`optim.*`)."""
+    with span("train.step"):
+        model, opt = state.model, state.optimizer
+        n = state.step + 1
+        if world > 1 and weight_sum is None:
+            raise ValueError("a step across ranks needs the global batch's weight_sum")
+        for p in opt.params:
+            p.grad = None
+        pipelined = isinstance(model, PipelinedDiT)
+        anomaly = (torch.autograd.detect_anomaly() if debug_nans and world == 1
+                   and not pipelined else contextlib.nullcontext())
+        with anomaly:
+            with span("train.loss"):
+                if pipelined:  # the backward runs inside the schedule
+                    loss, aux = pipelined_flow_matching_loss(
+                        model, latents, context, context_mask, draws=draws,
+                        patch_size=patch_size, sample_weight=sample_weight,
+                        weight_sum=weight_sum if world > 1 else None, grad_scale=world)
+                else:
+                    loss, aux = flow_matching_loss(
+                        model, latents, context, context_mask, generator=generator,
+                        uncond_prob=uncond_prob, patch_size=patch_size,
+                        token_keep_ratio=token_keep_ratio, sample_weight=sample_weight,
+                        timesteps=timesteps, noise=noise, token_indices=token_indices,
+                        draws=draws, weight_sum=weight_sum if world > 1 else None,
+                    )
+            metrics = {"loss": loss.detach(), "bin_sums": aux.bin_sums,
+                       "bin_counts": aux.bin_counts}
+            if world > 1:
+                packed = torch.cat([loss.detach().reshape(1), aux.bin_sums,
+                                    aux.bin_counts])
+                dist.all_reduce(packed, group=group)
+                metrics = {"loss": packed[0], "bin_sums": packed[1:11],
+                           "bin_counts": packed[11:]}
+                loss = loss * world
+            if debug_nans:
+                _check_finite(metrics["loss"], "loss", n)
+            if not pipelined:
+                try:
+                    with span("train.backward"):
+                        loss.backward()
+                except RuntimeError as e:
+                    if debug_nans and "nan values" in str(e):
+                        raise FloatingPointError(f"--debug_nans: step {n}: {e}") from e
+                    raise
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in opt.params]
         if debug_nans:
-            _check_finite(metrics["loss"], "loss", n)
-        if not pipelined:
-            try:
-                loss.backward()
-            except RuntimeError as e:
-                if debug_nans and "nan values" in str(e):
-                    raise FloatingPointError(f"--debug_nans: step {n}: {e}") from e
-                raise
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in opt.params]
-    if debug_nans:
-        _check_finite(global_norm(grads, opt.norm_group), "gradient norm", n)
-    grad_norm = opt.step(grads)
-    for p in opt.params:
-        p.grad = None
-    state.step += 1
-    return {**metrics, "grad_norm": grad_norm}
+            _check_finite(global_norm(grads, opt.norm_group), "gradient norm", n)
+        grad_norm = opt.step(grads)
+        for p in opt.params:
+            p.grad = None
+        state.step += 1
+        return {**metrics, "grad_norm": grad_norm}
 
 
 def _check_finite(value: torch.Tensor, what: str, step: int) -> None:

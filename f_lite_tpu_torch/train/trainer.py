@@ -33,7 +33,8 @@ Ported:
   imported where it is used), `--val_data_path` with `--eval_every` and
   `--eval_batch_size`, `--sample_every` with `--sample_prompts_file`
   (`samples/step_N.png`, from the EMA where it is on), `--profile_steps
-  a,b` (a torch.profiler trace under `{output_dir}/profile/`) and
+  a,b` (a torch.profiler trace under `{output_dir}/profile/`, the
+  program's spans a track of it) and
   `--debug_nans` (the step under `torch.autograd.detect_anomaly()`, a
   FloatingPointError at the first loss or gradient norm that is not
   finite, before the update).
@@ -95,6 +96,7 @@ as in the JAX trainer. The run is on the card (`--device cuda`) unless
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import random
@@ -114,6 +116,7 @@ from f_lite_tpu_torch.parallel.mesh import (
     under_torchrun,
 )
 from f_lite_tpu_torch.parallel.sharding import load_full_state_dict, local
+from f_lite_tpu_torch.utils import trace
 
 logger = logging.getLogger("f_lite_tpu_torch.train")
 
@@ -831,21 +834,6 @@ def evaluate(model, val_dl, vae, text_encoder, *, global_step: int, seed: int,
     return total / count if count else None
 
 
-def _timed(iterable, clock: dict):
-    """`iterable`'s items; the time spent waiting for each is added to
-    clock["s"]."""
-    it = iter(iterable)
-    while True:
-        t = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
-            return
-        finally:
-            clock["s"] += time.perf_counter() - t
-        yield item
-
-
 def state_tensors(trained: dict, opt) -> dict:
     """The checkpoint's tensors: the trained tensors and the optimizer's
     moments (and accumulator) under the trained tensors' names."""
@@ -887,29 +875,39 @@ def ema_update(ema: dict, trained: dict, decay: float) -> None:
         e.copy_((e.float() * decay + p.float() * (1.0 - decay)).to(e.dtype))
 
 
-def _start_profile(device):
-    """A running torch.profiler session (CPU, and CUDA on the card)."""
+def _start_profile(device, cleanup: contextlib.ExitStack):
+    """A running torch.profiler session (CPU, and CUDA on the card) and a
+    span recording beside it, both closed by `cleanup` where the run ends
+    by an error before `_stop_profile`: (profiler, Recording, their
+    ExitStack)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.__enter__()
-    return prof
+    session = contextlib.ExitStack()
+    prof = session.enter_context(profile(activities=activities))
+    rec = session.enter_context(trace.recording())
+    cleanup.push(session)
+    return prof, rec, session
 
 
-def _stop_profile(prof, device, out_dir: Path, steps, rank=None) -> Path:
-    """End `prof` once the device is idle and write its Chrome trace to
+def _stop_profile(session, device, out_dir: Path, steps, rank=None) -> Path:
+    """End the profile once the device is idle and write its Chrome trace,
+    with the program's spans as a track of their own, to
     `out_dir/steps_{a}_{b}.json` (`steps_{a}_{b}_rank{r}.json` across
     ranks)."""
+    prof, rec, stack = session
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    prof.__exit__(None, None, None)
+    stack.close()
     out_dir.mkdir(parents=True, exist_ok=True)
     suffix = "" if rank is None else f"_rank{rank}"
     path = out_dir / f"steps_{steps[0]}_{steps[1]}{suffix}.json"
     prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    doc["traceEvents"] += trace.chrome_events(rec, doc.get("baseTimeNanoseconds", 0))
+    path.write_text(json.dumps(doc))
     logger.info("profile of steps %d-%d written to %s", steps[0] + 1, steps[1], path)
     return path
 
@@ -920,10 +918,9 @@ def device_stats(device) -> dict:
     CPU)."""
     if device.type != "cuda":
         return {}
-    from f_lite_tpu_torch.ops.cuda import flash_attention as fa
-
-    return {"launches": {"fwd": fa.LAUNCHES.count, "dq": fa.DQ_LAUNCHES.count,
-                         "dkv": fa.DKV_LAUNCHES.count},
+    launches = {key: trace.counter(name).count for key, name in
+                (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv"))}
+    return {"launches": launches,
             "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
 
 
@@ -974,13 +971,14 @@ def train(args, on_step=None) -> dict:
     try:
         if under_torchrun() and device.type == "cuda":
             device = torch.device("cuda", ranks[3])
-        return _train(args, on_step, device, ranks, t_start)
+        with contextlib.ExitStack() as cleanup:
+            return _train(args, on_step, device, ranks, t_start, cleanup)
     finally:
         if owned and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _train(args, on_step, device, ranks, t_start) -> dict:
+def _train(args, on_step, device, ranks, t_start, cleanup) -> dict:
     from f_lite_tpu_torch.data.precomputed import create_precomputed_data_loader
     from f_lite_tpu_torch.models.dit import DiT
     from f_lite_tpu_torch.models.vae import IdentityVAE
@@ -1230,7 +1228,8 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
     prof = None
     bin_sums = torch.zeros(10, device=device)
     bin_counts = torch.zeros(10, device=device)
-    loader_wait = {"s": 0.0}
+    loader_wait = trace.counter("train.loader_wait")
+    waited = loader_wait.count
     result: dict = {}
     stop = False
     # resume continues inside the saved epoch (the sampler's state)
@@ -1243,11 +1242,11 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
         if hasattr(dl.dataset, "set_epoch"):  # fresh flips and caption picks
             dl.dataset.set_epoch(epoch)
         epoch_start = time.time()
-        for batch in _timed(dl, loader_wait):
+        for batch in trace.waits(dl, "train.loader_wait"):
             if epoch_step >= epoch_batches:  # every rank takes as many steps
                 break
             if profile_range and global_step == profile_range[0]:
-                prof = _start_profile(device)
+                prof = _start_profile(device, cleanup)
             rows, lo, n_global = rank_rows(
                 len(batch["caption"]), world=world, rank=rank,
                 local_world=local_world, multiplicity=args.batch_multiplicity, tp=tp,
@@ -1366,7 +1365,7 @@ def _train(args, on_step, device, ranks, t_start) -> dict:
 
     final_dir = save(global_step)
     result["checkpoints"] = ckpt.timings
-    result["loader_wait_s"] = loader_wait["s"]
+    result["loader_wait_s"] = loader_wait.count - waited
     if lora is not None:
         factors = full_state_dict(flatten_lora(lora))
         if rank == 0:

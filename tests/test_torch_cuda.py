@@ -2,7 +2,8 @@
 dq, dkv, the lab's variants, the int8 quantize and product) against their
 plain versions, and the DiT's gradients, a training step, the pipeline
 (bf16 and int8) and the T5 and Qwen2 text stacks (bf16) on the card against
-the same code on the CPU. They skip
+the same code on the CPU, and the port's spans on the profiler's clock and
+`serve`'s device seconds. They skip
 without a card. This file imports no JAX, so it also runs
 on a GPU host without it:
 
@@ -10,6 +11,7 @@ on a GPU host without it:
 """
 
 import dataclasses
+import time
 from pathlib import Path
 
 import numpy as np
@@ -21,12 +23,14 @@ from f_lite_tpu_torch.ops.cuda import flash_attention as tfa
 from f_lite_tpu_torch.ops.cuda import flash_variants as tfv
 from f_lite_tpu_torch.ops.cuda import int8_gemm as tig
 from f_lite_tpu_torch.pipeline import FLitePipeline
+from f_lite_tpu_torch.serve import _device_timed
 from f_lite_tpu_torch.quant import quantize_weight
 from f_lite_tpu_torch.tools import int8_tiles
 from f_lite_tpu_torch.text import qwen2, t5
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 from f_lite_tpu_torch.train.optim import build_optimizer
 from f_lite_tpu_torch.train.step import TrainState, train_step
+from f_lite_tpu_torch.utils import trace
 from f_lite_tpu_torch.utils.random_weights import randomize_
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -532,6 +536,51 @@ def test_fixture_pipeline_on_the_card_matches_the_cpu(cuda_device):
                                          device="cpu")(**kw).images
     got = FLitePipeline.from_pretrained(FIXTURE, dtype=torch.float32)(**kw).images
     assert float(((got - want) ** 2).mean()) < 1e-8
+
+
+@pytest.mark.cuda
+def test_spans_hold_their_launches_on_the_profiler_clock(cuda_device):
+    """A span around one kernel launch holds that launch's runtime event on
+    the clock of torch.profiler's trace (the device activity alone): each
+    kernel's launch, found by its correlation id, lies inside the span that
+    issued it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = (torch.randn(1 << 16, device=cuda_device) for _ in range(2))
+    for _ in range(5):
+        a + b
+    torch.cuda.synchronize()
+    with trace.recording() as rec:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(50):
+                with trace.span("probe", index=i):
+                    a + b
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != cuda and e.name().startswith("cu")}
+    kernels = sorted((e.start_ns(), e.correlation_id()) for e in events
+                     if e.device_type() == cuda)
+    spans = sorted(rec.spans, key=lambda s: s.start_ns)
+    assert len(kernels) == len(spans) == 50
+    for i, (s, (_, corr)) in enumerate(zip(spans, kernels)):
+        assert s.attrs["index"] == i
+        assert s.start_ns <= launches[corr] <= s.end_ns
+
+
+@pytest.mark.cuda
+def test_device_seconds_of_a_dispatch(cuda_device):
+    """`serve`'s device seconds: CUDA events around the call, no more than
+    the host clock around it."""
+    pipe = FLitePipeline.from_pretrained(FIXTURE, dtype=torch.float32)
+    embeds, mask = ZeroTextEncoder(64, seq_len=32).encode(["a red circle"])
+    t0 = time.perf_counter()
+    images, device_s = _device_timed(pipe, lambda: pipe(
+        prompt_embeds=embeds, context_mask=mask, height=64, width=64,
+        num_inference_steps=3).images)
+    host_s = time.perf_counter() - t0
+    assert images.shape == (1, 64, 64, 3) and 0 < device_s <= host_s
 
 
 # (N, K) of the int8 paths' projections: the 7B's qkv, proj and q, gate and

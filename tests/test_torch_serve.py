@@ -408,8 +408,42 @@ def test_metrics_counts_what_was_sent(http_args):
     assert lines['f_lite_requests_total{endpoint="generate",status="200"}'] == "3"
     assert lines['f_lite_requests_total{endpoint="generate",status="400"}'] == "1"
     assert lines["f_lite_images_total"] == "3"
+    # the host clock's sum; device seconds only from CUDA events (none on the
+    # CPU); no batcher, so no queue wait
+    assert float(lines["f_lite_generate_seconds_total"]) > 0
+    assert lines["f_lite_device_seconds_total"] == "0.000"
+    assert lines["f_lite_queue_seconds_total"] == "0.000"
     assert lines["f_lite_dispatches_total"] == "3"
     assert float(lines["f_lite_batch_rows_avg"]) == 1.0
+
+
+def test_batcher_counts_queue_wait_and_the_leaders_device_seconds():
+    """The batcher's queue counter runs from enqueue to dispatch, and a
+    dispatch's device seconds sum its dp groups' leaders' (a stand-in
+    group answers for the ranks)."""
+    calls = []
+
+    class Group:
+        def call(self, kind, payload):
+            calls.append((kind, len(payload[1])))
+            return [(b"a", 0.5, 0.25), (b"b", 0.4, 0.125)]
+
+    args = types.SimpleNamespace(dp=2, batch_window_ms=200.0)
+    batcher = tserve.RequestBatcher.from_args(None, args, Group())
+    batcher.metrics = metrics = tserve.ServerMetrics()
+    req = dict(width=16, height=16, steps=2, sampler="euler", guidance_scale=6.0)
+    try:
+        first = batcher.submit(dict(req, prompt="p"))
+        time.sleep(0.05)
+        second = batcher.submit(dict(req, prompt="q"))
+        assert first.result(timeout=30) == (b"a", 0.5, 2)
+        assert second.result(timeout=30) == (b"b", 0.5, 2)
+    finally:
+        batcher.stop()
+    assert calls == [("rows", 2)]
+    assert metrics.generate_seconds == 0.5 and metrics.device_seconds == 0.375
+    assert metrics.queue_seconds >= 0.05  # the first waited for the second
+    assert "f_lite_queue_seconds_total" in metrics.render()
 
 
 def test_unknown_paths_404(server):

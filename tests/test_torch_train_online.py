@@ -253,6 +253,25 @@ def test_online_resume_is_bit_equal_to_the_straight_run(tmp_path):
         assert torch.equal(got[k], want[k]), k
 
 
+def test_an_error_inside_the_profiled_steps_closes_the_profile(tmp_path):
+    """A step that raises between `--profile_steps`' ends leaves no span
+    recording open in the process: the next one opens."""
+    from f_lite_tpu_torch.utils import trace
+
+    def fail(state, metrics):
+        assert trace._recording is not None  # inside the profiled steps
+        raise RuntimeError("step failed")
+
+    table = _write_pngs(tmp_path)
+    with pytest.raises(RuntimeError, match="step failed"):
+        trainer.train(trainer.parse_args(_argv(table, tmp_path / "out", "--profile_steps",
+                                               "0,2", "--sample_every", "0")),
+                      on_step=fail)
+    assert trace._recording is None
+    with trace.recording():
+        pass
+
+
 def test_validation_sampling_and_profile_during_training(tmp_path, caplog, monkeypatch):
     table = _write_pngs(tmp_path)
     (tmp_path / "val").mkdir()
@@ -273,6 +292,11 @@ def test_validation_sampling_and_profile_during_training(tmp_path, caplog, monke
     assert grid.shape == (32 * 2 + 2, 32 * 3 + 4, 3)
     trace = json.loads((tmp_path / "out" / "profile" / "steps_1_2.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans, a track of their own: the profiled step's
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "span"]
+    assert {"train.step", "train.loss", "train.backward", "optim.update"} <= {
+        e["name"] for e in spans}
+    assert {e["pid"] for e in spans} == {"program spans"}
     assert any("dataset=16 images, 4 batches/epoch, max_steps=4" in r.getMessage()
                for r in caplog.records)
 
