@@ -66,6 +66,14 @@ Phases (any failed check raises and the run exits non-zero):
    row's own amax bit-equal to the fused entry, at the row-parallel
    layers' K at tp 2 (the 7B's proj and down, the fixture's), bf16 and
    fp32; timed beside the plain versions, the fused entry and the bound;
+6c. the RMSNorm kernel (`csrc/rms_norm.cu`, forward and backward through
+   `ops/norms.py`) against its plain twins at the 7B's, the 10B's, the
+   QK-norm's, the training cell's and the T5 tower's shapes and at the
+   cross-attention's q and k layouts (`NORM_SHAPES`): y, dx and dw within
+   `rms_norm.excess`, y in the plain path's layout (contiguous where the
+   wrapper copies x), dw bit-repeatable; the dense shapes timed beside
+   the plain path, `F.rms_norm` and the byte bound (CUDA-graph replays
+   over inputs beyond the L2);
 7. serving, the committed trained fixture (`artifacts/fixture_run/
    pipeline`): 4 requests of the 24 shape captions, 64x64 px, 30 steps,
    g=6; both_acc >= 0.95 and exactly 4 * 30 * 12 forward launches;
@@ -348,7 +356,10 @@ Phases (any failed check raises and the run exits non-zero):
    then the
    card line, then the last line `{"ok": true, "device": {...}}`.
 Every path runs with the launch counts set to 0 just before it and read
-just after; a kernel of another path launched there fails the run.
+just after; a kernel of another path launched there fails the run. The
+RMSNorm kernel's counts are checked on every path too: `norm_calls` a DiT
+forward, `train_step_launches` a training step, `tower_norms` a text
+tower's forward.
 Before phase 9 and at the end the card's state is printed (`card_state`:
 power draw, SM clock against its maximum, temperature, the throttle
 reasons and the processes holding memory), so a slow run shows whether
@@ -432,9 +443,10 @@ def reset_counts():
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
     from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+    from f_lite_tpu_torch.ops.cuda import rms_norm as rn
 
     for counter in (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fv.LAUNCHES,
-                    ig.QUANTIZE_LAUNCHES, ig.GEMM_LAUNCHES):
+                    ig.QUANTIZE_LAUNCHES, ig.GEMM_LAUNCHES, rn.LAUNCHES, rn.BWD_LAUNCHES):
         counter.reset()
 
 
@@ -442,16 +454,74 @@ def read_counts() -> dict:
     from f_lite_tpu_torch.ops.cuda import flash_attention as fa
     from f_lite_tpu_torch.ops.cuda import flash_variants as fv
     from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+    from f_lite_tpu_torch.ops.cuda import rms_norm as rn
 
     return dict(fwd=fa.LAUNCHES.count, dq=fa.DQ_LAUNCHES.count,
                 dkv=fa.DKV_LAUNCHES.count, variants=fv.LAUNCHES.count,
-                quantize=ig.QUANTIZE_LAUNCHES.count, gemm=ig.GEMM_LAUNCHES.count)
+                quantize=ig.QUANTIZE_LAUNCHES.count, gemm=ig.GEMM_LAUNCHES.count,
+                rms_norm=rn.LAUNCHES.count, rms_norm_bwd=rn.BWD_LAUNCHES.count)
 
 
-def launches(fwd=0, dq=0, dkv=0, variants=0, quantize=0, gemm=0) -> dict:
+def launches(fwd=0, dq=0, dkv=0, variants=0, quantize=0, gemm=0, rms_norm=0,
+             rms_norm_bwd=0) -> dict:
     """The counts `read_counts` should give."""
     return dict(fwd=fwd, dq=dq, dkv=dkv, variants=variants, quantize=quantize,
-                gemm=gemm)
+                gemm=gemm, rms_norm=rms_norm, rms_norm_bwd=rms_norm_bwd)
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls of one DiT forward of `cfg` (kernel #1's launches):
+    one a block, two in a cross-attention block."""
+    return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
+
+
+def norm_calls(cfg, blocks=None) -> int:
+    """`rms_norm` calls of one DiT forward of `cfg` (kernel #7's forward
+    launches): norm1, norm3 and the self-attention's q and k in every
+    block, norm2 and the cross-attention's q and k besides in a
+    cross-attention block, then the context norm and the head's. `blocks`:
+    those of these block indices alone (a recomputed region)."""
+    if blocks is not None:
+        return sum(4 + 3 * cfg.block_has_cross_attn(i) for i in blocks)
+    return norm_calls(cfg, range(cfg.depth)) + 2
+
+
+def dit_launches(cfg, forwards: int, **int8) -> dict:
+    """What `read_counts` should give after `forwards` DiT forwards of
+    `cfg` without gradients (a denoise step each: the CFG pair is one
+    batch): kernel #1 once an attention, kernel #7 once a norm; `int8`
+    the int8 kernels' counts."""
+    return launches(fwd=forwards * attention_calls(cfg),
+                    rms_norm=forwards * norm_calls(cfg), **int8)
+
+
+def train_step_launches(cfg, lora=False) -> dict:
+    """Launches of one training (micro-)step of a DiT of `cfg`, its blocks
+    from `gradient_checkpoint_from` recomputed where `cfg` checkpoints
+    ("full" or "dots": the norms run again either way): every attention
+    and norm forward once, the recomputed blocks' again in the backward;
+    one dq and one dkv an attention; one norm backward a norm but, under
+    LoRA (everything frozen but the factors), the context norm's and block
+    0's norm1, whose inputs and weights take no gradient."""
+    remat = range(cfg.gradient_checkpoint_from if cfg.gradient_checkpoint else cfg.depth,
+                  cfg.depth)
+    n_attn = attention_calls(cfg)
+    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in remat)
+    return dict(fwd=n_attn + n_remat, dq=n_attn, dkv=n_attn,
+                rms_norm=norm_calls(cfg) + norm_calls(cfg, remat),
+                rms_norm_bwd=norm_calls(cfg) - (2 if lora else 0))
+
+
+def tower_norms(stack, return_index=-8) -> int:
+    """`rms_norm` calls of one text-tower forward to `return_index`: two a
+    block run (T5's two layer norms, Qwen2's input and post-attention
+    norms), and the final norm where the index is the last state."""
+    from f_lite_tpu_torch.text.layers import resolve_index
+
+    cfg = stack.config
+    depth = getattr(cfg, "num_layers", None) or cfg.num_hidden_layers
+    idx = resolve_index(return_index, depth + 1)
+    return 2 * idx + (idx == depth)
 
 
 def card_line() -> str:
@@ -955,8 +1025,10 @@ def check_block_grads(batch=4, size=512, text_len=128) -> dict:
     kernel = grads(fa.flash_attention)
     counts = read_counts()
     plain = grads(fa.flash_attention_plain)
-    if counts != launches(fwd=2, dq=2, dkv=2):
-        raise AssertionError(f"block gradients: launches {counts}, expected 2 of each")
+    n_norms = norm_calls(cfg, [1])
+    if counts != launches(fwd=2, dq=2, dkv=2, rms_norm=n_norms, rms_norm_bwd=n_norms):
+        raise AssertionError(f"block gradients: launches {counts}, expected 2 of each "
+                             f"attention kernel and {n_norms} of each norm kernel")
     rel = {n: float((kernel[n] - plain[n]).norm() / plain[n].norm()) for n in plain}
     res = dict(config="f_lite_7b block 1", batch=batch, tokens=tokens,
                text_len=text_len, launches=counts, max_rel=max(rel.values()),
@@ -1209,6 +1281,180 @@ def check_int8_given() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the RMSNorm kernel against its plain twins
+# ---------------------------------------------------------------------------
+
+# (label, rows, D, x dtype, weight dtype or None, layout): the 7B's and the
+# 10B's pre-norms over the CFG pair at 1024 px (2 x 4112 rows), the 7B's
+# QK-norm (2 x 10 heads x 4112 rows of 256), the training cell's pre-norms
+# (batch 4 at 512 px, under fp32 weights), the T5-XXL tower's fp32 rows;
+# then the layouts the DiT hands over at 1024 px: the cross-attention's q,
+# a (B, L, H, D) product seen as (B, H, L, D), and its k, a slice of the
+# (B, L, 2, H, D) key-value product over 128 text rows
+NORM_SHAPES = [
+    ("7b_norm", 8224, 2560, "bfloat16", "bfloat16", "dense"),
+    ("10b_norm", 8224, 3072, "bfloat16", "bfloat16", "dense"),
+    ("7b_qk", 82240, 256, "bfloat16", None, "dense"),
+    ("train_norm", 4160, 2560, "bfloat16", "float32", "dense"),
+    ("t5_tower", 128, 4096, "float32", "float32", "dense"),
+    ("7b_cross_q", 82240, 256, "bfloat16", None, "transposed"),
+    ("7b_cross_k", 2560, 256, "bfloat16", None, "kv_slice"),
+]
+NORM_REPS = 20
+L2_BYTES = 50 * 2**20
+
+
+def norm_input(rows, d, dtype, layout, gen):
+    """x (3 N(0, 1)) of `rows` rows of `d` in `layout`: dense (rows, d); the
+    cross-attention's q, (2, 10, rows / 20, d) transposed from (2, rows /
+    20, 10, d); its k, head 0..9 of the key-value product's first half."""
+    import torch
+
+    if layout == "dense":
+        shape = (rows, d)
+    else:
+        shape = (2, rows // 20, 2, 10, d) if layout == "kv_slice" else (2, rows // 20, 10, d)
+    x = (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    if layout == "transposed":
+        return x.transpose(1, 2)
+    return x.permute(2, 0, 3, 1, 4)[0] if layout == "kv_slice" else x
+
+
+def graph_ms(run, copies: int) -> float:
+    """Device ms of one `run(i)`: NORM_REPS calls over i = 0, 1, ... (mod
+    `copies`, copies of the inputs that together exceed twice the L2, so
+    each call reads its input from device memory) captured in a CUDA
+    graph, its replay timed with CUDA events."""
+    import torch
+
+    for i in range(copies):
+        run(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(NORM_REPS):
+            run(i % copies)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / NORM_REPS
+
+
+def check_rms_norm() -> list[dict]:
+    """Phase 6c: `rms_norm` on the card (the kernel, forward and backward
+    through its autograd Function) against `rms_norm_plain` and
+    `rms_norm_bwd_plain` at NORM_SHAPES: y, dx and dw within
+    `rms_norm.excess` (the card tests' bounds), y in the plain path's
+    layout where x is dense and contiguous where the wrapper copies x, one
+    launch of each kernel a call, dw bit-equal over two backward calls.
+    The dense shapes timed (`graph_ms`): the kernel's forward and backward
+    (dx, and dw where there is a weight), the plain path's (its backward:
+    autograd's, the forward taken off) and `F.rms_norm`'s, the port's
+    yardstick only, beside the byte bound: 2 N sizeof(x) a forward, 3 N
+    sizeof(x) a backward, plus the weight."""
+    import torch
+
+    from f_lite_tpu_torch.ops import norms
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    rows_out = []
+    gen = torch.Generator("cuda").manual_seed(23)
+    for label, n, d, dname, wname, layout in NORM_SHAPES:
+        dtype = getattr(torch, dname)
+        wdtype = None if wname is None else getattr(torch, wname)
+        x = norm_input(n, d, dtype, layout, gen)
+        w = None if wdtype is None else (1 + 0.1 * torch.randn(d, generator=gen,
+                                                               device="cuda")).to(wdtype)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        xa = x.detach().requires_grad_(True)
+        wa = None if w is None else w.detach().requires_grad_(True)
+        reset_counts()
+        y = norms.rms_norm(xa, wa)
+        y.backward(g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = norms.rms_norm_plain(x, w)
+        dx, dw = norms.rms_norm_bwd_plain(x, w, g)
+        scale, dw_scale = crn.bwd_scales(x, w, g)
+        excess = {"y": crn.excess(y, want, want.float().abs()),
+                  "dx": crn.excess(xa.grad, dx, scale)}
+        if w is not None:
+            excess["dw"] = crn.excess(wa.grad, dw, dw_scale)
+        dense = crn.dense_rows(x)
+        layout_ok = (y.stride() == want.stride()) if dense else y.is_contiguous()
+        _, r = crn.rms_norm_fwd(x, w, with_rstd=True)
+        first, second = crn.rms_norm_bwd(x, w, r, g), crn.rms_norm_bwd(x, w, r, g)
+        repeats = torch.equal(first[0], second[0]) and (
+            w is None or torch.equal(first[1], second[1]))
+        row = dict(shape=label, rows=n, D=d, dtype=dname, weight=wname, layout=layout,
+                   x_strides=list(x.stride()), y_strides=list(y.stride()),
+                   plain_y_strides=list(want.stride()), copied=not dense,
+                   launches=counts, excess=excess,
+                   max_abs_err=float((y.float() - want.float()).abs().max()),
+                   dx_max_abs_err=float((xa.grad.float() - dx.float()).abs().max()),
+                   bit_repeatable=repeats)
+        del xa, wa, y, want, dx, dw, scale, dw_scale, first, second
+        if layout == "dense":
+            row.update(norm_times(x, w, g))
+        log("rms_norm", json.dumps(row))
+        rows_out.append(row)
+        bad = [k for k, v in excess.items() if not v <= 0]
+        if bad or not layout_ok or not repeats or counts != launches(rms_norm=1,
+                                                                     rms_norm_bwd=1):
+            raise AssertionError(f"rms_norm {label}: beyond the bound in {bad}, layout "
+                                 f"{layout_ok}, repeats {repeats}, launches {counts}")
+        del x, w, g, r
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def norm_times(x, w, g) -> dict:
+    """`check_rms_norm`'s times of one dense shape (`graph_ms`)."""
+    import torch
+
+    from f_lite_tpu_torch.ops.norms import rms_norm_plain
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    d = x.shape[-1]
+    nbytes = x.numel() * x.element_size()
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    gs = [g] + [g.clone() for _ in range(copies - 1)]
+    rs = [crn.rms_norm_fwd(xi, w, with_rstd=True)[1] for xi in xs]
+    wbytes = 0 if w is None else d * w.element_size()
+
+    def fwd_bwd(fn):
+        xr = [xi.detach().requires_grad_(True) for xi in xs]
+        wr = None if w is None else w.detach().requires_grad_(True)
+
+        def run(i):
+            y = fn(xr[i], wr)
+            torch.autograd.grad(y, [xr[i]] + ([wr] if wr is not None else []), gs[i])
+        return run
+
+    def library(xi, wi):
+        return torch.nn.functional.rms_norm(xi, (d,), wi, 1e-6)
+
+    ms = dict(
+        ms=graph_ms(lambda i: crn.rms_norm_fwd(xs[i], w), copies),
+        bwd_ms=graph_ms(lambda i: crn.rms_norm_bwd(xs[i], w, rs[i], gs[i]), copies),
+        plain_ms=graph_ms(lambda i: rms_norm_plain(xs[i], w), copies),
+        plain_fwd_bwd_ms=graph_ms(fwd_bwd(rms_norm_plain), copies),
+        library_ms=graph_ms(lambda i: library(xs[i], w), copies),
+        library_fwd_bwd_ms=graph_ms(fwd_bwd(library), copies))
+    ms["plain_bwd_ms"] = ms.pop("plain_fwd_bwd_ms") - ms["plain_ms"]
+    ms["library_bwd_ms"] = ms.pop("library_fwd_bwd_ms") - ms["library_ms"]
+    bound = (2 * nbytes + wbytes) / PEAK_BYTES * 1e3
+    bwd_bound = (3 * nbytes + 2 * wbytes) / PEAK_BYTES * 1e3
+    return dict(ms, bound_ms=bound, bwd_bound_ms=bwd_bound, bound_by="bytes",
+                share_of_bound=bound / ms["ms"], bwd_share_of_bound=bwd_bound / ms["bwd_ms"],
+                copies=copies)
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the fixture's training recipe through the port's trainer
 # ---------------------------------------------------------------------------
 
@@ -1370,14 +1616,6 @@ def fixture_argv(cache: Path, out: Path, steps: int) -> list:
             "--report_to", "none", "--sample_every", "0", "--eval_every", "0"]
 
 
-def fixture_attention_calls() -> int:
-    """Attention calls of one fixture forward (self and cross)."""
-    from f_lite_tpu_torch.models.dit import DiTConfig
-
-    cfg = DiTConfig.from_json_dict(json.loads((FIXTURE / "dit" / "config.json").read_text()))
-    return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-
-
 def run_fixture_training(tmp: Path, steps=300) -> dict:
     """The fixture recipe of artifacts/fixture_run/train.log from scratch."""
     import torch
@@ -1392,7 +1630,7 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
     cache_s = time.perf_counter() - t0
     out = tmp / "fixture_train"
     argv = fixture_argv(cache, out, steps) + ["--export_pipeline"]
-    n_attn = fixture_attention_calls()
+    per_step = launches(**train_step_launches(fixture_config()))
     watch = StepWatch(profile_window=(100, 103))
     reset_counts()
     watch.begin()
@@ -1404,13 +1642,12 @@ def run_fixture_training(tmp: Path, steps=300) -> dict:
                logged_losses=losses, mean_loss_260_300=statistics.mean(late),
                jax_mean_loss_260_300=0.073, s_per_step=step_s,
                wall_s=result["wall_s"], launches=counts,
-               per_step_expected=launches(fwd=n_attn, dq=n_attn, dkv=n_attn),
+               per_step_expected=per_step,
                idle_share=watch.profile["idle_share"])
     log("fixture_train", json.dumps(res))
     if result["global_step"] != steps:
         raise AssertionError(f"fixture training ran {result['global_step']} steps")
-    bad = [i + 1 for i, c in enumerate(watch.per_step)
-           if c != launches(fwd=n_attn, dq=n_attn, dkv=n_attn)]
+    bad = [i + 1 for i, c in enumerate(watch.per_step) if c != per_step]
     if bad:
         raise AssertionError(f"fixture training: launch counts off at steps {bad[:5]}")
     if not res["mean_loss_260_300"] <= 0.15:
@@ -1486,7 +1723,7 @@ def run_fixture_resume(tmp: Path, steps=40) -> dict:
              *fixture_argv(cache, out, 100000), "--checkpointing_steps", "0",
              "--log_every", "5"], stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT)
     try:
-        per = fixture_attention_calls()
+        expected = launches(**train_step_launches(fixture_config()))
         half = steps // 2
         extra = ["--checkpointing_steps", str(half), "--async_checkpoint"]
         reset_counts()
@@ -1512,7 +1749,6 @@ def run_fixture_resume(tmp: Path, steps=40) -> dict:
             raise AssertionError(f"fixture resume: losses {straight} against {first + rest}")
         if unequal or set(want) != set(got):
             raise AssertionError(f"fixture resume: checkpoint tensors differ: {unequal[:5]}")
-        expected = launches(fwd=per, dq=per, dkv=per)
         if any(c != expected for c in per_step):
             raise AssertionError(f"fixture resume: launch counts off: {per_step[:3]}")
 
@@ -1562,7 +1798,6 @@ def run_fixture_finetune(tmp: Path, steps=60, n_requests=4) -> dict:
     7's requests at both_acc >= 0.95."""
     import torch
 
-    per = fixture_attention_calls()
     out = tmp / "finetune"
     finite = []
     argv = fixture_argv(tmp / "shapes_cache", out, steps) + [
@@ -1574,8 +1809,8 @@ def run_fixture_finetune(tmp: Path, steps=60, n_requests=4) -> dict:
     result, logged, watch, losses = run_counted(
         argv, check=lambda step, m: finite.append(math.isfinite(float(m["loss"]))))
     counts = read_counts()
-    expected = launches(fwd=per, dq=per, dkv=per)
-    pipe, embeds, mask, classes, n_blocks = load_fixture(path=out / "pipeline")
+    expected = launches(**train_step_launches(fixture_config(), lora=True))
+    pipe, embeds, mask, classes = load_fixture(path=out / "pipeline")
     reset_counts()
     images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
                                  context_mask=mask, num_inference_steps=30,
@@ -1592,7 +1827,7 @@ def run_fixture_finetune(tmp: Path, steps=60, n_requests=4) -> dict:
         raise AssertionError(f"fixture fine-tune: {result['global_step']} steps, finite {finite}")
     if any(c != expected for c in watch.per_step):
         raise AssertionError(f"fixture fine-tune: launch counts off: {watch.per_step[:3]}")
-    if serve_counts != launches(fwd=n_requests * 30 * n_blocks):
+    if serve_counts != dit_launches(fixture_config(), n_requests * 30):
         raise AssertionError(f"fixture fine-tune export: launches {serve_counts}")
     if res["both_acc"] < 0.95:
         raise AssertionError(f"fixture fine-tune: both_acc {res['both_acc']} < 0.95")
@@ -1735,7 +1970,8 @@ def run_fixture_online(tmp: Path, phase12: dict, steps=300, profile=(10, 12)) ->
         "--eval_batch_size", str(eval_batch), "--sample_every", str(steps),
         "--sample_prompts_file", str(tables["prompts"]),
         "--profile_steps", f"{profile[0]},{profile[1]}"]
-    per = fixture_attention_calls()
+    cfg = fixture_config()
+    per_step = launches(**train_step_launches(cfg))
     n_eval_batches = tables["val_items"] // eval_batch
     watch = StepWatch()
     reset_counts()
@@ -1763,19 +1999,18 @@ def run_fixture_online(tmp: Path, phase12: dict, steps=300, profile=(10, 12)) ->
     log("fixture_online", json.dumps(res))
     if result["global_step"] != steps:
         raise AssertionError(f"fixture online: {result['global_step']} steps")
-    bad = [i + 1 for i, c in enumerate(watch.per_step)
-           if c != launches(fwd=per, dq=per, dkv=per)]
+    bad = [i + 1 for i, c in enumerate(watch.per_step) if c != per_step]
     if bad:
         raise AssertionError(f"fixture online: launch counts off at steps {bad[:5]}: "
                              f"{watch.per_step[bad[0] - 1]}")
     if not res["mean_loss_260_300"] <= 0.15:
         raise AssertionError(f"fixture online: mean loss {res['mean_loss_260_300']} > 0.15")
     if len(ev.calls) != steps // 100 or any(
-            c != launches(fwd=per * n_eval_batches) for c in ev.calls):
+            c != dit_launches(cfg, n_eval_batches) for c in ev.calls):
         raise AssertionError(f"fixture online eval: launches {ev.calls}")
     if vals is None or not math.isfinite(vals):
         raise AssertionError(f"fixture online: val/loss {vals}")
-    if smp.calls != [launches(fwd=50 * per)]:
+    if smp.calls != [dit_launches(cfg, 50)]:
         raise AssertionError(f"fixture online sample grid: launches {smp.calls}")
     if grid.shape != (2 * 64 + 2, 3 * 64 + 4, 3):
         raise AssertionError(f"fixture online sample grid: shape {grid.shape}")
@@ -1797,8 +2032,7 @@ def run_fixture_online_resume(tmp: Path, tables: dict, steps=40, nan_steps=5) ->
     import torch
 
     table = Path(tables["train"])
-    per = fixture_attention_calls()
-    expected = launches(fwd=per, dq=per, dkv=per)
+    expected = launches(**train_step_launches(fixture_config()))
     half = steps // 2
     extra = ["--random_flip", "--checkpointing_steps", str(half)]
     reset_counts()
@@ -1858,7 +2092,7 @@ def run_fixture_buckets(tmp: Path, steps=20, batch=8) -> dict:
     argv = online_argv(fixture_argv(Path("unused"), tmp / "buckets", steps), table,
                        base_url="dummy://", center_crop=False) + [
         "--use_resolution_buckets", "--train_batch_size", str(batch)]
-    per = fixture_attention_calls()
+    expected = launches(**train_step_launches(fixture_config()))
     seen, step_lengths, mixed = [], [], []
     fwd_kernel, collate = fa._forward_kernel, ImageDataset.collate_fn
 
@@ -1894,7 +2128,7 @@ def run_fixture_buckets(tmp: Path, steps=20, batch=8) -> dict:
     if self_lengths != [2064, 2256, 2320] or any(
             ls != [(ls[0][0], 32), (ls[0][0], ls[0][0])] for ls in step_lengths):
         raise AssertionError(f"buckets: the kernels saw {step_lengths}")
-    if any(c != launches(fwd=per, dq=per, dkv=per) for c in watch.per_step):
+    if any(c != expected for c in watch.per_step):
         raise AssertionError(f"buckets: launch counts off: {watch.per_step[:3]}")
     torch.cuda.empty_cache()
     return res
@@ -1946,16 +2180,14 @@ def argv_7b(tmp: Path, out: Path, steps: int, batch=4, depth=20, cache=None) -> 
             "--report_to", "none", "--sample_every", "0", "--eval_every", "0"]
 
 
-def train_7b_launches(depth: int) -> dict:
-    """Launches of each flash kernel in one 7B-width training step at
-    `depth`, checkpointing from block 8: every attention forward once, the
-    recomputed blocks' again in the backward, and one dq and dkv each."""
+def train_7b_launches(depth: int, lora=False) -> dict:
+    """Launches of the attention and norm kernels in one 7B-width training
+    step at `depth`, checkpointing from block 8 (`train_step_launches`)."""
     from f_lite_tpu_torch.models.dit import DiTConfig
 
-    cfg = DiTConfig.f_lite_7b(depth=depth)
-    n_attn = depth + sum(cfg.block_has_cross_attn(i) for i in range(depth))
-    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
-    return dict(fwd=n_attn + n_remat, dq=n_attn, dkv=n_attn)
+    cfg = DiTConfig.f_lite_7b(depth=depth, gradient_checkpoint=True,
+                              gradient_checkpoint_from=8)
+    return train_step_launches(cfg, lora=lora)
 
 
 # depths cut to keep the script inside its time (PERF.md §4): 13c's two
@@ -2001,7 +2233,7 @@ def run_7b_training(tmp: Path, steps=10, batch=4, depth=20, extra=(),
 
     out = (out_root or tmp) / label
     argv = argv_7b(tmp, out, steps, batch, depth, cache) + list(extra)
-    expected = launches(**train_7b_launches(depth))
+    expected = launches(**train_7b_launches(depth, lora="--use_lora" in extra))
     finite, losses = [], []
 
     def check(step, metrics):
@@ -2168,20 +2400,14 @@ def run_7b_online(tmp: Path, phase13f: dict, steps=10, batch=4, out_root=None) -
 
     import torch
 
-    from f_lite_tpu_torch.models.dit import DiTConfig
-
     reference, depth = phase13f["train"], phase13f["depth"]
-    cfg = DiTConfig.f_lite_7b(depth=depth)
     table = write_7b_online_table(tmp, batch)
     vae_dir = write_flux_vae(tmp / "flux_vae")
     out = (out_root or tmp) / "7b_online"
     argv = online_argv(argv_7b(tmp, out, steps, batch, depth), table,
                        base_url="dummy://", resolution=512) + [
         "--vae_path", str(vae_dir)]
-    n_cross = sum(cfg.block_has_cross_attn(i) for i in range(depth))
-    n_remat = sum(1 + cfg.block_has_cross_attn(i) for i in range(8, depth))
-    expected = launches(fwd=depth + n_cross + n_remat, dq=depth + n_cross,
-                        dkv=depth + n_cross)
+    expected = launches(**train_7b_launches(depth))
     finite = []
 
     def check(step, metrics):
@@ -2319,7 +2545,7 @@ def run_torchrun(argv: list, out: Path, log_path: Path, timeout=900,
 def per_step_launches(records: list) -> list:
     """Each logged step's launches, from the cumulative counts of
     `metrics.jsonl` (`--log_every 1`)."""
-    out, last = [], dict(fwd=0, dq=0, dkv=0)
+    out, last = [], dict(fwd=0, dq=0, dkv=0, rms_norm=0, rms_norm_bwd=0)
     for r in records:
         out.append({k: r["launches"][k] - last[k] for k in last})
         last = r["launches"]
@@ -2355,8 +2581,7 @@ def run_fixture_fsdp(tmp: Path, phase12: dict, phase12b: dict, beside=None) -> d
     records, result, wall = run_torchrun(argv, out, tmp / "fsdp_fixture.log")
     parent = read_counts()
     losses = [r["train/loss"] for r in records]
-    per = fixture_attention_calls()
-    expected = dict(fwd=per, dq=per, dkv=per)
+    expected = train_step_launches(fixture_config())
     per_step = per_step_launches(records)
 
     def rel_gap(a, b):
@@ -2437,7 +2662,7 @@ def run_fixture_sp(started: dict, phase12b: dict, phase12g: dict) -> dict:
     records, result, wall = finish_torchrun(job, out)
     parent = job["parent_launches"]  # noted when 12g waited for it
     losses = [r["train/loss"] for r in records]
-    per = fixture_attention_calls()
+    expected = train_step_launches(fixture_config())
     per_step = per_step_launches(records)
     applied = "sequence parallelism applied on a tp mesh of 1" in job["log_path"].read_text()
     res = dict(steps=len(losses), losses_bit_equal=losses == straight,
@@ -2451,7 +2676,7 @@ def run_fixture_sp(started: dict, phase12b: dict, phase12g: dict) -> dict:
     if not applied or len(losses) != steps or res["max_rel_gap"] > 1e-6:
         raise AssertionError(f"fixture sp: applied {applied}, losses {losses} against "
                              f"{straight}")
-    if any(c != dict(fwd=per, dq=per, dkv=per) for c in per_step) or any(parent.values()):
+    if any(c != expected for c in per_step) or any(parent.values()):
         raise AssertionError(f"fixture sp: launch counts {per_step[:3]}, parent {parent}")
     return res
 
@@ -2830,8 +3055,7 @@ def fixture_captions(classes) -> list[str]:
 
 def load_fixture(quantize=False, path=FIXTURE, **load_kw):
     """(pipeline in bf16, its 24 captions' embeddings and mask, the
-    classes, forward launches per step); `load_kw` go to
-    `from_pretrained` (a LoRA)."""
+    classes); `load_kw` go to `from_pretrained` (a LoRA)."""
     import torch
 
     from f_lite_tpu_torch.pipeline import FLitePipeline
@@ -2843,16 +3067,15 @@ def load_fixture(quantize=False, path=FIXTURE, **load_kw):
     classes = [(c, s) for c in COLORS for s in SHAPES]
     embeds, mask = ZeroTextEncoder(cfg.cross_attn_input_size, seq_len=32).encode(
         fixture_captions(classes))
-    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-    return pipe, embeds, mask, classes, n_blocks
+    return pipe, embeds, mask, classes
 
 
 def run_fixture(n_requests=4, steps=30, guidance=6.0) -> tuple:
     """Phase 7: full CFG Euler@30 (res, images)."""
     import torch
 
-    pipe, embeds, mask, classes, n_blocks = load_fixture()
-    expected = n_requests * steps * n_blocks
+    pipe, embeds, mask, classes = load_fixture()
+    expected = dit_launches(pipe.dit.config, n_requests * steps)
     reset_counts()
     images, seconds = fixture_requests(pipe, len(embeds), n_requests,
                                        prompt_embeds=embeds, context_mask=mask,
@@ -2864,8 +3087,8 @@ def run_fixture(n_requests=4, steps=30, guidance=6.0) -> tuple:
                s_per_request=seconds, launches=counts["fwd"],
                expected_launches=expected, counts=counts)
     log("fixture", json.dumps(res))
-    if counts != launches(fwd=expected):
-        raise AssertionError(f"fixture: launches {counts}, expected {expected} forward only")
+    if counts != expected:
+        raise AssertionError(f"fixture: launches {counts}, expected {expected}")
     if acc < 0.95:
         raise AssertionError(f"fixture: both_acc {acc} < 0.95")
     del pipe
@@ -2880,11 +3103,12 @@ def run_fixture_extras(full_images, n_requests=4, guidance=6.0) -> dict:
     import numpy as np
     import torch
 
-    pipe, embeds, mask, classes, n_blocks = load_fixture()
+    pipe, embeds, mask, classes = load_fixture()
     runs = {"gi0.1-0.9@30": dict(num_inference_steps=30, guidance_interval=(0.1, 0.9)),
             "euler@15": dict(num_inference_steps=15),
             "ab2@15": dict(num_inference_steps=15, sampler="ab2")}
-    expected = n_requests * n_blocks * sum(kw["num_inference_steps"] for kw in runs.values())
+    expected = dit_launches(pipe.dit.config, n_requests * sum(
+        kw["num_inference_steps"] for kw in runs.values()))
     res = {}
     reset_counts()
     for name, kw in runs.items():
@@ -2897,7 +3121,7 @@ def run_fixture_extras(full_images, n_requests=4, guidance=6.0) -> dict:
     res.update(launches=counts, expected_launches=expected,
                jax=dict(gi_both_acc=0.9896, ab2_15_mse=0.014558, euler_15_mse=0.012942))
     log("fixture_extras", json.dumps(res))
-    if counts != launches(fwd=expected):
+    if counts != expected:
         raise AssertionError(f"fixture extras: launches {counts}, expected {expected}")
     if res["gi0.1-0.9@30"]["both_acc"] < 0.95:
         raise AssertionError(f"fixture gi: both_acc {res['gi0.1-0.9@30']['both_acc']} < 0.95")
@@ -2914,11 +3138,11 @@ def run_fixture_int8(full_images, n_requests=4, steps=30, guidance=6.0) -> dict:
     import numpy as np
     import torch
 
-    pipe, embeds, mask, classes, n_blocks = load_fixture(quantize=True)
+    pipe, embeds, mask, classes = load_fixture(quantize=True)
     per_forward = int8_layers(pipe.dit)
-    expected = launches(fwd=n_requests * steps * n_blocks,
-                        quantize=n_requests * steps * per_forward,
-                        gemm=n_requests * steps * per_forward)
+    expected = dit_launches(pipe.dit.config, n_requests * steps,
+                            quantize=n_requests * steps * per_forward,
+                            gemm=n_requests * steps * per_forward)
     reset_counts()
     images, seconds = fixture_requests(pipe, len(embeds), n_requests,
                                        prompt_embeds=embeds, context_mask=mask,
@@ -2970,14 +3194,14 @@ def run_fixture_int8_tp1(fixture_int8, n_requests=2, steps=30, guidance=6.0) -> 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0, device_id=torch.device("cuda", 0))
     try:
-        pipe, embeds, mask, classes, n_blocks = load_fixture(quantize=True)
+        pipe, embeds, mask, classes = load_fixture(quantize=True)
         per_forward = int8_layers(pipe.dit)
         parallelize_dit(pipe.dit, init_device_mesh("cuda", (1,), mesh_dim_names=("tp",)))
         row_layers = sum(isinstance(m, QuantDense) and m.tp_amax is not None
                          for m in pipe.dit.modules())
-        expected = launches(fwd=n_requests * steps * n_blocks,
-                            quantize=n_requests * steps * (per_forward + row_layers),
-                            gemm=n_requests * steps * per_forward)
+        expected = dit_launches(pipe.dit.config, n_requests * steps,
+                                quantize=n_requests * steps * (per_forward + row_layers),
+                                gemm=n_requests * steps * per_forward)
         reset_counts()
         images, seconds = fixture_requests(pipe, len(embeds), n_requests,
                                            prompt_embeds=embeds, context_mask=mask,
@@ -3011,11 +3235,11 @@ def run_fixture_prompts(full_images, n_requests=4, steps=30, guidance=6.0) -> di
 
     from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 
-    pipe, _, _, classes, n_blocks = load_fixture()
+    pipe, _, _, classes = load_fixture()
     pipe.text_encoder = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size,
                                         seq_len=32)
     captions = fixture_captions(classes)
-    expected = n_requests * steps * n_blocks
+    expected = dit_launches(pipe.dit.config, n_requests * steps)
     reset_counts()
     images, seconds = fixture_requests(pipe, len(captions), n_requests,
                                        prompt=captions, num_inference_steps=steps,
@@ -3027,7 +3251,7 @@ def run_fixture_prompts(full_images, n_requests=4, steps=30, guidance=6.0) -> di
                max_abs_diff_to_phase_7=float(np.abs(images - full_images).max()),
                s_per_request=seconds, launches=counts, expected_launches=expected)
     log("fixture_prompts", json.dumps(res))
-    if counts != launches(fwd=expected):
+    if counts != expected:
         raise AssertionError(f"fixture prompts: launches {counts}, expected {expected}")
     if not res["equal_to_phase_7"]:
         raise AssertionError("fixture prompts: images differ from phase 7's")
@@ -3113,11 +3337,11 @@ def run_fixture_lora(full_images, tmp: Path, n_requests=4, steps=30,
             "int8": dict(lora_path=st, quantize=True)}
     res, images = {}, {}
     for name, kw in runs.items():
-        pipe, embeds, mask, classes, n_blocks = load_fixture(**kw)
+        pipe, embeds, mask, classes = load_fixture(**kw)
         per_forward = int8_layers(pipe.dit)
-        expected = launches(fwd=n_requests * steps * n_blocks,
-                            quantize=n_requests * steps * per_forward,
-                            gemm=n_requests * steps * per_forward)
+        expected = dit_launches(pipe.dit.config, n_requests * steps,
+                                quantize=n_requests * steps * per_forward,
+                                gemm=n_requests * steps * per_forward)
         reset_counts()
         images[name], seconds = fixture_requests(
             pipe, len(embeds), n_requests, prompt_embeds=embeds, context_mask=mask,
@@ -3195,12 +3419,12 @@ def run_fixture_save_ingest(full_images, tmp: Path, n_requests=4, steps=30,
                        ("snapshot_cached", snapshot)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe, embeds, mask, classes, n_blocks = load_fixture(path=path)
+        pipe, embeds, mask, classes = load_fixture(path=path)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         if path == snapshot:
             stamps.append(cache.stat().st_mtime_ns)
-        expected = n_requests * steps * n_blocks
+        expected = dit_launches(pipe.dit.config, n_requests * steps)
         reset_counts()
         images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
                                      context_mask=mask, num_inference_steps=steps,
@@ -3209,7 +3433,7 @@ def run_fixture_save_ingest(full_images, tmp: Path, n_requests=4, steps=30,
         res[name] = dict(load_s=load_s, launches=counts, expected_launches=expected,
                          both_acc=both_acc(images, classes),
                          equal_to_phase_7=bool(np.array_equal(images, full_images)))
-        if counts != launches(fwd=expected):
+        if counts != expected:
             raise AssertionError(f"fixture {name}: launches {counts}, expected {expected}")
         if not res[name]["equal_to_phase_7"]:
             raise AssertionError(f"fixture {name}: images differ from phase 7's")
@@ -3281,7 +3505,6 @@ def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
     try:
         pipe = fixture_prompt_pipe()
         cfg = pipe.dit.config
-        n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
         res = {}
         files, seconds = [], []
         reset_counts()
@@ -3293,7 +3516,7 @@ def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
                                                "--output_file", str(tmp / f"gen{i}.png")]))
             seconds.append(time.perf_counter() - t0)
         counts = read_counts()
-        expected = launches(fwd=len(captions) * steps * n_blocks)
+        expected = dit_launches(cfg, len(captions) * steps)
         images = [read_png(f.read_bytes()) for fs in files for f in fs]
         direct = np.concatenate([
             pipe(prompt=cap, height=64, width=64, num_inference_steps=steps,
@@ -3335,8 +3558,8 @@ def run_fixture_generate(tmp: Path, steps=30, guidance=6.0) -> dict:
         (qfile,) = generate.main(base + ["--prompt", captions[0], "--seed", "0", "--quantize",
                                          "--output_file", str(tmp / "int8.png")])
         counts = read_counts()
-        expected = launches(fwd=steps * n_blocks, quantize=steps * per_forward,
-                            gemm=steps * per_forward)
+        expected = dit_launches(cfg, steps, quantize=steps * per_forward,
+                                gemm=steps * per_forward)
         qimg = read_png(qfile.read_bytes())
         qdirect = qpipe(prompt=captions[0], height=64, width=64, num_inference_steps=steps,
                         guidance_scale=guidance,
@@ -3468,7 +3691,6 @@ def run_fixture_serve(tmp: Path, steps=30, guidance=6.0) -> dict:
               "--steps", str(steps), "--guidance_scale", str(guidance)]
     pipe = fixture_prompt_pipe()
     cfg = pipe.dit.config
-    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
 
     def solo(r):
         return pipe(prompt=r["prompt"], height=64, width=64, num_inference_steps=steps,
@@ -3480,7 +3702,7 @@ def run_fixture_serve(tmp: Path, steps=30, guidance=6.0) -> dict:
     manifest = serve.main(common + ["--prompts", str(jsonl), "--batch_size", "2",
                                     "--output_dir", str(tmp / "batch")])
     counts = read_counts()
-    expected = launches(fwd=2 * steps * n_blocks)
+    expected = dit_launches(cfg, 2 * steps)
     batch = [read_png(Path(e["file"]).read_bytes()) for e in manifest["images"]]
     want = [solo(r) for r in rows]
     res["batch"] = dict(images=len(batch), images_per_min=manifest["images_per_min"],
@@ -3511,7 +3733,7 @@ def run_fixture_serve(tmp: Path, steps=30, guidance=6.0) -> dict:
             http_images.append(read_png(body))
             stamp = read_metadata(body)
         counts = read_counts()
-        expected = launches(fwd=len(rows) * steps * n_blocks)
+        expected = dit_launches(cfg, len(rows) * steps)
         bad = client.post({"prompt": ""})[0]
         too_big = client.oversized()
         _, text = client.get("/metrics")
@@ -3668,7 +3890,6 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
         "--pt_file", str(pt)])
     res = dict(export_s=export_s, export_launches=read_counts())
     cfg = fixture_config()
-    n_blocks = cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
     with Recorded(FLitePipeline, "__call__") as rendered:
         reset_counts()
         from_pt, pt_s = timed_main(convert_checkpoint.main, [
@@ -3680,7 +3901,7 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
     res["test_image"] = dict(shape=list(latents.shape),
                              finite=bool(torch.isfinite(latents.float()).all()),
                              launches=test_counts,
-                             expected_launches=launches(fwd=4 * n_blocks),
+                             expected_launches=dit_launches(cfg, 4),
                              pt_ingest_and_render_s=pt_s)
     reset_counts()
     from_hf, hf_s = timed_main(convert_checkpoint.main, [
@@ -3688,8 +3909,8 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
     res["hf_dir_ingest_s"] = hf_s
     res["hf_dir_ingest_launches"] = read_counts()
     for name, path in (("pt", from_pt), ("hf_dir", from_hf)):
-        pipe, embeds, mask, classes, n_blocks = load_fixture(path=path)
-        expected = n_requests * steps * n_blocks
+        pipe, embeds, mask, classes = load_fixture(path=path)
+        expected = dit_launches(pipe.dit.config, n_requests * steps)
         reset_counts()
         images, _ = fixture_requests(pipe, len(embeds), n_requests, prompt_embeds=embeds,
                                      context_mask=mask, num_inference_steps=steps,
@@ -3709,7 +3930,7 @@ def run_fixture_convert(full_images, tmp: Path, n_requests=4, steps=30,
             or test["shape"] != [1, 256, 256, 3]:
         raise AssertionError(f"fixture convert --test_image: {test}")
     for name in ("pt", "hf_dir"):
-        if res[name]["launches"] != launches(fwd=res[name]["expected_launches"]):
+        if res[name]["launches"] != res[name]["expected_launches"]:
             raise AssertionError(f"fixture convert {name}: launches {res[name]['launches']}")
         if not res[name]["equal_to_phase_7"]:
             raise AssertionError(f"fixture convert {name}: images differ from phase 7's")
@@ -3943,8 +4164,8 @@ def run_release_serve(pipe, tmp: Path, size=1024, steps=30, repeats=2) -> dict:
     from f_lite_tpu_torch.utils.image import read_png
 
     n_int8 = int8_layers(pipe.dit)
-    expected = launches(fwd=repeats * steps * blocks_7b(pipe),
-                        quantize=repeats * steps * n_int8, gemm=repeats * steps * n_int8)
+    expected = dit_launches(pipe.dit.config, repeats * steps,
+                            quantize=repeats * steps * n_int8, gemm=repeats * steps * n_int8)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3979,11 +4200,6 @@ def text_7b(pipe, text_len=128, real_len=77):
     return embeds, np.arange(text_len)[None, :] < real_len
 
 
-def blocks_7b(pipe) -> int:
-    cfg = pipe.dit.config
-    return cfg.depth + sum(cfg.block_has_cross_attn(i) for i in range(cfg.depth))
-
-
 def int8_layers(dit) -> int:
     """The DiT's QuantDense layers: launches of each int8 kernel a forward."""
     from f_lite_tpu_torch.models.dit import QuantDense
@@ -3999,9 +4215,9 @@ def run_7b(pipe, steps=30, guidance=6.0, size=1024, label="7b", profile=True) ->
 
     vae = pipe.vae
     embeds, mask = text_7b(pipe)
-    expected = launches(fwd=steps * blocks_7b(pipe),
-                        quantize=steps * int8_layers(pipe.dit),
-                        gemm=steps * int8_layers(pipe.dit))
+    expected = dit_launches(pipe.dit.config, steps,
+                            quantize=steps * int8_layers(pipe.dit),
+                            gemm=steps * int8_layers(pipe.dit))
 
     marks = {}
     finite = []
@@ -4383,7 +4599,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
     from f_lite_tpu_torch.utils.image import png_bytes_with_metadata, read_png
 
     pipe.text_encoder = ZeroTextEncoder(pipe.dit.config.cross_attn_input_size, seq_len=77)
-    blocks = blocks_7b(pipe)
+    cfg = pipe.dit.config
     args = serve.parse_args(["--model", "seeded f_lite_7b + Flux VAE", "--http_port", "0",
                              "--text_bucket", "128", "--width", str(size), "--height",
                              str(size), "--steps", str(steps), "--guidance_scale",
@@ -4420,7 +4636,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
                 decode_by_filter[name] = 1e3 * (time.perf_counter() - t0)
                 if not np.array_equal(again, img):
                     raise AssertionError(f"7b http: read_png of the {name} file differs")
-            expected = launches(fwd=steps * blocks)
+            expected = dit_launches(cfg, steps)
             res["request"] = dict(
                 s_per_request=s_request, server_s=float(headers["X-F-Lite-Seconds"]),
                 phase_9_s_per_image=big["s_per_image"], image=list(img.shape),
@@ -4446,10 +4662,10 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
             direct = pipe(prompt=PROMPT, height=small, width=small, num_inference_steps=4,
                           guidance_scale=guidance, pad_context_to=128, image=source,
                           strength=0.5, generator=torch.Generator("cuda").manual_seed(5))
-            res["img2img"] = dict(launches=counts, expected_launches=launches(fwd=2 * blocks),
+            res["img2img"] = dict(launches=counts, expected_launches=dit_launches(cfg, 2),
                                   equal_to_direct=bool(np.array_equal(read_png(body),
                                                                       direct.images[0])))
-            if counts != launches(fwd=2 * blocks) or not res["img2img"]["equal_to_direct"]:
+            if counts != dit_launches(cfg, 2) or not res["img2img"]["equal_to_direct"]:
                 raise AssertionError(f"7b http img2img: {res['img2img']}")
         finally:
             stop_server(server, thread)
@@ -4481,7 +4697,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
     counts = read_counts()
     res["windows"] = windows
     res["cancel"] = dict(calls=cancel_calls, launches=counts,
-                         expected_launches=launches(fwd=5 * blocks),
+                         expected_launches=dit_launches(cfg, 5),
                          image=list(out.images.shape))
     pipe.text_encoder = None
     log("7b_http", json.dumps({k: v for k, v in res.items() if k != "image"}))
@@ -4490,7 +4706,7 @@ def run_7b_http(pipe, big, size=1024, steps=30, guidance=6.0) -> dict:
         if not (w["bitwise_equal"] and w["finite"]
                 and [tuple(c) for c in w["calls"]] == w["expected_calls"]):
             raise AssertionError(f"7b windows {name}: {w}")
-    if counts != launches(fwd=5 * blocks) or cancel_calls != [(5, 6)]:
+    if counts != dit_launches(cfg, 5) or cancel_calls != [(5, 6)]:
         raise AssertionError(f"7b cancel: {res['cancel']}")
     return res
 
@@ -4556,8 +4772,8 @@ def run_text_tower(kind, return_index=-8) -> tuple:
     On every input, at return_index -8: shape (B, S, width), finite, the
     bf16 weights' result within `flash_attention.tolerance` (5% of the fp32
     result's rms) of the fp32 one on the real rows; the single prompt's
-    real rows within that bar of themselves padded further; no kernel of
-    the port launched. Encode ms (CUDA events, median of 10) of the single
+    real rows within that bar of themselves padded further; of the port's
+    kernels only the norm's launched, `tower_norms` a forward. Encode ms (CUDA events, median of 10) of the single
     prompt and of the batch beside the bound, and peak GB. Returns
     (result, the bf16 tower)."""
     import torch
@@ -4619,8 +4835,9 @@ def run_text_tower(kind, return_index=-8) -> tuple:
                                    for p in stack.parameters()) / 1e9,
                launches=counts)
     log(f"text_tower_{kind}", json.dumps(res))
-    if counts != launches():
-        raise AssertionError(f"{kind}: kernel launches {counts}, expected none")
+    expected = launches(rms_norm=2 * len(inputs) * tower_norms(stack, return_index))
+    if counts != expected:
+        raise AssertionError(f"{kind}: kernel launches {counts}, expected {expected}")
     if res["max_err_over_tol"] > 1.0:
         raise AssertionError(f"{kind}: err/tol {res['max_err_over_tol']} > 1")
     torch.cuda.empty_cache()
@@ -4667,10 +4884,13 @@ def run_7b_prompt(pipe, t5_stack, steps=30, guidance=6.0, size=1024) -> dict:
     finite = []
     hook = pipe.vae.decoder.register_forward_hook(
         lambda _m, _i, out: finite.append(bool(torch.isfinite(out).all())))
-    expected = launches(fwd=steps * blocks_7b(pipe))
     res = {}
     try:
         for label, negative in (("no_negative", None), ("negative", NEGATIVE_PROMPT)):
+            # the DiT's steps, and a T5 encode of the prompt (and the negative)
+            encodes = 1 if negative is None else 2
+            expected = dit_launches(pipe.dit.config, steps)
+            expected["rms_norm"] += encodes * tower_norms(t5_stack, te.inner.return_index)
             encode_s.clear()
             finite.clear()
             torch.cuda.reset_peak_memory_stats()
@@ -4726,7 +4946,7 @@ def run_img2img(pipe, steps=30, strength=0.5, guidance=6.0, size=1280) -> dict:
     repaint = np.zeros((lh, lh), np.uint8)
     repaint[:, : lh // 2] = 255
     n_run = max(1, min(steps, int(round(strength * steps))))  # rows run
-    expected = n_run * blocks_7b(pipe)
+    expected = dit_launches(pipe.dit.config, n_run)
 
     seen = {}
     tiles = {"encoder": 0, "decoder": 0}
@@ -4788,8 +5008,8 @@ def run_img2img(pipe, steps=30, strength=0.5, guidance=6.0, size=1280) -> dict:
     log("7b_img2img", json.dumps(res))
     if img.shape != (1, size, size, 3) or not bool(torch.isfinite(final).all()):
         raise AssertionError(f"img2img: image {img.shape} or non-finite latents")
-    if counts != launches(fwd=expected):
-        raise AssertionError(f"img2img: launches {counts}, expected {expected} forward only")
+    if counts != expected:
+        raise AssertionError(f"img2img: launches {counts}, expected {expected}")
     if tiles != {"encoder": 9, "decoder": 9}:
         raise AssertionError(f"img2img: tiles {tiles}, expected 9 encode and 9 decode")
     if not kept_equal or not repaint_moved > 0:
@@ -4815,14 +5035,14 @@ def run_strength_one(pipe, size=256, steps=3, guidance=6.0) -> dict:
              generator=torch.Generator("cuda").manual_seed(14)).images
     b = pipe(**kw, generator=torch.Generator("cuda").manual_seed(14)).images
     counts = read_counts()
-    expected = 2 * steps * blocks_7b(pipe)
+    expected = dit_launches(pipe.dit.config, 2 * steps)
     res = dict(size=size, steps=steps, bitwise_equal=bool(np.array_equal(a, b)),
                finite=bool(np.isfinite(a).all()), launches=counts,
                expected_launches=expected)
     log("7b_strength_one", json.dumps(res))
     if not res["bitwise_equal"] or not res["finite"]:
         raise AssertionError("strength 1.0 differs from text to image")
-    if counts != launches(fwd=expected):
+    if counts != expected:
         raise AssertionError(f"strength 1.0: launches {counts}, expected {expected}")
     return res
 
@@ -4954,6 +5174,7 @@ def main() -> int:
     block = phase(check_block_grads)
     int8_rows, int8_edges, int8_fit = phase(check_int8)
     int8_given = phase(check_int8_given)
+    norm_rows = phase(check_rms_norm)
     with contextlib.ExitStack() as run_files:
         # the training phases' files, from phase 12 on
         train_tmp = Path(run_files.enter_context(tempfile.TemporaryDirectory()))
@@ -5250,7 +5471,47 @@ def main() -> int:
                                         for r in int8_given})
                if key == "quantize" else {}),
         ))
-    kernels = [forward, *backward, variants, *int8_kernels]
+    norm_main = next(r for r in norm_rows if r["shape"] == "7b_norm")
+    per_step_options = {"full": train_7b, "dots": train_7b_dots,
+                        "sequence_dropout": train_7b_seqdrop, "lora": train_7b_lora}
+    rms_norm_kernel = dict(
+        name="rms_norm",
+        route="cuda",
+        source="f_lite_tpu_torch/csrc/rms_norm.cu",
+        replaces="f_lite_tpu/ops/norms.py:22",
+        replaces_function="rms_norm",
+        replaces_note="plain jnp, fused by XLA; no Pallas kernel",
+        launches=big["counts"]["rms_norm"],
+        launches_serving_7b_image=big["counts"]["rms_norm"],
+        launches_serving_7b_int8_image=big_int8["counts"]["rms_norm"],
+        launches_serving_7b_prompt=[prompt_7b[k]["launches"]["rms_norm"]
+                                    for k in ("no_negative", "negative")],
+        launches_serving_7b_img2img_1280=img2img["launches"]["rms_norm"],
+        launches_serving_fixture=fixture["counts"]["rms_norm"],
+        launches_text_towers={"qwen2": qwen["launches"]["rms_norm"],
+                              "t5": t5_res["launches"]["rms_norm"]},
+        launches_block_grads=block["launches"],
+        launches_per_train_step={k: {c: r["per_step"][c] for c in ("rms_norm", "rms_norm_bwd")}
+                                 for k, r in per_step_options.items()},
+        launches_per_fixture_step={c: fixture_online["per_step"][c]
+                                   for c in ("rms_norm", "rms_norm_bwd")},
+        launches_per_fixture_finetune_micro_step={
+            c: fixture_finetune["per_micro_step"][c] for c in ("rms_norm", "rms_norm_bwd")},
+        launches_fsdp={"per_fixture_step": fixture_fsdp["per_step_launches"],
+                       "per_7b_d12_step": fsdp_7b["per_step_launches"]},
+        launches_pipeline_one_stage={
+            "per_7b_d12_step_2_microbatches": pipeline_7b["per_step_launches"]},
+        max_abs_err=max(r["max_abs_err"] for r in norm_rows),
+        max_excess=max(v for r in norm_rows for v in r["excess"].values()),
+        ms=norm_main["ms"], bwd_ms=norm_main["bwd_ms"], plain_ms=norm_main["plain_ms"],
+        plain_bwd_ms=norm_main["plain_bwd_ms"], bound_ms=norm_main["bound_ms"],
+        bwd_bound_ms=norm_main["bwd_bound_ms"], bound_by=norm_main["bound_by"],
+        library_ms=norm_main["library_ms"], library_bwd_ms=norm_main["library_bwd_ms"],
+        library_note="torch.nn.functional.rms_norm: a yardstick the port never calls",
+        at="7b_norm (8224 x 2560) bfloat16, bf16 weight",
+        shapes=norm_rows,
+    )
+    kernels = [forward, *backward, variants, *int8_kernels, rms_norm_kernel]
     for k in kernels:
         missing = [key for key in KERNEL_KEYS if key not in k]
         if missing:

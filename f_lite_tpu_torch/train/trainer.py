@@ -919,7 +919,8 @@ def device_stats(device) -> dict:
     if device.type != "cuda":
         return {}
     launches = {key: trace.counter(name).count for key, name in
-                (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv"))}
+                (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv"),
+                 ("rms_norm", "rms_norm"), ("rms_norm_bwd", "rms_norm_bwd"))}
     return {"launches": launches,
             "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
 

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the Hopper kernels (forward,
-dq, dkv, the lab's variants, the int8 quantize and product) against their
-plain versions, and the DiT's gradients, a training step, the pipeline
+dq, dkv, the lab's variants, the int8 quantize and product, the RMSNorm
+forward and backward) against their plain versions, and the DiT's gradients, a training step, the pipeline
 (bf16 and int8) and the T5 and Qwen2 text stacks (bf16) on the card against
 the same code on the CPU, and the port's spans on the profiler's clock and
 `serve`'s device seconds. They skip
@@ -904,3 +904,178 @@ def test_release_dryrun_runs_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert report["fabricated_on"] == "cuda"
     assert [b - a for a, b in zip(before, after)] == [24, 0, 0, 0, 96, 96]
     assert report["hbm"]["max_memory_allocated_gb"] < 80
+
+
+# The RMSNorm kernel (csrc/rms_norm.cu) against its plain twins. Cases:
+# shape, x's dtype, the weight's (None: no weight), x's layout: "dense";
+# "transposed", a (B, L, H, D) tensor seen as (B, H, L, D) as the
+# cross-attention's q; "kv_slice", the k of a (2, B, H, L, D) permute of a
+# (B, L, 2, H, D) product, as the cross-attention's k; "head_slice", rows
+# 16 on of each batch row, as the head's tokens without the registers
+# (these two the wrapper copies contiguous first); "unaligned", one element
+# past a 16-byte boundary.
+NORM_CASES = [
+    ((2, 4112, 2560), torch.bfloat16, torch.bfloat16, "dense"),  # 7B pre-norms
+    ((2, 4112, 3072), torch.bfloat16, torch.bfloat16, "dense"),  # 10B pre-norms
+    ((2, 10, 4112, 256), torch.bfloat16, None, "dense"),  # 7B QK-norm
+    ((2, 10, 4112, 256), torch.bfloat16, None, "transposed"),  # cross-attention q
+    ((1, 128, 4096), torch.float32, torch.float32, "dense"),  # T5-XXL tower
+    ((1, 128, 3584), torch.float32, torch.bfloat16, "dense"),  # Qwen2.5-VL-7B tower
+    ((2, 1040, 2560), torch.bfloat16, torch.float32, "dense"),  # fp32 weight
+    ((2, 333, 2560), torch.float32, torch.float32, "dense"),  # 2 chunks a thread
+    ((4, 33, 1024), torch.bfloat16, torch.bfloat16, "dense"),  # a warp a row, 4 chunks a lane
+    ((4, 33, 1024), torch.float32, None, "dense"),  # 256 chunks: a block a row
+    ((2, 5, 8192), torch.float32, torch.float32, "dense"),  # 4 chunks a thread
+    ((1, 3, 8200), torch.float32, torch.float32, "dense"),  # past 2048 chunks: a value a thread
+    ((4, 33, 128), torch.bfloat16, torch.bfloat16, "dense"),  # 128-wide heads
+    ((3, 37, 100), torch.bfloat16, torch.float32, "dense"),  # D % 8: a value a lane
+    ((3, 37, 1030), torch.float32, torch.bfloat16, "dense"),  # D % 4 over 1024
+    ((2, 77, 2560), torch.bfloat16, torch.bfloat16, "unaligned"),
+    ((2, 10, 128, 256), torch.bfloat16, None, "kv_slice"),  # 7B cross-attention k
+    ((2, 12, 128, 256), torch.float32, None, "kv_slice"),
+    ((2, 4096, 2560), torch.bfloat16, None, "head_slice"),  # 7B head
+    ((2, 40, 100), torch.bfloat16, torch.bfloat16, "head_slice"),  # strided, a value a lane
+]
+
+
+def _norm_inputs(shape, dtype, wdtype, layout, device, seed=0):
+    """x (3 N(0, 1) in `layout`), the weight (1 + 0.1 N(0, 1)) and an
+    upstream gradient (N(0, 1), contiguous), on `device`."""
+    gen = torch.Generator().manual_seed(seed)
+    d = shape[-1]
+    if layout == "transposed":
+        b, h, n, _ = shape
+        x = (3 * torch.randn(b, n, h, d, generator=gen)).to(device, dtype).transpose(1, 2)
+    elif layout == "kv_slice":
+        b, h, n, _ = shape
+        kv = (3 * torch.randn(b, n, 2, h, d, generator=gen)).to(device, dtype)
+        x = kv.permute(2, 0, 3, 1, 4)[0]
+    elif layout == "head_slice":
+        b, n, _ = shape
+        x = (3 * torch.randn(b, n + 16, d, generator=gen)).to(device, dtype)[:, 16:]
+    elif layout == "unaligned":
+        flat = (3 * torch.randn(int(np.prod(shape)) + 1, generator=gen)).to(device, dtype)
+        x = flat[1:].view(shape)
+    else:
+        x = (3 * torch.randn(shape, generator=gen)).to(device, dtype)
+    w = None if wdtype is None else (1 + 0.1 * torch.randn(d, generator=gen)).to(device, wdtype)
+    g = torch.randn(shape, generator=gen).to(device, dtype)
+    return x, w, g
+
+
+def _assert_norm_close(got, want, scale, what):
+    """Kernel against twin within `rms_norm.excess`'s bound (its docstring
+    gives the reasons for each dtype's)."""
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    worst = crn.excess(got, want, scale)
+    assert worst <= 0, f"{what}: the error exceeds its bound by {worst}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,wdtype,layout", NORM_CASES)
+def test_rms_norm_kernel_matches_plain(cuda_device, shape, dtype, wdtype, layout):
+    """`rms_norm` on the card (the kernel, forward and backward through its
+    autograd Function) against `rms_norm_plain` and `rms_norm_bwd_plain`
+    on the same card: y, dx and dw within `_assert_norm_close`; y keeps
+    x's layout where x is dense and is contiguous where the wrapper copied
+    x; one forward and one backward launch a call."""
+    from f_lite_tpu_torch.ops import norms
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    x, w, g = _norm_inputs(shape, dtype, wdtype, layout, cuda_device)
+    xa = x.detach().requires_grad_(True)
+    wa = None if w is None else w.detach().requires_grad_(True)
+    before = (crn.LAUNCHES.count, crn.BWD_LAUNCHES.count)
+    y = norms.rms_norm(xa, wa)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (crn.LAUNCHES.count - before[0], crn.BWD_LAUNCHES.count - before[1]) == (1, 1)
+    want = norms.rms_norm_plain(x, w)
+    if layout in ("dense", "transposed", "unaligned"):
+        assert crn.dense_rows(x) and y.stride() == x.stride() == want.stride()
+    else:  # copied contiguous first, y with it
+        assert not crn.dense_rows(x) and y.is_contiguous()
+    _assert_norm_close(y, want, want.float().abs(), "y")
+
+    dx, dw = norms.rms_norm_bwd_plain(x, w, g)
+    scale, dw_scale = crn.bwd_scales(x, w, g)
+    _assert_norm_close(xa.grad, dx, scale, "dx")
+    assert xa.grad.dtype == dtype
+    if w is not None:
+        assert wa.grad.dtype == wdtype
+        _assert_norm_close(wa.grad, dw, dw_scale, "dw")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,wdtype", [
+    ((2, 4112, 2560), torch.bfloat16, torch.bfloat16),
+    ((4, 33, 256), torch.float32, torch.float32),  # a warp a row
+    ((3, 37, 100), torch.bfloat16, torch.bfloat16),  # a value a lane
+])
+def test_rms_norm_kernel_repeats_bit_for_bit(cuda_device, shape, dtype, wdtype):
+    """Two backward calls on the same inputs give the same dx and dw, bit
+    for bit (dw's partial sums are added in a fixed order, no atomics); the
+    forward without grad equals the forward with it."""
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    x, w, g = _norm_inputs(shape, dtype, wdtype, "dense", cuda_device)
+    y, r = crn.rms_norm_fwd(x, w, with_rstd=True)
+    first = crn.rms_norm_bwd(x, w, r, g)
+    second = crn.rms_norm_bwd(x, w, r, g)
+    before = (crn.LAUNCHES.count, crn.BWD_LAUNCHES.count)
+    with torch.no_grad():
+        again = crn.rms_norm(x.requires_grad_(True), w)
+    assert (crn.LAUNCHES.count - before[0], crn.BWD_LAUNCHES.count - before[1]) == (1, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_rms_norm_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    x = torch.randn(4, 256, device=cuda_device)
+    before = crn.LAUNCHES.count
+    for bad in (x.half(), x.to(torch.int32)):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            crn.rms_norm(bad)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        crn.rms_norm(x, torch.ones(256, device=cuda_device, dtype=torch.float16))
+    with pytest.raises(ValueError, match="weight"):
+        crn.rms_norm(x, torch.ones(128, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        crn.rms_norm(x.cpu())
+    assert crn.LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+def test_dots_checkpointed_block_matches_the_unwrapped_block(cuda_device):
+    """The last block checkpointed under "dots" (the norms run again in the
+    backward, through the kernel) gives the unwrapped DiT's gradients, fp32:
+    the same kernels on the same values, so only the order in which
+    autograd adds a shared input's contributions (the modulation, the
+    context) may differ, by fp32 rounding (atol 1e-6, rtol 1e-5)."""
+    from f_lite_tpu_torch.ops.cuda import rms_norm as crn
+
+    cfg, cpu, args, weight = _small_dit_and_inputs()
+    grads, counts = {}, {}
+    for name, extra in (("none", {}), ("dots", {"gradient_checkpoint": True,
+                                                "gradient_checkpoint_from": cfg.depth - 1,
+                                                "remat_policy": "dots"})):
+        gpu = DiT(dataclasses.replace(cfg, **extra))
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to(cuda_device)
+        before = (crn.LAUNCHES.count, crn.BWD_LAUNCHES.count)
+        (gpu(*(a.to(cuda_device) for a in args)) * weight.to(cuda_device)).sum().backward()
+        torch.cuda.synchronize()
+        counts[name] = (crn.LAUNCHES.count - before[0], crn.BWD_LAUNCHES.count - before[1])
+        grads[name] = {n: p.grad for n, p in gpu.named_parameters()}
+    # the block's norms run again in the recompute; each backward runs once
+    assert counts["dots"][0] > counts["none"][0]
+    assert counts["dots"][1] == counts["none"][1] > 0
+    for name, g in grads["none"].items():
+        assert grads["dots"][name] is not None, name
+        torch.testing.assert_close(grads["dots"][name], g, atol=1e-6, rtol=1e-5,
+                                   msg=lambda m, n=name: f"{n}: {m}")

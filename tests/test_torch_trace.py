@@ -19,6 +19,8 @@ from f_lite_tpu_torch.models.dit import DiT, DiTConfig
 from f_lite_tpu_torch.ops.cuda import flash_attention as fa
 from f_lite_tpu_torch.ops.cuda import flash_variants as fv
 from f_lite_tpu_torch.ops.cuda import int8_gemm as ig
+from f_lite_tpu_torch.ops import norms
+from f_lite_tpu_torch.ops.cuda import rms_norm as rn
 from f_lite_tpu_torch.pipeline import FLitePipeline
 from f_lite_tpu_torch.text.encoder import ZeroTextEncoder
 from f_lite_tpu_torch.train.loss import LossDraws
@@ -138,6 +140,17 @@ def test_launch_counters_are_the_registry_objects():
     assert fa.DQ_LAUNCHES is reg["flash_bwd_dq"] and fa.DKV_LAUNCHES is reg["flash_bwd_dkv"]
     assert ig.QUANTIZE_LAUNCHES is reg["int8_quantize"] and ig.GEMM_LAUNCHES is reg["int8_gemm"]
     assert fv.LAUNCHES is reg["flash_variants"]
+
+
+def test_rms_norm_counters_are_registry_objects_untouched_on_the_cpu():
+    """The RMSNorm kernel's counters live in the registry; the CPU path
+    (the plain twin) launches nothing, so neither moves there."""
+    reg = trace.COUNTERS
+    assert rn.LAUNCHES is reg["rms_norm"] and rn.BWD_LAUNCHES is reg["rms_norm_bwd"]
+    before = (rn.LAUNCHES.count, rn.BWD_LAUNCHES.count)
+    x = torch.randn(3, 8, requires_grad=True)
+    norms.rms_norm(x, torch.ones(8)).sum().backward()
+    assert (rn.LAUNCHES.count, rn.BWD_LAUNCHES.count) == before
 
 
 def test_waits_counts_seconds_and_spans_each_wait():
